@@ -1,0 +1,86 @@
+"""Plain PyTorch version of kernel B1 (port of ``_kernel_impl`` /
+``_unpack_dequant`` in ``repro/kernels/quant_attention/quant_attention.py``).
+
+Follows the TPU kernel tile by tile: an online softmax over ``blk``-token
+tiles of the packed cache (tiles at or past a row's ``packed_len``
+skipped, positions masked ``< packed_len`` with the -1e30 sentinel), then
+the fp32 residual window (positions ``packed_len + i``, masked ``<
+total_len``) folded in with the same update, then ``acc / max(l, 1e-30)``.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["quant_decode_attention_ref", "unpack_dequant", "row_lengths"]
+
+NEG = -1e30
+
+
+def unpack_dequant(p: torch.Tensor, scales: torch.Tensor, group: int
+                   ) -> torch.Tensor:
+    """(..., n, d//2) uint8 + (..., n, d//group) -> (..., n, d) f32."""
+    pi = p.to(torch.int32)
+    low, high = pi & 0xF, (pi >> 4) & 0xF
+    low = torch.where(low >= 8, low - 16, low)
+    high = torch.where(high >= 8, high - 16, high)
+    d = p.shape[-1] * 2
+    codes = torch.stack([low, high], dim=-1).reshape(*p.shape[:-1], d)
+    y = codes.float().reshape(*p.shape[:-1], d // group, group)
+    return (y * scales[..., None]).reshape(*p.shape[:-1], d)
+
+
+def row_lengths(x, rows: int, device) -> torch.Tensor:
+    """A scalar (int or 0-d tensor) or per-row (rows,) length -> (rows,) i32."""
+    t = torch.as_tensor(x, dtype=torch.int32, device=device)
+    return t.reshape(-1).expand(rows)
+
+
+def quant_decode_attention_ref(
+    q_eff: torch.Tensor,  # (BH, G, d) f32: rotation, 1/lam_k, scale folded
+    k_packed: torch.Tensor,  # (BH, S, d//2) uint8
+    k_scales: torch.Tensor,  # (BH, S, d//group) f32
+    v_packed: torch.Tensor,
+    v_scales: torch.Tensor,
+    k_residual: torch.Tensor,  # (BH, W, d) f32, rotated space
+    v_residual: torch.Tensor,
+    packed_len,  # int, () or (BH,)
+    total_len,
+    *,
+    group: int = 32,
+    blk: int = 256,
+) -> torch.Tensor:
+    """Returns out_rot (BH, G, d) f32 in rotated space."""
+    BH, G, d = q_eff.shape
+    S, W = k_packed.shape[1], k_residual.shape[1]
+    dev = q_eff.device
+    plen = row_lengths(packed_len, BH, dev)
+    tlen = row_lengths(total_len, BH, dev)
+    q = q_eff.float()
+    m = torch.full((BH, G, 1), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((BH, G, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((BH, G, d), dtype=torch.float32, device=dev)
+
+    def update(m, l, acc, kd, vd, mask):  # kd/vd (BH, n, d), mask (BH, n)
+        logits = q @ kd.transpose(-1, -2)  # (BH, G, n)
+        logits = torch.where(mask[:, None, :], logits, NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        corr = torch.exp(m - m_new)
+        return (m_new, l * corr + p.sum(dim=-1, keepdim=True),
+                acc * corr + p @ vd)
+
+    blk = min(blk, S)
+    n_live = -(-int(plen.max()) // blk) if BH else 0
+    for s in range(n_live):
+        lo, hi = s * blk, min(s * blk + blk, S)
+        kd = unpack_dequant(k_packed[:, lo:hi], k_scales[:, lo:hi], group)
+        vd = unpack_dequant(v_packed[:, lo:hi], v_scales[:, lo:hi], group)
+        pos = torch.arange(lo, hi, device=dev)
+        new = update(m, l, acc, kd, vd, pos[None, :] < plen[:, None])
+        live = (lo < plen)[:, None, None]  # skip tiles past packed_len
+        m, l, acc = (torch.where(live, a, b) for a, b in zip(new, (m, l, acc)))
+
+    pos_r = plen[:, None] + torch.arange(W, device=dev)[None, :]
+    m, l, acc = update(m, l, acc, k_residual.float(), v_residual.float(),
+                       pos_r < tlen[:, None])
+    return acc / l.clamp_min(1e-30)

@@ -1,0 +1,98 @@
+"""Wrapper for kernel B3, the fused rotate + quantize + pack (port of
+``repro/kernels/srft_quant/ops.py:27``).
+
+On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
+CUDA tensor it launches ``csrc/srft_quant.cu`` or raises.  ``launches``
+counts kernel launches (plain-version calls do not count).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.srft_quant.ref import srft_quant_ref
+
+__all__ = ["srft_quant", "rotate_quantize", "quantize_rotated", "launches"]
+
+launches = 0  # kernel launches since the caller last set this to 0
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        lib = _build.library("srft_quant")
+        fn = lib.srft_quant_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, P, P, P, P, I, I, I, I, P]
+        fn.restype = I
+        _FN = (lib, fn)
+    return _FN
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, m, lam, group, bits):
+    global launches
+    n, d = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous fp32/bf16, got {x.dtype}")
+    if d % 2 or d % group or group % 2 or d > 256 or bits not in (4, 8):
+        raise ValueError(f"unsupported d={d} group={group} bits={bits}")
+    for name, t, shape in (("m", m, (d, d)), ("lam", lam, (d,))):
+        if t is None:
+            continue
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 {shape} on "
+                             f"{x.device}")
+    out = torch.empty((n, d // 2) if bits == 4 else (n, d),
+                      dtype=torch.uint8 if bits == 4 else torch.int8,
+                      device=x.device)
+    scales = torch.empty((n, d // group), dtype=torch.float32, device=x.device)
+    lib, fn = _fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(m),
+                _ptr(lam), out.data_ptr(), scales.data_ptr(), n, d, group,
+                bits, stream)
+    _build.check(lib, "srft_quant", rc)
+    launches += 1
+    return out, scales
+
+
+def srft_quant(x: torch.Tensor, m: Optional[torch.Tensor],
+               lam: Optional[torch.Tensor] = None, *, group: int = 32,
+               bits: int = 4):
+    """x (N, d) -> (packed, scales); see ``ref.srft_quant_ref``."""
+    if x.device.type == "cpu":
+        return srft_quant_ref(x, m, lam, group=group, bits=bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"srft_quant runs on cpu or cuda, not {x.device}")
+    return _launch(x, m, lam, group, bits)
+
+
+def _flat(fn, x: torch.Tensor, *args, group: int, bits: int):
+    lead, d = x.shape[:-1], x.shape[-1]
+    packed, scales = fn(x.reshape(-1, d).contiguous(), *args, group=group,
+                        bits=bits)
+    return (packed.reshape(*lead, packed.shape[-1]),
+            scales.reshape(*lead, d // group))
+
+
+def rotate_quantize(x: torch.Tensor, rot, *, group: int = 32, bits: int = 4):
+    """x (..., d) raw -> codes of ``rot.forward(x)``: (packed, scales).
+
+    The rotation matrix goes in unfolded and lambda as the epilogue, the
+    order of ``Rotation.forward``, so the bytes are the cache's."""
+    return _flat(srft_quant, x, rot.matrix, rot.lam, group=group, bits=bits)
+
+
+def quantize_rotated(y: torch.Tensor, *, group: int = 32, bits: int = 4):
+    """y (..., d) already rotated -> (packed, scales): the W-flush."""
+    return _flat(srft_quant, y, None, None, group=group, bits=bits)

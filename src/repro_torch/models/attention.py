@@ -1,0 +1,86 @@
+"""Attention layer: GQA + RoPE + optional qk_norm / QKV bias, with the two
+serving paths behind the cache-policy protocol (port of
+``repro/models/attention.py``):
+
+  * prefill : blockwise flash attention on the raw bf16 K/V; K/V are also
+              written into the cache through its policy;
+  * decode  : one token -- append first, then attend, so the new token
+              is read back from the residual window.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.cache_api import AttendBackend, CacheState
+from repro_torch.models import common
+from repro_torch.models.flash import flash_attention
+
+__all__ = ["attention_init", "attention_forward", "attention_decode"]
+
+
+def attention_init(generator: torch.Generator, cfg, device="cpu"):
+    d, hd = cfg.d_model, cfg.head_dim
+
+    def mk(d_in, d_out, bias=False):
+        return common.dense_init(generator, d_in, d_out, bias=bias,
+                                 device=device)
+
+    p = {
+        "wq": mk(d, (cfg.n_heads, hd), cfg.qkv_bias),
+        "wk": mk(d, (cfg.n_kv_heads, hd), cfg.qkv_bias),
+        "wv": mk(d, (cfg.n_kv_heads, hd), cfg.qkv_bias),
+        "wo": mk(cfg.n_heads * hd, d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = common.rmsnorm_init(hd, device)
+        p["k_norm"] = common.rmsnorm_init(hd, device)
+    return p
+
+
+def _project_qkv(p, x, cfg, positions):
+    """x (B,S,d) -> q (B,Hq,S,hd), k/v (B,Hkv,S,hd), post qk_norm + RoPE."""
+    q = common.dense(p["wq"], x).permute(0, 2, 1, 3)
+    k = common.dense(p["wk"], x).permute(0, 2, 1, 3)
+    v = common.dense(p["wv"], x).permute(0, 2, 1, 3)
+    if cfg.qk_norm:
+        q = common.rmsnorm(p["q_norm"], q, eps=cfg.norm_eps)
+        k = common.rmsnorm(p["k_norm"], k, eps=cfg.norm_eps)
+    if cfg.rope_theta:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _merge_heads(p, o):
+    """(B,H,S,hd) -> (B,S,d) via the output projection."""
+    B, H, S, hd = o.shape
+    return common.dense(p["wo"], o.permute(0, 2, 1, 3).reshape(B, S, H * hd))
+
+
+def attention_forward(p, x: torch.Tensor, cfg, *, q_offset: int = 0,
+                      kv_block: int = 1024,
+                      cache: Optional[CacheState] = None):
+    """Full-sequence attention (prefill).  Returns (y, cache); the cache,
+    if given, is filled in place through its policy."""
+    S = x.shape[1]
+    positions = q_offset + torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if cache is not None:
+        cache = cache.policy.prefill(cache, k, v)
+    o = flash_attention(q, k, v, q_offset=q_offset, kv_block=kv_block,
+                        scale=cfg.head_dim ** -0.5)
+    return _merge_heads(p, o), cache
+
+
+def attention_decode(p, x: torch.Tensor, cfg, cache: CacheState, *,
+                     position: int, kv_block: int = 512,
+                     backend: "AttendBackend | str | None" = None):
+    """One-token decode (x (B, 1, d)) against the cache.  Returns (y, cache)."""
+    pos = torch.tensor([position], device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, pos)
+    cache = cache.policy.update(cache, k, v)
+    o = cache.policy.attend(q, cache, scale=cfg.head_dim ** -0.5,
+                            backend=backend, kv_block=kv_block)
+    return _merge_heads(p, o), cache

@@ -1,0 +1,159 @@
+"""Decoder-only LM, dense family (port of the dense branch of
+``repro/models/lm.py``): ``init``, ``init_cache``, ``prefill``,
+``decode_step`` and ``decode_body``.
+
+The reference's ``lax.scan`` over stacked layers becomes a Python loop
+over a list of per-layer parameter dicts and a list of per-layer cache
+states; caches are preallocated and updated in place, and ``pos`` is a
+Python int shared by every row.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cache_api
+from repro_torch.core.transforms import Rotation
+from repro_torch.models import attention, common, ffn
+
+__all__ = ["LM"]
+
+
+class LM:
+    """Functional model: params and caches are plain containers of tensors.
+
+    ``device`` defaults to ``cuda`` and raises without a card; CPU runs
+    pass ``device="cpu"``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the port serves the dense family so far (got {cfg.family})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------ init
+    def generator(self, seed: int) -> torch.Generator:
+        """A seeded generator on the model's device."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _block_init(self, g: torch.Generator) -> dict:
+        cfg, dev = self.cfg, self.device
+        return {
+            "ln_attn": common.rmsnorm_init(cfg.d_model, dev),
+            "attn": attention.attention_init(g, cfg, dev),
+            "ln_ffn": common.rmsnorm_init(cfg.d_model, dev),
+            "ffn": ffn.ffn_init(g, cfg.d_model, cfg.d_ff, cfg.ffn_activation,
+                                dev),
+        }
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters; ``params["blocks"]`` is a per-layer list."""
+        cfg, dev = self.cfg, self.device
+        params: dict[str, Any] = {
+            "embed": common.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                       dev),
+            "ln_final": common.rmsnorm_init(cfg.d_model, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = common.dense_init(
+                generator, cfg.d_model, cfg.vocab_size, device=dev)
+        params["blocks"] = [self._block_init(generator)
+                            for _ in range(cfg.n_layers)]
+        return params
+
+    # ----------------------------------------------------------------- cache
+    def cache_policy(self, policy=None):
+        return cache_api.policy_from_config(self.cfg, policy)
+
+    def init_cache(self, batch: int, s_max: int, *, policy=None,
+                   rots: Optional[list[tuple[Rotation, Rotation]]] = None,
+                   generator: Optional[torch.Generator] = None) -> dict:
+        """Fresh serving cache: ``{"pos": 0, "attn": [CacheState] * L}``.
+        Rotations come from ``generator`` or, given ``rots`` (one (k, v)
+        pair per layer), are embedded as they are."""
+        cfg = self.cfg
+        pol = self.cache_policy(policy)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        attn = []
+        for i in range(cfg.n_layers):
+            st = pol.init_state(batch, cfg.n_kv_heads, s_max, cfg.head_dim,
+                                generator=generator, device=self.device)
+            if rots is not None:
+                st = pol.with_rotations(st, *rots[i])
+            attn.append(st)
+        return {"pos": 0, "attn": attn}
+
+    # ------------------------------------------------------------- embedding
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"]["embedding"][tokens].to(common.COMPUTE_DTYPE)
+        if cfg.embed_scale:
+            x = x * torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype)
+        return x
+
+    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = common.rmsnorm(params["ln_final"], x, eps=cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return common.matmul(x, params["embed"]["embedding"].T)
+        return common.dense(params["unembed"], x).float()
+
+    # ---------------------------------------------------------- block bodies
+    def _ffn(self, p, x):
+        h_in = common.rmsnorm(p["ln_ffn"], x, eps=self.cfg.norm_eps)
+        return x + ffn.ffn_apply(p["ffn"], h_in, self.cfg.ffn_activation)
+
+    def _block_prefill(self, p, x, cache, *, kv_block=1024):
+        h, cache = attention.attention_forward(
+            p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
+            self.cfg, cache=cache, kv_block=kv_block)
+        return self._ffn(p, x + h), cache
+
+    def _block_decode(self, p, x, cache, *, position, kv_block=512,
+                      backend=None):
+        h, cache = attention.attention_decode(
+            p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
+            self.cfg, cache, position=position, kv_block=kv_block,
+            backend=backend)
+        return self._ffn(p, x + h), cache
+
+    # --------------------------------------------------------------- serving
+    def prefill(self, params, tokens: torch.Tensor, cache: dict, *,
+                kv_block: int = 1024):
+        """tokens (B, S) -> (last-token logits (B, 1, V) fp32, cache)."""
+        x = self._embed(params, tokens)
+        for i, p in enumerate(params["blocks"]):
+            x, cache["attn"][i] = self._block_prefill(p, x, cache["attn"][i],
+                                                      kv_block=kv_block)
+        cache["pos"] = tokens.shape[1]
+        return self._unembed(params, x[:, -1:]), cache
+
+    def decode_step(self, params, token: torch.Tensor, cache: dict, *,
+                    kv_block: int = 512, backend=None):
+        """token (B, 1) -> (logits (B, 1, V) fp32, cache).  ``backend``
+        (AttendBackend or its value) picks the read path; None = GATHER."""
+        pos = cache["pos"]
+        x = self._embed(params, token)
+        for i, p in enumerate(params["blocks"]):
+            x, cache["attn"][i] = self._block_decode(
+                p, x, cache["attn"][i], position=pos, kv_block=kv_block,
+                backend=backend)
+        cache["pos"] = pos + 1
+        return self._unembed(params, x), cache
+
+    def decode_body(self, params, *, kv_block: int = 512, backend=None):
+        """``(cache, token) -> (cache, logits)`` with the knobs closed over
+        (the engine's loop body)."""
+
+        def body(cache, token):
+            logits, cache = self.decode_step(params, token, cache,
+                                             kv_block=kv_block,
+                                             backend=backend)
+            return cache, logits
+
+        return body
