@@ -14,7 +14,19 @@ Phases (any failure exits non-zero):
      of 517, 2055 and 4093 prompt tokens (64 new tokens each) through the
      int4-srft cache (KERNEL read) and, as context, the bf16 cache; the
      kernels' launch counters are zeroed just before and read just after;
-  6. one request again under the GATHER read, held against KERNEL.
+  6. one request again under the GATHER read, held against KERNEL;
+  7. batch serving: the same model through ``BatchEngine`` (capacity 4,
+     prompts of 517 / 1031 / 2055 / 4093 tokens with 40 / 24 / 32 / 16 new
+     tokens, and two requests sharing a 1024-token page-aligned prefix),
+     over the paged pool (int4 KERNEL read through B2) and the dense
+     ragged slot cache (B1), and under bf16 GATHER both ways; paged and
+     dense streams must be equal for rows that map no shared page, every
+     stream must agree with the request served alone
+     (``Engine.generate``) up to a near-tie, shared prefix pages must
+     carry one reference per sharer, an undersized pool must preempt and
+     still complete every request, and every page must come back.  The
+     launch counters are zeroed just before the paged int4 run and read
+     just after.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -34,6 +46,11 @@ ROOT = Path(__file__).resolve().parent
 PROMPTS = (517, 2055, 4093)
 NEW_TOKENS = 64
 S_MAX = 4608
+BATCH_PROMPTS = (517, 1031, 2055, 4093)
+BATCH_NEW = (40, 24, 32, 16)
+SHARED_PREFIX, SHARER_TAIL, SHARER_NEW = 1024, 8, 24
+PAGE_SIZE, CAPACITY, CHUNK = 16, 4, 8
+DEV = "cuda"  # the batch phase and the B2 check place everything here
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -253,7 +270,74 @@ def kernel_phase(flush):
                     max_abs_err=max(err, err_r), ms=ms, plain_ms=plain,
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     wall_ms=ms_wall))
+    out.append(check_b2(flush, g, Hkv, G, d, group, W))
     return out
+
+
+def check_b2(flush, g, H, G, d, group, W):
+    """B2 at the batch path's shapes: rows at the batch prompts' lengths
+    plus a retired row of length 0, pages shuffled.  Against its plain
+    version (B1_ATOL) and against B1 on the gathered view (bitwise), then
+    both timed on the same bytes."""
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.quant_attention import ref as qa_ref
+
+    lengths = BATCH_PROMPTS + (0,)
+    ps, MP = PAGE_SIZE, S_MAX // PAGE_SIZE
+    need = [-(-n // ps) for n in lengths]
+    n_pages = sum(need) + 1
+    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(SEED)) + 1).tolist()
+    table = torch.zeros((len(lengths), MP), dtype=torch.int32)
+    for b, n in enumerate(need):
+        table[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+    table = table.to(DEV)
+    N, BH = n_pages * H, len(lengths) * H
+    q = torch.randn((BH, G, d), generator=g, device=DEV) * 0.1
+    pools = []
+    for _ in "kv":  # codes and scales of K, then of V
+        pools += [torch.randint(0, 256, (N, ps, d // 2), generator=g,
+                                device=DEV, dtype=torch.uint8),
+                  torch.rand((N, ps, d // group), generator=g,
+                             device=DEV) * 0.3]
+    kr = torch.randn((BH, W, d), generator=g, device=DEV)
+    vr = torch.randn((BH, W, d), generator=g, device=DEV)
+    L = torch.tensor(lengths, dtype=torch.int32, device=DEV
+                     ).repeat_interleave(H)
+    plen = (L - L % W).int()
+    kw = dict(group=group, page_size=ps, n_kv_heads=H)
+    args = (q, *pools, kr, vr, plen, L, table)
+    got = qa_ops.quant_decode_attention_paged(*args, **kw)
+    want = qa_ref.quant_decode_attention_paged_ref(
+        *args, group=group, n_kv_heads=H)
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= B1_ATOL, f"B2 err {err}"
+    rows = [qa_ref.paged_rows(t, table, H).contiguous() for t in pools]
+    dense_args = (q, *rows, kr, vr, plen, L)
+    dense = qa_ops.quant_decode_attention(*dense_args, group=group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense), "B2 != B1 on the gathered view"
+    call = lambda: qa_ops.quant_decode_attention_paged(*args, **kw)  # noqa
+    ms, ms_wall = device_ms(call, flush), wall_ms(call)
+    b1_ms = device_ms(lambda: qa_ops.quant_decode_attention(
+        *dense_args, group=group), flush)
+    plain = device_ms(lambda: qa_ref.quant_decode_attention_paged_ref(
+        *args, group=group, n_kv_heads=H), flush)
+    n_tok = int(plen.sum())  # packed tokens this input's rows hold
+    nbytes = (2 * BH * G * d * 4 + 2 * n_tok * (d // 2 + d // group * 4)
+              + 2 * BH * W * d * 4 + table.numel() * 4 + 2 * BH * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * G * d * (n_tok + BH * W))
+    log(f"B2 paged read rows={lengths} H={H} G={G} d={d} page_size={ps} "
+        f"(shuffled table): max abs err {err:.3e} (tol {B1_ATOL}); equal "
+        f"to B1 on the gathered view; B2 {ms:.4f} ms, B1 on the same bytes "
+        f"{b1_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(name="quant_decode_attention_paged", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_attention.cu",
+                replaces="src/repro/kernels/quant_attention/"
+                         "quant_attention.py:228",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, wall_ms=ms_wall,
+                b1_same_bytes_ms=b1_ms)
 
 
 # ------------------------------------------------------------------ model
@@ -434,6 +518,244 @@ def main_path_phase():
     for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
         log("decode profile " + json.dumps(profile_decode(
             model, params, policy, backend, PROMPTS[-1])))
+    return launches, model, params
+
+
+# ---------------------------------------------------------- batch serving
+
+def _counters():
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.srft_quant import ops as sq_ops
+
+    return {"srft_quant": sq_ops.launches,
+            "quant_decode_attention": qa_ops.launches,
+            "quant_decode_attention_paged": qa_ops.paged_launches}
+
+
+def _zero_counters():
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.srft_quant import ops as sq_ops
+
+    sq_ops.launches = qa_ops.launches = qa_ops.paged_launches = 0
+
+
+def batch_requests(vocab):
+    """Two sharers of a 1024-token page-aligned prefix (submitted first,
+    so both are resident after the first step), then the four ragged
+    requests."""
+    from repro_torch.launch.batch_engine import Request
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    prefix = torch.randint(0, vocab, (SHARED_PREFIX,), generator=g)
+    reqs = [Request(i, torch.cat([prefix, torch.randint(
+        0, vocab, (SHARER_TAIL,), generator=g)]).numpy(), SHARER_NEW)
+        for i in range(2)]
+    reqs += [Request(2 + i, torch.randint(0, vocab, (n,), generator=g)
+                     .numpy(), m)
+             for i, (n, m) in enumerate(zip(BATCH_PROMPTS, BATCH_NEW))]
+    return reqs
+
+
+def serve_batch(model, params, policy, backend, paged, reqs, *,
+                capacity=CAPACITY, n_pages=None, after_first_step=None):
+    """Run ``reqs`` through a BatchEngine.  Returns (engine, completions by
+    rid, report): decode ms per step (host clock around each decode chunk,
+    which ends in a readback), per-request ms per token (first to last
+    token), cache or pool bytes."""
+    from repro_torch.launch.batch_engine import BatchEngine
+
+    eng = BatchEngine(model, params, capacity=capacity, s_max=S_MAX,
+                      policy=policy, backend=backend, chunk=CHUNK,
+                      paged=paged, page_size=PAGE_SIZE, n_pages=n_pages,
+                      device=DEV)
+    chunks = []
+    decode_chunk = eng._decode_chunk
+
+    def timed(n):
+        t = time.perf_counter()
+        out = decode_chunk(n)
+        chunks.append((n, time.perf_counter() - t))
+        return out
+
+    eng._decode_chunk = timed
+    for r in reqs:
+        eng.submit(r)
+    first, last, done = {}, {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_steps = 0
+    while eng.has_work:
+        events, comps = eng.step()
+        now = time.perf_counter()
+        for rid, toks in events:
+            if toks:
+                first.setdefault(rid, now)
+                last[rid] = now
+        done.update({c.rid: c for c in comps})
+        if n_steps == 0 and after_first_step is not None:
+            after_first_step(eng)
+        n_steps += 1
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        c = done[r.rid]
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+        assert c.finish_reason == "length" and c.prompt_len == len(r.prompt)
+    report = dict(
+        policy=policy, backend=backend or "gather",
+        layout="paged" if paged else "dense", capacity=capacity,
+        wall_s=wall,
+        decode_ms_per_step=sum(t for _, t in chunks) * 1e3
+        / sum(n for n, _ in chunks),
+        ms_per_token={r.rid: (last[r.rid] - first[r.rid]) * 1e3
+                      / max(r.max_new_tokens - 1, 1) for r in reqs},
+        cache_bytes=sum(st.nbytes() for st in eng.cache["attn"]))
+    if paged:
+        stats = eng.pool_stats()
+        assert stats["pages_used"] == 0, "pages leaked"
+        report.update(peak_pages=stats["peak_pages"],
+                      preemptions=stats["preemptions"],
+                      page_bytes=stats["pool_bytes"] / (stats["n_pages"] + 1))
+    return eng, done, report
+
+
+def profile_batch_decode(model, params, policy, backend, paged):
+    """One decode chunk of the four ragged requests, all resident, under
+    torch.profiler: wall ms per step (host clock, inflated by the
+    profiler), device-busy ms per step, idle share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.batch_engine import BatchEngine
+
+    eng = BatchEngine(model, params, capacity=CAPACITY, s_max=S_MAX,
+                      policy=policy, backend=backend, chunk=CHUNK,
+                      paged=paged, page_size=PAGE_SIZE, device=DEV)
+    for r in batch_requests(model.cfg.vocab_size)[2:]:
+        eng.submit(r)
+    eng.step()  # admits all four and decodes one chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        events, _ = eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / CHUNK
+    assert len(events) == CAPACITY and eng.pending == 0
+    eng.cancel_all()
+    us = _kernel_us(prof)
+    busy = sum(us.values()) / 1e3 / CHUNK
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    return dict(policy=policy, backend=backend or "gather",
+                layout="paged" if paged else "dense", rows=CAPACITY,
+                wall_ms_per_step=wall, device_busy_ms_per_step=busy,
+                idle_share=1 - busy / wall,
+                top_kernels_ms_per_step=[(k[:60], v / 1e3 / CHUNK)
+                                         for k, v in top])
+
+
+def forced_logits(model, params, policy, backend, prompt, toks, rots):
+    """One request alone, teacher-forced on ``toks``: (1, n, V) logits of
+    every step, for the near-tie rule."""
+    cache = model.init_cache(1, S_MAX, policy=policy, rots=rots)
+    lg, cache = model.prefill(
+        params, torch.as_tensor(prompt, device=DEV)[None].long(), cache)
+    out = [lg[:, -1].float()]
+    for t in toks[:-1]:
+        lg, cache = model.decode_step(
+            params, torch.tensor([[int(t)]], device=DEV), cache,
+            backend=backend)
+        out.append(lg[:, -1].float())
+    return torch.stack(out, 1).cpu()
+
+
+def _tie_check(ref, got, logits, what) -> int:
+    n = _agree_until(torch.as_tensor(ref)[None], torch.as_tensor(got)[None],
+                     logits)
+    log(f"  {what}: tokens agree for {n}/{len(ref)} steps")
+    return n
+
+
+def batch_phase(model, params):
+    """(a) paged vs dense, (b) batched vs alone, (c) COW refcounts, (d)
+    preemption, (e) no page leaks.  Returns launches per kernel on the
+    paged and dense int4 batch paths."""
+    from repro_torch.launch.engine import Engine
+
+    reqs = batch_requests(model.cfg.vocab_size)
+    n_prefix_pages = SHARED_PREFIX // PAGE_SIZE
+    sharer_b = 1  # the request that maps the first sharer's prefix pages
+
+    def check_cow(eng):
+        st = eng.pool_stats()
+        slot_a = next(s for s, r in enumerate(eng._slot_req)
+                      if r is not None and r.rid == 0)
+        pages = eng._ptab_host[slot_a, :n_prefix_pages]
+        rc = eng._refcount_host[pages]
+        live = [r for r in eng._slot_req if r is not None]
+        no_share = sum(eng._pages_needed(len(r.prompt), r.max_new_tokens)
+                       for r in live)
+        assert (rc == 2).all(), f"prefix refcounts {set(rc.tolist())} != 2"
+        assert st["shared_pages"] == n_prefix_pages, st["shared_pages"]
+        assert st["pages_used"] < no_share, (st["pages_used"], no_share)
+        log(f"  COW: {n_prefix_pages} prefix pages at refcount 2, "
+            f"{st['pages_used']} pages used vs {no_share} unshared")
+
+    runs, launches = {}, {}
+    for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
+        for paged in (True, False):
+            _zero_counters()
+            eng, done, rep = serve_batch(
+                model, params, policy, backend, paged, reqs,
+                after_first_step=check_cow if paged else None)
+            if policy == "int4-srft":
+                launches["batch_paged" if paged else "batch_dense"] = \
+                    _counters()
+            runs[policy, paged] = (eng, done)
+            log("batch " + json.dumps(rep))
+        (_, pag), (eng_d, den) = runs[policy, True], runs[policy, False]
+        for r in reqs:  # (a)
+            if r.rid != sharer_b:
+                assert (pag[r.rid].tokens == den[r.rid].tokens).all(), \
+                    f"{policy}: paged != dense for request {r.rid}"
+        _tie_check(den[sharer_b].tokens, pag[sharer_b].tokens, forced_logits(
+            model, params, policy, backend, reqs[sharer_b].prompt,
+            den[sharer_b].tokens, eng_d._rots), f"{policy} COW sharer")
+        log(f"  {policy}: paged == dense for every request that maps no "
+            f"shared page")
+        for r in reqs:  # (b)
+            cache = model.init_cache(1, S_MAX, policy=policy,
+                                     rots=eng_d._rots)
+            toks, lg, _ = Engine(model, backend=backend).generate(
+                params, torch.as_tensor(r.prompt, device=DEV)[None].long(),
+                cache, r.max_new_tokens, return_logits=True)
+            _tie_check(toks[0].cpu(), den[r.rid].tokens, lg.cpu(),
+                       f"{policy} request {r.rid} batched vs alone")
+    paged_l, dense_l = launches["batch_paged"], launches["batch_dense"]
+    assert paged_l["quant_decode_attention_paged"] > 0, paged_l
+    assert paged_l["quant_decode_attention"] == 0, paged_l
+    assert dense_l["quant_decode_attention"] > 0, dense_l
+    log(f"batch-path launches: paged {paged_l}, dense {dense_l}")
+
+    # (d) an undersized pool: one full row of pages, two rows' need
+    small = [r for r in reqs if len(r.prompt) in (BATCH_PROMPTS[0],
+                                                  BATCH_PROMPTS[-1])]
+    eng, got, rep = serve_batch(model, params, "int4-srft", "kernel", True,
+                                small, capacity=2,
+                                n_pages=S_MAX // PAGE_SIZE + 1)
+    log("batch " + json.dumps(rep))
+    assert eng.n_preemptions > 0, "the undersized pool did not preempt"
+    eng_d, den = runs["int4-srft", False]
+    for r in small:
+        _tie_check(den[r.rid].tokens, got[r.rid].tokens, forced_logits(
+            model, params, "int4-srft", "kernel", r.prompt,
+            den[r.rid].tokens, eng_d._rots),
+            f"preempted request {r.rid} vs dense")
+    log(f"  preemption: {eng.n_preemptions} preemptions, every request "
+        f"complete, no page left in use")
+    for policy, backend, paged in (("int4-srft", "kernel", True),
+                                   ("int4-srft", "kernel", False),
+                                   ("bf16", None, True)):
+        log("batch decode profile " + json.dumps(profile_batch_decode(
+            model, params, policy, backend, paged)))
     return launches
 
 
@@ -472,9 +794,17 @@ def main() -> int:
     flush = L2Flush()
     kernels = kernel_phase(flush)
     small_reference_phase()
-    launches = main_path_phase()
+    launches, model, params = main_path_phase()
+    t0 = time.perf_counter()
+    batch = batch_phase(model, params)
+    log(f"batch phase {time.perf_counter() - t0:.1f}s")
+    by_path = {"engine": launches, **batch}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: c.get(k["name"], 0)
+                                 for p, c in by_path.items()}
+        own = "batch_paged" if k["name"].endswith("_paged") else "engine"
+        k["launches"] = k["launches_by_path"][own]
+        assert k["launches"] > 0, f"{k['name']} never launched on its path"
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

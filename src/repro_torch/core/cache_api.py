@@ -1,7 +1,8 @@
 """KV-cache policies behind one protocol (port of
 ``repro/core/cache_api.py``: ``AttendBackend``, ``CacheState``, the
-registry, ``policy_from_config``, ``BF16Policy`` and ``Int4SRFTPolicy``;
-dense non-ragged lifecycle only).
+registry, ``policy_from_config``, ``BF16Policy`` (:564-736) and
+``Int4SRFTPolicy`` (:763-1100); the dense, ragged and paged lifecycles of
+monolithic admission and decode).
 
     pol   = get_policy("int4-srft", group=32, window=16)
     state = pol.init_state(B, Hkv, S_max, d, generator=g, device=dev)
@@ -9,9 +10,17 @@ dense non-ragged lifecycle only).
     state = pol.update(state, k, v)           # decode append (in place)
     out   = pol.attend(q, state, backend=AttendBackend.KERNEL)
 
+Continuous batching: ``init_state(..., ragged=True)`` gives per-row
+``(B,)`` lengths (``update(..., active=)`` masks finished rows;
+``insert_row`` copies a prefilled batch-1 row into a slot; ``reset_rows``
+retires slots), and ``init_paged(..., n_pages, page_size)`` a paged pool
+(``core/paged.py``) filled by ``insert_row_paged``.  The int4 KERNEL read
+of a paged state is kernel B2; GATHER reads the gathered per-row view.
+
 The model code never branches on the scheme: a ``CacheState`` carries its
 policy.  ``attend`` raises for a backend a policy does not implement; it
-never switches paths silently.
+never switches paths silently.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -21,8 +30,10 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core import kvcache
-from repro_torch.core.kvcache import QuantKVCache
+from repro_torch import resolve_device
+from repro_torch.core import kvcache, paged
+from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
+from repro_torch.core.paged import PagedData
 from repro_torch.core.quant_attention_ref import (
     decode_attention_bf16,
     decode_attention_quant,
@@ -70,11 +81,27 @@ class CacheState:
     data: Any
 
     @property
-    def length(self) -> int:
+    def length(self):
+        """A shared int, or per-row (B,) int32 (ragged and paged states)."""
         return self.data.length
 
-    def nbytes(self) -> int:
-        return self.policy.nbytes(self)
+    @property
+    def lengths(self):
+        """Alias for ragged callers."""
+        return self.data.length
+
+    @property
+    def is_ragged(self) -> bool:
+        """True when ``length`` has one entry per batch row."""
+        return isinstance(self.data.length, torch.Tensor)
+
+    @property
+    def is_paged(self) -> bool:
+        """True when K/V live in a page pool (paged states are ragged)."""
+        return isinstance(getattr(self.data, "kv", self.data), PagedData)
+
+    def nbytes(self, *, persistent_only: bool = True) -> int:
+        return self.policy.nbytes(self, persistent_only=persistent_only)
 
 
 _REGISTRY: dict[str, type] = {}
@@ -126,6 +153,63 @@ def _leaf_bytes(*leaves: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
+def _insert_row_leaf(batched: torch.Tensor, row: torch.Tensor, slot: int
+                     ) -> None:
+    """Row ``slot`` of a capacity-B leaf takes a batch-1 leaf, in place."""
+    batched[slot] = row[0].to(batched.dtype)
+
+
+def _reset_lengths(length: torch.Tensor, mask) -> torch.Tensor:
+    mask = torch.as_tensor(mask, dtype=torch.bool).to(length.device)
+    return torch.where(mask, 0, length).to(length.dtype)
+
+
+def _check_active(state, active) -> None:
+    if active is not None and not state.is_ragged:
+        raise ValueError("active masks need a ragged cache "
+                         "(init_state(..., ragged=True))")
+
+
+def _refuse_paged_prefill(state) -> None:
+    if state.is_paged:
+        raise NotImplementedError(
+            "paged states are filled per row: prefill a dense batch-1 "
+            "ragged state and admit it with insert_row_paged")
+
+
+class _LaterSlices:
+    """Protocol methods of the reference that later slices of the port
+    bring (ROADMAP A): each raises, none falls back."""
+
+    def _later(self, what: str, item: str):
+        raise NotImplementedError(
+            f"{self.name}.{what} is not ported yet (ROADMAP A, {item})")
+
+    def adopt_prefix(self, *a, **k):
+        self._later("adopt_prefix", "item 11: token-level prefix reuse")
+
+    def export_pages(self, *a, **k):
+        self._later("export_pages", "item 11: the host prefix tier")
+
+    def import_pages(self, *a, **k):
+        self._later("import_pages", "item 11: the host prefix tier")
+
+    def raw_kv_view(self, *a, **k):
+        self._later("raw_kv_view", "item 11: chunked prefill")
+
+    def snapshot_rows(self, *a, **k):
+        self._later("snapshot_rows", "item f: speculative decoding")
+
+    def verify_attend(self, *a, **k):
+        self._later("verify_attend", "item f: speculative decoding")
+
+    def truncate_rows(self, *a, **k):
+        self._later("truncate_rows", "item f: speculative decoding")
+
+    def prefill_chunk(self, *a, **k):
+        self._later("prefill_chunk", "item 11: chunked prefill")
+
+
 def _unsupported(policy, backend: AttendBackend):
     names = ", ".join(b.value for b in policy.supported_backends)
     raise NotImplementedError(
@@ -136,26 +220,67 @@ def _unsupported(policy, backend: AttendBackend):
 
 @register_policy("bf16")
 @dataclasses.dataclass(frozen=True)
-class BF16Policy:
+class BF16Policy(_LaterSlices):
     """Uncompressed bf16 cache (the paper's fp16 DynamicCache analogue)."""
 
     supported_backends = (AttendBackend.GATHER,)
 
     def init_state(self, batch, n_kv_heads, s_max, head_dim, *,
                    generator: Optional[torch.Generator] = None,
-                   device="cpu"):
+                   device=None, ragged: bool = False):
         return CacheState(self, kvcache.init_bf16_cache(
-            batch, n_kv_heads, s_max, head_dim, device=device))
+            batch, n_kv_heads, s_max, head_dim, ragged=ragged,
+            device=resolve_device(device)))
+
+    def init_paged(self, batch, n_kv_heads, s_max, head_dim, *, n_pages,
+                   page_size, generator: Optional[torch.Generator] = None,
+                   device=None):
+        return CacheState(self, paged.init_paged(
+            batch, s_max, page_size=page_size, n_pages=n_pages,
+            leaf_specs=((n_kv_heads, head_dim, torch.bfloat16),) * 2,
+            device=resolve_device(device)))
 
     def with_rotations(self, state, rot_k, rot_v):
         return state  # no rotation state
 
     def prefill(self, state, k, v):
+        _refuse_paged_prefill(state)
         kvcache.bf16_prefill(state.data, k, v)
         return state
 
-    def update(self, state, k, v):
-        kvcache.bf16_decode_update(state.data, k, v)
+    def update(self, state, k, v, *, active=None):
+        _check_active(state, active)
+        if state.is_paged:
+            paged.append_token(state.data, (k, v), active)
+        elif state.is_ragged:
+            kvcache.bf16_decode_update_ragged(state.data, k, v, active)
+        else:
+            kvcache.bf16_decode_update(state.data, k, v)
+        return state
+
+    def insert_row(self, state, row, slot):
+        """Copy a prefilled batch-1 ragged row into ``slot`` (in place)."""
+        if state.is_paged:
+            raise NotImplementedError(
+                "paged admission goes through insert_row_paged (the engine "
+                "supplies the COW page plan)")
+        d, r = state.data, row.data
+        for b, x in ((d.k, r.k), (d.v, r.v), (d.length, r.length)):
+            _insert_row_leaf(b, x, slot)
+        return state
+
+    def insert_row_paged(self, state, row, slot, shared_pages, n_shared,
+                         n_new):
+        r = row.data
+        paged.insert_row(state.data, (r.k, r.v), (), r.length, slot,
+                         shared_pages, n_shared, n_new)
+        return state
+
+    def reset_rows(self, state, mask):
+        if state.is_paged:
+            paged.reset_rows(state.data, mask)
+        else:
+            state.data.length = _reset_lengths(state.data.length, mask)
         return state
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
@@ -163,11 +288,21 @@ class BF16Policy:
         backend = AttendBackend.parse(backend)
         if backend is not AttendBackend.GATHER:
             _unsupported(self, backend)
-        return decode_attention_bf16(q, state.data, scale=scale,
+        data = state.data
+        if state.is_paged:
+            k, v = paged.gather_view(data)
+            data = BF16KVCache(k, v, data.length)
+        return decode_attention_bf16(q, data, scale=scale,
                                      sliding_window=sliding_window)
 
-    def nbytes(self, state):
-        return _leaf_bytes(state.data.k, state.data.v)
+    def nbytes(self, state, *, persistent_only: bool = True):
+        """Cache bytes; for a paged state the whole pool (the allocation),
+        plus the page table and refcounts unless ``persistent_only``."""
+        d = state.data
+        if state.is_paged:
+            n = _leaf_bytes(*d.pools)
+            return n if persistent_only else n + paged.meta_nbytes(d)
+        return _leaf_bytes(d.k, d.v)
 
     def compression_ratio(self, state) -> float:
         return 1.0
@@ -175,23 +310,24 @@ class BF16Policy:
 
 @dataclasses.dataclass
 class Int4State:
-    """int4 policy state: packed KV + the per-layer rotations that made it."""
+    """int4 policy state: packed KV (a ``QuantKVCache``, or a ``PagedData``
+    for a paged state) + the per-layer rotations that made it."""
 
-    kv: QuantKVCache
+    kv: Any
     rot_k: Rotation
     rot_v: Rotation
 
     @property
-    def length(self) -> int:
+    def length(self):
         return self.kv.length
 
 
 @register_policy("int4-srft")
 @dataclasses.dataclass(frozen=True)
-class Int4SRFTPolicy:
+class Int4SRFTPolicy(_LaterSlices):
     """SRFT rotation + per-channel lambda + int4 per-group codes + fp32
     residual window (paper §7.1-7.2).  Writes go through kernel B3; the
-    KERNEL read through kernel B1."""
+    KERNEL read through kernel B1, or B2 on a paged state."""
 
     supported_backends = (AttendBackend.GATHER, AttendBackend.KERNEL)
 
@@ -199,32 +335,103 @@ class Int4SRFTPolicy:
     window: int = 16
     rotation: str = "srft"  # srft | srht | identity
 
-    def init_state(self, batch, n_kv_heads, s_max, head_dim, *,
-                   generator: Optional[torch.Generator] = None,
-                   device="cpu"):
+    def _rotations(self, generator, head_dim, device):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        return (make_rotation(self.rotation, generator, head_dim, device),
+                make_rotation(self.rotation, generator, head_dim, device))
+
+    def init_state(self, batch, n_kv_heads, s_max, head_dim, *,
+                   generator: Optional[torch.Generator] = None,
+                   device=None, ragged: bool = False):
+        device = resolve_device(device)
         return CacheState(self, Int4State(
-            kv=kvcache.init_cache(batch, n_kv_heads, s_max, head_dim,
-                                  group=self.group, window=self.window,
-                                  device=device),
-            rot_k=make_rotation(self.rotation, generator, head_dim, device),
-            rot_v=make_rotation(self.rotation, generator, head_dim, device),
-        ))
+            kvcache.init_cache(batch, n_kv_heads, s_max, head_dim,
+                               group=self.group, window=self.window,
+                               ragged=ragged, device=device),
+            *self._rotations(generator, head_dim, device)))
+
+    def init_paged(self, batch, n_kv_heads, s_max, head_dim, *, n_pages,
+                   page_size, generator: Optional[torch.Generator] = None,
+                   device=None):
+        if head_dim % 2 or head_dim % self.group:
+            raise ValueError(
+                f"head_dim={head_dim} must divide 2 and group={self.group}")
+        if page_size % self.window:
+            raise ValueError(
+                f"page_size={page_size} must be a multiple of the int4 flush "
+                f"window W={self.window}: a residual flush writes a W-token "
+                f"slab at a W-aligned offset, and the multiple keeps the "
+                f"slab inside one (tail) page")
+        device = resolve_device(device)
+        ng = head_dim // self.group
+        return CacheState(self, Int4State(
+            paged.init_paged(
+                batch, s_max, page_size=page_size, n_pages=n_pages,
+                leaf_specs=((n_kv_heads, head_dim // 2, torch.uint8),
+                            (n_kv_heads, ng, torch.float32)) * 2,
+                residual_specs=((n_kv_heads, self.window, head_dim,
+                                 torch.float32),) * 2,
+                device=device),
+            *self._rotations(generator, head_dim, device)))
 
     def with_rotations(self, state, rot_k, rot_v):
         return CacheState(self, dataclasses.replace(state.data, rot_k=rot_k,
                                                     rot_v=rot_v))
 
     def prefill(self, state, k, v):
+        _refuse_paged_prefill(state)
         d = state.data
         kvcache.prefill(d.kv, d.rot_k, d.rot_v, k, v)
         return state
 
-    def update(self, state, k, v):
+    def update(self, state, k, v, *, active=None):
+        _check_active(state, active)
         d = state.data
-        kvcache.decode_update(d.kv, d.rot_k, d.rot_v, k, v)
+        if state.is_paged:
+            paged.int4_update_paged(d.kv, d.rot_k, d.rot_v, k, v, active)
+        elif state.is_ragged:
+            kvcache.decode_update_ragged(d.kv, d.rot_k, d.rot_v, k, v,
+                                         active)
+        else:
+            kvcache.decode_update(d.kv, d.rot_k, d.rot_v, k, v)
         return state
+
+    def insert_row(self, state, row, slot):
+        """Copy a prefilled batch-1 ragged row into ``slot`` (in place).
+        The rotations are shared model constants and stay the batched
+        state's: the row must have been built with the same ones."""
+        if state.is_paged:
+            raise NotImplementedError(
+                "paged admission goes through insert_row_paged (the engine "
+                "supplies the COW page plan)")
+        kv, r = state.data.kv, row.data.kv
+        for f in ("k_packed", "k_scales", "v_packed", "v_scales",
+                  "k_residual", "v_residual", "length"):
+            _insert_row_leaf(getattr(kv, f), getattr(r, f), slot)
+        return state
+
+    def insert_row_paged(self, state, row, slot, shared_pages, n_shared,
+                         n_new):
+        r = row.data.kv
+        paged.insert_row(
+            state.data.kv, (r.k_packed, r.k_scales, r.v_packed, r.v_scales),
+            (r.k_residual, r.v_residual), r.length, slot, shared_pages,
+            n_shared, n_new)
+        return state
+
+    def reset_rows(self, state, mask):
+        kv = state.data.kv
+        if state.is_paged:
+            paged.reset_rows(kv, mask)
+        else:
+            kv.length = _reset_lengths(kv.length, mask)
+        return state
+
+    def _dense_kv_view(self, pd: PagedData) -> QuantKVCache:
+        """Per-row dense view of a paged int4 state (the GATHER read)."""
+        kp, ks, vp, vs = paged.gather_view(pd)
+        return QuantKVCache(kp, ks, vp, vs, *pd.residual, pd.length)
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
                sliding_window=None):
@@ -233,29 +440,45 @@ class Int4SRFTPolicy:
         if backend is AttendBackend.KERNEL:
             if sliding_window is not None:
                 raise NotImplementedError(
-                    "int4-srft: the B1 kernel does not implement "
+                    "int4-srft: the B1/B2 kernels do not implement "
                     "sliding_window; use AttendBackend.GATHER"
                 )
             from repro_torch.kernels.quant_attention import (
                 decode_attention_kernel,
+                decode_attention_kernel_paged,
             )
 
+            if state.is_paged:
+                return decode_attention_kernel_paged(q, d.kv, d.rot_k,
+                                                     d.rot_v, scale=scale)
             return decode_attention_kernel(q, d.kv, d.rot_k, d.rot_v,
                                            scale=scale, blk=kv_block)
         if backend is not AttendBackend.GATHER:
             _unsupported(self, backend)
-        return decode_attention_quant(q, d.kv, d.rot_k, d.rot_v, scale=scale,
+        kv = self._dense_kv_view(d.kv) if state.is_paged else d.kv
+        return decode_attention_quant(q, kv, d.rot_k, d.rot_v, scale=scale,
                                       sliding_window=sliding_window)
 
-    def nbytes(self, state):
-        """Persistent bytes: packed codes + scales.  The O(W) fp32 residual
-        window and the rotations (model constants) are not counted."""
+    def nbytes(self, state, *, persistent_only: bool = True):
+        """Persistent bytes: packed codes + scales (for a paged state the
+        whole pool: that is the allocation).  ``persistent_only=False``
+        adds the O(W) fp32 residual window and, paged, the page table and
+        refcounts.  The rotations (model constants) are never counted."""
         kv = state.data.kv
-        return _leaf_bytes(kv.k_packed, kv.k_scales, kv.v_packed, kv.v_scales)
+        if state.is_paged:
+            n = _leaf_bytes(*kv.pools)
+            if not persistent_only:
+                n += _leaf_bytes(*kv.residual) + paged.meta_nbytes(kv)
+            return n
+        n = _leaf_bytes(kv.k_packed, kv.k_scales, kv.v_packed, kv.v_scales)
+        if not persistent_only:
+            n += _leaf_bytes(kv.k_residual, kv.v_residual)
+        return n
 
     def compression_ratio(self, state) -> float:
         """bf16-equivalent bytes / persistent bytes (paper §4.5)."""
         kv = state.data.kv
-        d = kv.k_packed.shape[-1] * 2
-        n_vectors = kv.k_packed.numel() // (d // 2)
+        k_packed = kv.pools[0] if state.is_paged else kv.k_packed
+        d = k_packed.shape[-1] * 2
+        n_vectors = k_packed.numel() // (d // 2)
         return 2 * 2 * n_vectors * d / self.nbytes(state)

@@ -1,5 +1,8 @@
-"""Quantized KV cache with residual window, dense non-ragged path (port of
-``repro/core/kvcache.py``).
+"""Quantized KV cache with residual window, dense path (port of
+``repro/core/kvcache.py``: ``init_cache`` / ``init_bf16_cache`` with
+``ragged`` (:106-142), ``prefill`` (:167-208), ``decode_update`` (:211),
+``decode_update_ragged`` (:272-330), ``packed_len`` (:474), the bf16
+updates (:502-542)).
 
 Storage between decode steps: K/V rotated and lambda-rescaled, held as
 nibble-packed int4 codes + per-group fp32 scales, plus an fp32 residual
@@ -7,10 +10,15 @@ window of the W most recent tokens that is quantized into packed storage
 whenever it fills.  Attention reads in rotated space.
 
 The reference threads an immutable, donated pytree through ``lax.scan``;
-here the buffers are preallocated once and updated in place, and the
-shared ``length`` is a Python int (every row is at the same position),
-so the flush decision is taken on the host without a device sync.  Both
-the prompt's bulk write and every W-flush go through kernel B3
+here the buffers are preallocated once and updated in place.  A plain
+cache's ``length`` is a Python int shared by every row, so its flush
+decision is taken on the host without a device sync.  A ragged cache
+(``ragged=True``, the continuous-batching slot cache) carries per-row
+``(B,)`` int32 lengths on the cache's device; its decode update never
+reads them back: every row quantizes its ring each step and a masked
+slab write stores it only where the window just filled, writing the
+current bytes back elsewhere -- the reference's semantics.  The
+prompt's bulk write and every W-flush go through kernel B3
 (``kernels.srft_quant``): that is the single-dispatch write the
 reference's docstring names for this path.
 """
@@ -31,11 +39,15 @@ __all__ = [
     "init_bf16_cache",
     "prefill",
     "decode_update",
+    "decode_update_ragged",
     "packed_len",
     "gather_rotated",
     "bf16_prefill",
     "bf16_decode_update",
+    "bf16_decode_update_ragged",
 ]
+
+Length = "int | torch.Tensor"  # Python int, or per-row (B,) int32 (ragged)
 
 
 @dataclasses.dataclass
@@ -48,7 +60,7 @@ class QuantKVCache:
     v_scales: torch.Tensor
     k_residual: torch.Tensor  # (B, Hkv, W, d) f32, rotated space
     v_residual: torch.Tensor
-    length: int = 0  # tokens stored (shared by every row)
+    length: Length = 0  # tokens stored: shared int, or (B,) when ragged
 
     @property
     def window(self) -> int:
@@ -73,11 +85,17 @@ class BF16KVCache:
 
     k: torch.Tensor  # (B, Hkv, S_max, d) bf16
     v: torch.Tensor
-    length: int = 0
+    length: Length = 0
+
+
+def _zero_length(batch: int, ragged: bool, device) -> Length:
+    if ragged:
+        return torch.zeros((batch,), dtype=torch.int32, device=device)
+    return 0
 
 
 def init_cache(batch: int, n_kv_heads: int, s_max: int, head_dim: int, *,
-               group: int = 32, window: int = 16,
+               group: int = 32, window: int = 16, ragged: bool = False,
                device: "torch.device | str" = "cpu") -> QuantKVCache:
     if head_dim % 2 or head_dim % group:
         raise ValueError(f"head_dim={head_dim} must divide 2 and group={group}")
@@ -92,16 +110,24 @@ def init_cache(batch: int, n_kv_heads: int, s_max: int, head_dim: int, *,
         z(shape_p, torch.uint8), z(shape_s, torch.float32),
         z(shape_p, torch.uint8), z(shape_s, torch.float32),
         z(shape_r, torch.float32), z(shape_r, torch.float32),
+        _zero_length(batch, ragged, device),
     )
 
 
 def init_bf16_cache(batch: int, n_kv_heads: int, s_max: int, head_dim: int,
-                    *, device: "torch.device | str" = "cpu") -> BF16KVCache:
+                    *, ragged: bool = False,
+                    device: "torch.device | str" = "cpu") -> BF16KVCache:
     shape = (batch, n_kv_heads, s_max, head_dim)
     return BF16KVCache(
         torch.zeros(shape, dtype=torch.bfloat16, device=device),
         torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        _zero_length(batch, ragged, device),
     )
+
+
+def _all_rows_at(length: Length, n: int) -> Length:
+    """Every row at ``n`` tokens (a ragged length keeps its tensor form)."""
+    return n if isinstance(length, int) else torch.full_like(length, n)
 
 
 def _check_room(cache, new_len: int) -> None:
@@ -128,7 +154,7 @@ def prefill(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
     if S - plen:
         cache.k_residual[:, :, :S - plen] = rot_k.forward(k[..., plen:, :])
         cache.v_residual[:, :, :S - plen] = rot_v.forward(v[..., plen:, :])
-    cache.length = S
+    cache.length = _all_rows_at(cache.length, S)
     return cache
 
 
@@ -154,9 +180,70 @@ def decode_update(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
     return cache
 
 
-def packed_len(cache: QuantKVCache) -> int:
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return torch.arange(t.shape[0], device=t.device)
+
+
+def ring_write(res: torch.Tensor, val: torch.Tensor, idx: torch.Tensor
+               ) -> None:
+    """Row b writes ``val[b, :, 0]`` into residual slot ``idx[b]`` of
+    ``res`` (B, H, W, d), in place."""
+    res[_rows(idx), :, idx] = val[:, :, 0].to(res.dtype)
+
+
+def slab_write(buf: torch.Tensor, slab: torch.Tensor, off: torch.Tensor,
+               do: torch.Tensor) -> None:
+    """Row b stores the W-token ``slab[b]`` (H, W, c) at positions [off_b,
+    off_b + W) of ``buf`` (B, H, S, c) where ``do[b]``, and writes the
+    current bytes back elsewhere (gather, select, scatter: O(W) per row).
+    Like ``dynamic_update_slice``, an offset is clamped so the slab fits."""
+    W, S = slab.shape[2], buf.shape[2]
+    pos = off.clamp(max=S - W)[:, None] + torch.arange(W, device=off.device)
+    rows = _rows(off)[:, None]
+    cur = buf[rows, :, pos]  # (B, W, H, c)
+    buf[rows, :, pos] = torch.where(do[:, None, None, None],
+                                    slab.transpose(1, 2).to(buf.dtype), cur)
+
+
+def decode_update_ragged(cache: QuantKVCache, rot_k: Rotation,
+                         rot_v: Rotation, k: torch.Tensor, v: torch.Tensor,
+                         active: "torch.Tensor | None" = None
+                         ) -> QuantKVCache:
+    """Ragged append (B, Hkv, 1, d), in place: row b writes at its own
+    length L_b.  Inactive rows write too (slot L_b mod W, and an
+    idempotent re-flush when that slot is W-1) but keep their length, so
+    the write lands at or past L_b and every read masks it.  Every row's
+    ring is quantized (kernel B3, no matrix); the slab is stored only
+    where the window just filled."""
+    W, g = cache.window, cache.group
+    L = cache.length
+    idx = L % W
+    ring_write(cache.k_residual, rot_k.forward(k), idx)
+    ring_write(cache.v_residual, rot_v.forward(v), idx)
+    flush = idx == W - 1
+    off = (L + 1 - W).clamp(min=0)
+    kp, ks = quantize_rotated(cache.k_residual, group=g)
+    vp, vs = quantize_rotated(cache.v_residual, group=g)
+    for buf, slab in ((cache.k_packed, kp), (cache.k_scales, ks),
+                      (cache.v_packed, vp), (cache.v_scales, vs)):
+        slab_write(buf, slab, off, flush)
+    cache.length = advance(L, active)
+    return cache
+
+
+def advance(length: torch.Tensor, active: "torch.Tensor | None"
+            ) -> torch.Tensor:
+    """Per-row lengths after one append: +1 where ``active`` (all rows
+    when None)."""
+    if active is None:
+        return length + 1
+    return length + active.to(length.dtype)
+
+
+def packed_len(cache: QuantKVCache) -> Length:
     """Tokens read from packed storage: [0, packed_len) packed, [packed_len,
-    length) from the residual window (slot t mod W)."""
+    length) from the residual window (slot t mod W).  Per row for a ragged
+    cache."""
     return cache.length - cache.length % cache.window
 
 
@@ -181,7 +268,7 @@ def bf16_prefill(cache: BF16KVCache, k: torch.Tensor, v: torch.Tensor
     _check_room(cache, S)
     cache.k[:, :, :S] = k
     cache.v[:, :, :S] = v
-    cache.length = S
+    cache.length = _all_rows_at(cache.length, S)
     return cache
 
 
@@ -191,4 +278,20 @@ def bf16_decode_update(cache: BF16KVCache, k: torch.Tensor, v: torch.Tensor
     cache.k[:, :, cache.length] = k[:, :, 0]
     cache.v[:, :, cache.length] = v[:, :, 0]
     cache.length += 1
+    return cache
+
+
+def bf16_decode_update_ragged(cache: BF16KVCache, k: torch.Tensor,
+                              v: torch.Tensor,
+                              active: "torch.Tensor | None" = None
+                              ) -> BF16KVCache:
+    """Ragged append: row b writes at its own length L_b (clamped into the
+    buffer, as ``dynamic_update_slice`` does); inactive rows write too,
+    past their unchanged length, and are masked."""
+    L = cache.length
+    pos = L.clamp(max=cache.k.shape[-2] - 1)
+    rows = _rows(L)
+    cache.k[rows, :, pos] = k[:, :, 0].to(cache.k.dtype)
+    cache.v[rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
+    cache.length = advance(L, active)
     return cache

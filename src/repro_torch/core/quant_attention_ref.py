@@ -1,6 +1,8 @@
 """Plain attention reads over the KV caches (port of
-``repro/core/quant_attention_ref.py``: ``decode_attention_quant`` and
-``decode_attention_bf16``), the GATHER backend.
+``repro/core/quant_attention_ref.py``: ``_per_row`` (:43-51),
+``decode_attention_quant`` (:54-130) and ``decode_attention_bf16``
+(:232-269)), the GATHER backend.  Lengths are a shared int or, for a
+ragged cache, per-row ``(B,)``: every mask is then per row.
 
 Rotated-space read of the int4 cache:
 
@@ -10,6 +12,9 @@ Rotated-space read of the int4 cache:
 
 computed as two partial softmaxes (packed part, residual part) that are
 combined, never concatenated -- the reference's order of operations.
+A row of length 0 (a retired slot riding in the batch) gives a finite
+output: the -1e30 sentinel and the 1e-30 floor here, zero weights in the
+bf16 read.
 """
 from __future__ import annotations
 
@@ -26,6 +31,14 @@ __all__ = ["decode_attention_quant", "decode_attention_bf16"]
 NEG = -1e30
 
 
+def _per_row(x, rank: int):
+    """A shared int passes through; per-row (B,) lengths become (B, 1, ...)
+    so they broadcast against rank-``rank`` logits."""
+    if isinstance(x, int):
+        return x
+    return x.reshape((-1,) + (1,) * (rank - 1))
+
+
 def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
                            rot_k: Rotation, rot_v: Rotation, *,
                            scale: Optional[float] = None,
@@ -40,7 +53,8 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
     qg = (q.float() @ rot_k.folded_query_matrix().T).reshape(B, Hkv, G, d)
 
     yk, yv, plen = kvcache.gather_rotated(cache)
-    length, W = cache.length, cache.window
+    plen, length = _per_row(plen, 4), _per_row(cache.length, 4)
+    W = cache.window
 
     def part(keys, vals, pos, valid):
         logits = torch.einsum("bhgd,bhsd->bhgs", qg, keys) * sm
@@ -75,7 +89,7 @@ def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
     G = Hq // Hkv
     sm = scale if scale is not None else d ** -0.5
     k, v = cache.k.float(), cache.v.float()
-    length = cache.length
+    length = _per_row(cache.length, 4)
     qg = q.float().reshape(B, Hkv, G, d)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, k) * sm
     pos = torch.arange(k.shape[-2], device=q.device)

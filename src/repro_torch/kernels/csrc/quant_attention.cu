@@ -1,16 +1,31 @@
-// Split-K flash-decode over nibble-packed int4 K/V for Hopper (sm_90a).
+// Split-K flash-decode over nibble-packed int4 K/V for Hopper (sm_90a),
+// over a dense cache (B1) and over a paged pool (B2).
 //
-// Replaces the TPU kernel B1: quant_decode_attention_fwd / _kernel_impl /
-// _unpack_dequant in src/repro/kernels/quant_attention/quant_attention.py.
+// Replaces the TPU kernels B1: quant_decode_attention_fwd / _kernel_impl /
+// _unpack_dequant, and B2: quant_decode_attention_paged_fwd, both in
+// src/repro/kernels/quant_attention/quant_attention.py.
 // One decode step for each (batch * kv-head) row and its G grouped query
 // heads, in rotated space: the wrapper has folded diag(1/lam_k) B and the
 // softmax scale into q_eff, so scores are q_eff . (code * scale).
 //   * packed part: tokens [0, packed_len) read as int4 codes + fp32 group
 //     scales, online softmax over kTile-token tiles, -1e30 mask sentinel,
-//     tiles at or past packed_len skipped;
+//     tiles at or past packed_len skipped, tokens at or past it never
+//     loaded;
 //   * residual part: the fp32 window (positions packed_len + i, masked
 //     < total_len) folded in last, with the same update rule;
 //   * out = acc / max(l, 1e-30): finite on empty rows, as the reference.
+//
+// B2 is B1's pass 1 with another address for token t of row r = b*H + h:
+//   dense (B1): row r*S + t of the (BH, S, .) arrays;
+//   paged (B2): row (page_table[b*MP + t/ps]*H + h)*ps + t%ps of the
+//               (n_pages*H, ps, .) pools.
+// The address is the pass's template parameter (DenseRows / PagedRows);
+// the arithmetic, the split plan (chosen by the wrapper from S = MP*ps for
+// both when lengths are per row), the tile and the combine pass are the
+// same code, so B2 equals B1 bitwise on the gathered view.  Every token is
+// addressed on its own, so a tile may span pages of any size; the wrapper
+// still requires page_size to divide or be a multiple of kTile.  The TPU
+// kernel runs one grid step per page; this one keeps B1's 64-token tiles.
 //
 // What bounds it on the card: bytes.  A decode step reads each cached
 // token's d/2 code bytes and d/group fp32 scales for K and V once and does
@@ -32,7 +47,7 @@
 // every load in flight at once (the first version read them from global
 // memory in dependent loops), then reduces with warp shuffles.  expf is
 // the accurate one: build without --use_fast_math.
-// Not yet: TMA, tensor-core scores, one fused pass.
+// Not yet: TMA, tensor-core scores, one fused pass, 16-byte page copies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,15 +92,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Token addresses: row index of token t of row bh in the packed (., d/2)
+// and scales (., d/group) arrays.
+struct DenseRows {  // B1: (BH, S, .) arrays
+  int S;
+  __device__ __forceinline__ size_t operator()(int bh, int t) const {
+    return (size_t)bh * S + t;
+  }
+};
+struct PagedRows {  // B2: (n_pages*H, ps, .) pools behind a (B, MP) table
+  const int* page_table;
+  int MP, H, ps;
+  __device__ __forceinline__ size_t operator()(int bh, int t) const {
+    const int page = page_table[(size_t)(bh / H) * MP + t / ps];
+    return ((size_t)page * H + bh % H) * ps + t % ps;
+  }
+};
+
 // Pass 1: grid (n_splits, BH).  Writes part_ml[bh][split][g] = (m, l) and
-// part_acc[bh][split][g][d].
+// part_acc[bh][split][g][d].  S is the logical length of every row.
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
                  const float* __restrict__ ks, const uint8_t* __restrict__ vp,
                  const float* __restrict__ vs, const int* __restrict__ plen_rows,
                  int plen_all, float* __restrict__ part_ml,
                  float* __restrict__ part_acc, int S, int G, int d, int group,
-                 int tiles_per_split) {
+                 int tiles_per_split, Rows rows) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x, bh = blockIdx.y, n_splits = gridDim.x;
   const int tid = threadIdx.x;
@@ -104,28 +137,30 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
   float* ls = ms + G;                                        // G
   float* cs = ls + G;                                        // G
 
-  const int plen = plen_rows != nullptr ? plen_rows[bh] : plen_all;
-  const uint32_t* kprow = reinterpret_cast<const uint32_t*>(kp + (size_t)bh * S * (d / 2));
-  const uint32_t* vprow = reinterpret_cast<const uint32_t*>(vp + (size_t)bh * S * (d / 2));
-  const float* ksrow = ks + (size_t)bh * S * ng;
-  const float* vsrow = vs + (size_t)bh * S * ng;
+  const int plen = min(plen_rows != nullptr ? plen_rows[bh] : plen_all, S);
+  const uint32_t* kp32 = reinterpret_cast<const uint32_t*>(kp);
+  const uint32_t* vp32 = reinterpret_cast<const uint32_t*>(vp);
   const int t_begin = split * tiles_per_split;
   const int t_live = min(t_begin + tiles_per_split, (plen + kTile - 1) / kTile);
   const int n_my = max(t_live - t_begin, 0);  // tiles past packed_len skipped
 
+  // tokens [s0, s0 + n_tok) of a live tile: those below packed_len only
   auto issue = [&](int buf, int tile) {
     const int s0 = tile * kTile;
-    const int n_tok = min(kTile, S - s0);
+    const int n_tok = min(kTile, plen - s0);
     uint32_t* kb = kw + buf * tile_words;
     uint32_t* vb = vw + buf * tile_words;
     for (int i = tid; i < n_tok * wpr; i += kThreads) {
       const int t = i / wpr, w = i % wpr;
-      cp_async4(kb + t * ldw + w, kprow + (size_t)s0 * wpr + i);
-      cp_async4(vb + t * ldw + w, vprow + (size_t)s0 * wpr + i);
+      const size_t r = rows(bh, s0 + t);
+      cp_async4(kb + t * ldw + w, kp32 + r * wpr + w);
+      cp_async4(vb + t * ldw + w, vp32 + r * wpr + w);
     }
     for (int i = tid; i < n_tok * ng; i += kThreads) {
-      cp_async4(kss + buf * tile_scales + i, ksrow + (size_t)s0 * ng + i);
-      cp_async4(vss + buf * tile_scales + i, vsrow + (size_t)s0 * ng + i);
+      const int t = i / ng, j = i % ng;
+      const size_t r = rows(bh, s0 + t);
+      cp_async4(kss + buf * tile_scales + i, ks + r * ng + j);
+      cp_async4(vss + buf * tile_scales + i, vs + r * ng + j);
     }
     cp_async_commit();
   };
@@ -143,7 +178,7 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
   for (int j = 0; j < n_my; ++j) {
     const int buf = j & 1;
     const int s0 = (t_begin + j) * kTile;
-    const int n_tok = min(kTile, S - s0);
+    const int n_tok = min(kTile, plen - s0);
     if (j + 1 < n_my) {
       issue(buf ^ 1, t_begin + j + 1);  // buffer freed by the last sync
       cp_async_wait<1>();
@@ -159,7 +194,7 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
     for (int p = tid; p < G * kTile; p += kThreads) {
       const int g = p / kTile, t = p % kTile;
       float s = kNeg;
-      if (t < n_tok && s0 + t < plen) {
+      if (t < n_tok) {
         const float* qg = qs + g * d;
         const uint32_t* row = kb + t * ldw;
         const float* sc = ksb + t * ng;
@@ -333,7 +368,10 @@ qda_combine_kernel(const float* __restrict__ q, const float* __restrict__ kr,
   }
 }
 
-// raise a kernel's dynamic shared memory limit once, as far as needed
+// raise a kernel's dynamic shared memory limit once, as far as needed;
+// ``have`` must be the one record of that kernel's limit (setting the
+// attribute lower than an earlier launch needed would make that launch
+// fail later)
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes, int* have) {
   if (bytes <= *have) return cudaSuccess;
@@ -343,48 +381,82 @@ cudaError_t allow_smem(K kernel, int bytes, int* have) {
   return err;
 }
 
+// qda_combine_kernel's limit: one kernel, shared by B1 and B2
+int combine_smem_have = 0;
+
+// The two passes; Rows picks B1's or B2's token address.  Returns
+// cudaGetLastError() after the launches.
+template <class Rows>
+int launch_passes(const float* q, const uint8_t* kp, const float* ks,
+                  const uint8_t* vp, const float* vs, const float* kr,
+                  const float* vr, const int* plen_rows, const int* tlen_rows,
+                  int plen, int tlen, float* part_ml, float* part_acc,
+                  float* out, int BH, int S, int G, int d, int group, int W,
+                  int n_splits, int tiles_per_split, Rows rows,
+                  cudaStream_t st) {
+  static int smem1_have = 0;  // one qda_split_kernel<Rows> per Rows
+  if (BH <= 0) return 0;
+  if (G < 1 || G > kMaxG || d > kThreads * kMaxCols || d % 8 || group <= 0 ||
+      d % group || n_splits < 1 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const int ng = d / group;
+  const int ldw = d / 8 + 1;
+  const size_t words1 = (size_t)G * d + 4 * (size_t)kTile * ldw +
+                        4 * (size_t)kTile * ng + (size_t)G * kTile + 3 * G;
+  const int smem1 = (int)(words1 * sizeof(float));
+  cudaError_t err = allow_smem(qda_split_kernel<Rows>, smem1, &smem1_have);
+  if (err != cudaSuccess) return (int)err;
+  qda_split_kernel<Rows><<<dim3(n_splits, BH), kThreads, smem1, st>>>(
+      q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, S, G, d, group,
+      tiles_per_split, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t words2 = (size_t)n_splits * G * (d + 3) + 2 * (size_t)W * d +
+                        (size_t)G * W + 3 * G;
+  const int smem2 = (int)(words2 * sizeof(float));
+  err = allow_smem(qda_combine_kernel, smem2, &combine_smem_have);
+  if (err != cudaSuccess) return (int)err;
+  qda_combine_kernel<<<BH, kThreads, smem2, st>>>(
+      q, kr, vr, plen_rows, tlen_rows, plen, tlen, part_ml, part_acc, out,
+      n_splits, G, d, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q: (BH, G, d) f32; kp/vp: (BH, S, d/2) u8; ks/vs: (BH, S, d/group) f32;
-// kr/vr: (BH, W, d) f32; plen_rows/tlen_rows: (BH,) i32 or null (then the
-// scalars apply to every row); part_ml: (BH, n_splits, G, 2) f32 and
+// B1.  q: (BH, G, d) f32; kp/vp: (BH, S, d/2) u8; ks/vs: (BH, S, d/group)
+// f32; kr/vr: (BH, W, d) f32; plen_rows/tlen_rows: (BH,) i32 or null (then
+// the scalars apply to every row); part_ml: (BH, n_splits, G, 2) f32 and
 // part_acc: (BH, n_splits, G, d) f32 scratch; out: (BH, G, d) f32.
-// Returns cudaGetLastError() after the two launches.
 int quant_decode_attention_launch(
     const float* q, const uint8_t* kp, const float* ks, const uint8_t* vp,
     const float* vs, const float* kr, const float* vr, const int* plen_rows,
     const int* tlen_rows, int plen, int tlen, float* part_ml, float* part_acc,
     float* out, int BH, int S, int G, int d, int group, int W, int n_splits,
     int tiles_per_split, void* stream) {
-  static int smem1_have = 0, smem2_have = 0;
-  if (BH <= 0) return 0;
-  if (G < 1 || G > kMaxG || d > kThreads * kMaxCols || d % 8 || group <= 0 ||
-      d % group || n_splits < 1 || W < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int ng = d / group;
-  const int ldw = d / 8 + 1;
-  const size_t words1 = (size_t)G * d + 4 * (size_t)kTile * ldw +
-                        4 * (size_t)kTile * ng + (size_t)G * kTile + 3 * G;
-  const int smem1 = (int)(words1 * sizeof(float));
-  cudaError_t err = allow_smem(qda_split_kernel, smem1, &smem1_have);
-  if (err != cudaSuccess) return (int)err;
-  qda_split_kernel<<<dim3(n_splits, BH), kThreads, smem1, st>>>(
-      q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, S, G, d, group,
-      tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t words2 = (size_t)n_splits * G * (d + 3) + 2 * (size_t)W * d +
-                        (size_t)G * W + 3 * G;
-  const int smem2 = (int)(words2 * sizeof(float));
-  err = allow_smem(qda_combine_kernel, smem2, &smem2_have);
-  if (err != cudaSuccess) return (int)err;
-  qda_combine_kernel<<<BH, kThreads, smem2, st>>>(
-      q, kr, vr, plen_rows, tlen_rows, plen, tlen, part_ml, part_acc, out,
-      n_splits, G, d, W);
-  return (int)cudaGetLastError();
+  return launch_passes(q, kp, ks, vp, vs, kr, vr, plen_rows, tlen_rows, plen,
+                       tlen, part_ml, part_acc, out, BH, S, G, d, group, W,
+                       n_splits, tiles_per_split, DenseRows{S},
+                       (cudaStream_t)stream);
+}
+
+// B2.  As B1, but kp/vp: (n_pages*H, ps, d/2) u8 and ks/vs: (n_pages*H,
+// ps, d/group) f32 pools, page_table: (BH/H, MP) i32, and per-row lengths
+// (plen_rows, tlen_rows: (BH,) i32) always.
+int quant_decode_attention_paged_launch(
+    const float* q, const uint8_t* kp, const float* ks, const uint8_t* vp,
+    const float* vs, const float* kr, const float* vr, const int* page_table,
+    const int* plen_rows, const int* tlen_rows, float* part_ml,
+    float* part_acc, float* out, int BH, int H, int MP, int ps, int G, int d,
+    int group, int W, int n_splits, int tiles_per_split, void* stream) {
+  if (H < 1 || MP < 1 || ps < 1 || BH % H) return (int)cudaErrorInvalidValue;
+  return launch_passes(q, kp, ks, vp, vs, kr, vr, plen_rows, tlen_rows, 0, 0,
+                       part_ml, part_acc, out, BH, MP * ps, G, d, group, W,
+                       n_splits, tiles_per_split,
+                       PagedRows{page_table, MP, H, ps},
+                       (cudaStream_t)stream);
 }
 
 const char* quant_attention_error_string(int code) {

@@ -1,12 +1,19 @@
-"""Wrapper for kernel B1, the int4 flash-decode read (port of
-``repro/kernels/quant_attention/ops.py:22``).
+"""Wrappers for kernels B1 and B2, the int4 flash-decode read over a
+dense and over a paged cache (port of
+``repro/kernels/quant_attention/ops.py:22`` and ``:63-109``).
 
 ``decode_attention_kernel`` folds ``folded_query_matrix()·scale`` into q,
 flattens to ``(B·Hkv, G, d)`` rows, runs :func:`quant_decode_attention`
-and applies ``rot_v.inverse`` to the one output vector.  On a CPU tensor
-that runs the plain version (``ref.py``); on a CUDA tensor it launches
-``csrc/quant_attention.cu`` (split-K pass + combine pass) or raises.
-``launches`` counts wrapper calls that launched the kernel.
+and applies ``rot_v.inverse`` to the one output vector.
+``decode_attention_kernel_paged`` does the same over a paged int4 state:
+the pools go in flattened to ``(n_pages·Hkv, page_size, ·)`` with the
+page table, per-row ``plen = L - L mod W``, and
+:func:`quant_decode_attention_paged` reads them.  On a CPU tensor each
+runs its plain version (``ref.py``); on a CUDA tensor it launches
+``csrc/quant_attention.cu`` (B1 or B2: the same split-K pass 1 with
+another token address, and the same combine pass) or raises.
+``launches`` and ``paged_launches`` count the wrapper calls that
+launched B1 and B2.
 """
 from __future__ import annotations
 
@@ -17,29 +24,38 @@ import torch
 from repro_torch.core import kvcache as kvc
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_attention.ref import (
+    quant_decode_attention_paged_ref,
     quant_decode_attention_ref,
     row_lengths,
 )
 
-__all__ = ["quant_decode_attention", "decode_attention_kernel", "launches",
-           "TILE"]
+__all__ = ["quant_decode_attention", "quant_decode_attention_paged",
+           "decode_attention_kernel", "decode_attention_kernel_paged",
+           "launches", "paged_launches", "TILE", "ARGTYPES"]
 
 TILE = 64  # tokens per tile in csrc/quant_attention.cu (kTile)
-launches = 0  # kernel launches since the caller last set this to 0
-_FN = None
+launches = 0  # B1 launches since the caller last set this to 0
+paged_launches = 0  # B2 launches since the caller last set this to 0
+_FNS: dict = {}
 _SMS: dict[int, int] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C signatures of csrc/quant_attention.cu's launch functions
+ARGTYPES = {
+    "quant_decode_attention_launch":
+        [_P] * 9 + [_I, _I] + [_P] * 3 + [_I] * 8 + [_P],
+    "quant_decode_attention_paged_launch": [_P] * 13 + [_I] * 10 + [_P],
+}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(name: str):
+    """The bound launch function ``name`` of csrc/quant_attention.cu."""
+    if name not in _FNS:
         lib = _build.library("quant_attention")
-        fn = lib.quant_decode_attention_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 9 + [I, I] + [P] * 3 + [I] * 8 + [P]
-        fn.restype = I
-        _FN = (lib, fn)
-    return _FN
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = _I
+        _FNS[name] = (lib, fn)
+    return _FNS[name]
 
 
 def split_plan(rows: int, n_tiles: int, sms: int,
@@ -64,12 +80,43 @@ def _lengths(x, rows, device):
     return 0, row_lengths(x, rows, device).contiguous()
 
 
+def _check(dev, expect: dict) -> None:
+    for name, (t, dt, shape) in expect.items():
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: need contiguous {dt} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _plan(q_eff, kr, n_tiles, group):
+    """Checks shared by B1 and B2, then the split plan and the scratch:
+    (part_ml, part_acc, out, n_splits, tiles_per_split)."""
+    BH, G, d = q_eff.shape
+    W, dev = kr.shape[1], q_eff.device
+    if G > 8 or d > 256 or d % 8 or d % group:
+        raise ValueError(f"unsupported G={G} d={d} group={group}")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    max_splits = max(1, (_COMBINE_WORDS - 2 * W * d - G * W - 3 * G)
+                     // (G * (d + 3)))
+    n_splits, tps = split_plan(BH, n_tiles, _SMS[idx], max_splits)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((BH, n_splits, G, 2), **f32),
+            torch.empty((BH, n_splits, G, d), **f32),
+            torch.empty((BH, G, d), **f32), n_splits, tps)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group):
     global launches
     BH, G, d = q_eff.shape
     S, W = kp.shape[1], kr.shape[1]
     dev = q_eff.device
-    expect = {
+    _check(dev, {
         "q_eff": (q_eff, torch.float32, (BH, G, d)),
         "k_packed": (kp, torch.uint8, (BH, S, d // 2)),
         "v_packed": (vp, torch.uint8, (BH, S, d // 2)),
@@ -77,39 +124,65 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group):
         "v_scales": (vs, torch.float32, (BH, S, d // group)),
         "k_residual": (kr, torch.float32, (BH, W, d)),
         "v_residual": (vr, torch.float32, (BH, W, d)),
-    }
-    for name, (t, dt, shape) in expect.items():
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: need contiguous {dt} {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if G > 8 or d > 256 or d % 8 or d % group:
-        raise ValueError(f"unsupported G={G} d={d} group={group}")
+    })
     plen, plen_rows = _lengths(packed_len, BH, dev)
     tlen, tlen_rows = _lengths(total_len, BH, dev)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    # per-row lengths plan from S: B2 plans the same way, so a paged read
+    # equals this one bitwise on the gathered view
     n_tiles = -(-(plen if plen_rows is None else S) // TILE)
-    max_splits = max(1, (_COMBINE_WORDS - 2 * W * d - G * W - 3 * G)
-                     // (G * (d + 3)))
-    n_splits, tps = split_plan(BH, n_tiles, _SMS[idx], max_splits)
-    part_ml = torch.empty((BH, n_splits, G, 2), dtype=torch.float32,
-                          device=dev)
-    part_acc = torch.empty((BH, n_splits, G, d), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((BH, G, d), dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib, fn = _fn()
+    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group)
+    lib, fn = _fn("quant_decode_attention_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
                 vp.data_ptr(), vs.data_ptr(), kr.data_ptr(), vr.data_ptr(),
-                ptr(plen_rows), ptr(tlen_rows), plen, tlen,
+                _ptr(plen_rows), _ptr(tlen_rows), plen, tlen,
                 part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
                 BH, S, G, d, group, W, n_splits, tps, stream)
     _build.check(lib, "quant_attention", rc)
     launches += 1
+    return out
+
+
+def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
+                  page_table, group, page_size, H):
+    global paged_launches
+    ps = page_size
+    if TILE % ps and ps % TILE:
+        raise ValueError(f"page_size={ps} must divide or be a multiple of "
+                         f"the kernel's {TILE}-token tile")
+    BH, G, d = q_eff.shape
+    B, MP = page_table.shape
+    N, W = kp.shape[0], kr.shape[1]
+    dev = q_eff.device
+    if B * H != BH or N % H:
+        raise ValueError(f"rows: B={B} * H={H} != BH={BH}, or pool rows "
+                         f"{N} not a multiple of H")
+    _check(dev, {
+        "q_eff": (q_eff, torch.float32, (BH, G, d)),
+        "k_packed": (kp, torch.uint8, (N, ps, d // 2)),
+        "v_packed": (vp, torch.uint8, (N, ps, d // 2)),
+        "k_scales": (ks, torch.float32, (N, ps, d // group)),
+        "v_scales": (vs, torch.float32, (N, ps, d // group)),
+        "k_residual": (kr, torch.float32, (BH, W, d)),
+        "v_residual": (vr, torch.float32, (BH, W, d)),
+        "page_table": (page_table, torch.int32, (B, MP)),
+    })
+    plen_rows = row_lengths(packed_len, BH, dev).contiguous()
+    tlen_rows = row_lengths(total_len, BH, dev).contiguous()
+    n_tiles = -(-(MP * ps) // TILE)  # B1's plan at S = MP * page_size
+    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group)
+    lib, fn = _fn("quant_decode_attention_paged_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
+                vp.data_ptr(), vs.data_ptr(), kr.data_ptr(), vr.data_ptr(),
+                page_table.data_ptr(), plen_rows.data_ptr(),
+                tlen_rows.data_ptr(), part_ml.data_ptr(),
+                part_acc.data_ptr(), out.data_ptr(),
+                BH, H, MP, ps, G, d, group, W, n_splits, tps, stream)
+    _build.check(lib, "quant_attention", rc)
+    paged_launches += 1
     return out
 
 
@@ -131,16 +204,47 @@ def quant_decode_attention(q_eff, k_packed, k_scales, v_packed, v_scales,
                    v_residual, packed_len, total_len, group)
 
 
+def quant_decode_attention_paged(q_eff, k_packed, k_scales, v_packed,
+                                 v_scales, k_residual, v_residual, packed_len,
+                                 total_len, page_table, *, group: int = 32,
+                                 page_size: int = 16, n_kv_heads: int = 1
+                                 ) -> torch.Tensor:
+    """out_rot (BH, G, d) f32 over flattened pools ``(n_pages*H, page_size,
+    ·)``; arguments as ``ref.quant_decode_attention_paged_ref``."""
+    if q_eff.device.type == "cpu":
+        return quant_decode_attention_paged_ref(
+            q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
+            v_residual, packed_len, total_len, page_table, group=group,
+            n_kv_heads=n_kv_heads)
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"quant_decode_attention_paged runs on cpu or cuda, "
+                         f"not {q_eff.device}")
+    return _launch_paged(q_eff, k_packed, k_scales, v_packed, v_scales,
+                         k_residual, v_residual, packed_len, total_len,
+                         page_table, group, page_size, n_kv_heads)
+
+
+def _fold_query(q, rot_k, n_kv_heads, scale):
+    B, Hq, _, d = q.shape
+    sm = scale if scale is not None else d ** -0.5
+    q_eff = (q.float() @ rot_k.folded_query_matrix().T) * sm
+    return q_eff.reshape(B * n_kv_heads, Hq // n_kv_heads, d).contiguous()
+
+
+def _per_kv_row(x, n_kv_heads):
+    """A shared int passes through; per-row (B,) -> one entry per (b, h)."""
+    if isinstance(x, int):
+        return x
+    return x.repeat_interleave(n_kv_heads)
+
+
 def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,
                             scale: float | None = None, blk: int = 256
                             ) -> torch.Tensor:
     """(B, Hq, 1, d) decode attention output in the original basis."""
     B, Hq, _, d = q.shape
     Hkv = cache.k_packed.shape[1]
-    G = Hq // Hkv
-    sm = scale if scale is not None else d ** -0.5
-    q_eff = (q.float() @ rot_k.folded_query_matrix().T) * sm
-    q_eff = q_eff.reshape(B * Hkv, G, d).contiguous()
+    q_eff = _fold_query(q, rot_k, Hkv, scale)
 
     def flat(x):
         return x.reshape(B * Hkv, *x.shape[2:])
@@ -149,6 +253,32 @@ def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,
         q_eff, flat(cache.k_packed), flat(cache.k_scales),
         flat(cache.v_packed), flat(cache.v_scales),
         flat(cache.k_residual), flat(cache.v_residual),
-        kvc.packed_len(cache), cache.length, group=cache.group, blk=blk,
+        _per_kv_row(kvc.packed_len(cache), Hkv),
+        _per_kv_row(cache.length, Hkv), group=cache.group, blk=blk,
     )
+    return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+
+
+def decode_attention_kernel_paged(q: torch.Tensor, pd, rot_k, rot_v, *,
+                                  scale: float | None = None
+                                  ) -> torch.Tensor:
+    """(B, Hq, 1, d) decode attention over a paged int4 state
+    (``core.paged.PagedData``: pools ``(k_packed, k_scales, v_packed,
+    v_scales)``, residual ``(k, v)`` windows), in the original basis.  The
+    dense per-row view is never built."""
+    B, Hq, _, d = q.shape
+    N, Hkv, ps, _ = pd.pools[0].shape
+    k_res, v_res = pd.residual
+    group = d // pd.pools[1].shape[-1]
+    L = pd.length
+    plen = L - L % k_res.shape[-2]
+
+    def flat(x):
+        return x.reshape(-1, *x.shape[2:])
+
+    out_rot = quant_decode_attention_paged(
+        _fold_query(q, rot_k, Hkv, scale), *(flat(p) for p in pd.pools),
+        flat(k_res), flat(v_res), _per_kv_row(plen, Hkv),
+        _per_kv_row(L, Hkv), pd.page_table, group=group, page_size=ps,
+        n_kv_heads=Hkv)
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)

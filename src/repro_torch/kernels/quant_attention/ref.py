@@ -1,17 +1,21 @@
-"""Plain PyTorch version of kernel B1 (port of ``_kernel_impl`` /
-``_unpack_dequant`` in ``repro/kernels/quant_attention/quant_attention.py``).
+"""Plain PyTorch versions of kernels B1 and B2 (port of ``_kernel_impl``
+/ ``_unpack_dequant`` in ``repro/kernels/quant_attention/quant_attention.py``
+and of ``quant_decode_attention_paged_fwd`` (:228)).
 
 Follows the TPU kernel tile by tile: an online softmax over ``blk``-token
 tiles of the packed cache (tiles at or past a row's ``packed_len``
 skipped, positions masked ``< packed_len`` with the -1e30 sentinel), then
 the fp32 residual window (positions ``packed_len + i``, masked ``<
-total_len``) folded in with the same update, then ``acc / max(l, 1e-30)``.
+total_len``) folded in with the same update, then ``acc / max(l, 1e-30)``.  B2's plain version resolves every token
+through the page table and then applies B1's plain math, one tile per
+page as the reference's paged kernel does.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["quant_decode_attention_ref", "unpack_dequant", "row_lengths"]
+__all__ = ["quant_decode_attention_ref", "quant_decode_attention_paged_ref",
+           "paged_rows", "unpack_dequant", "row_lengths"]
 
 NEG = -1e30
 
@@ -84,3 +88,39 @@ def quant_decode_attention_ref(
     m, l, acc = update(m, l, acc, k_residual.float(), v_residual.float(),
                        pos_r < tlen[:, None])
     return acc / l.clamp_min(1e-30)
+
+
+def paged_rows(pool: torch.Tensor, page_table: torch.Tensor,
+               n_kv_heads: int) -> torch.Tensor:
+    """A flattened pool ``(n_pages*H, page_size, c)`` seen per row: token t
+    of row ``r = b*H + h`` is ``pool[page_table[b, t // ps]*H + h,
+    t % ps]``.  Returns ``(B*H, MP*ps, c)``."""
+    H = n_kv_heads
+    B, MP = page_table.shape
+    ps, c = pool.shape[1], pool.shape[2]
+    h = torch.arange(H, device=pool.device)
+    blocks = page_table.long()[:, None, :] * H + h[None, :, None]  # (B,H,MP)
+    return pool[blocks.reshape(B * H, MP)].reshape(B * H, MP * ps, c)
+
+
+def quant_decode_attention_paged_ref(
+    q_eff: torch.Tensor,  # (BH, G, d) f32
+    k_packed: torch.Tensor,  # (n_pages*H, page_size, d//2) uint8 pool
+    k_scales: torch.Tensor,  # (n_pages*H, page_size, d//group) f32 pool
+    v_packed: torch.Tensor,
+    v_scales: torch.Tensor,
+    k_residual: torch.Tensor,  # (BH, W, d) f32, per row (not paged)
+    v_residual: torch.Tensor,
+    packed_len: torch.Tensor,  # (BH,) int32
+    total_len: torch.Tensor,  # (BH,) int32
+    page_table: torch.Tensor,  # (B, MP) int32
+    *,
+    group: int = 32,
+    n_kv_heads: int = 1,
+) -> torch.Tensor:
+    """Returns out_rot (BH, G, d) f32 in rotated space."""
+    pools = (paged_rows(t, page_table, n_kv_heads)
+             for t in (k_packed, k_scales, v_packed, v_scales))
+    return quant_decode_attention_ref(
+        q_eff, *pools, k_residual, v_residual, packed_len, total_len,
+        group=group, blk=k_packed.shape[1])

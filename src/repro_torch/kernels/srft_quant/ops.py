@@ -15,10 +15,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.srft_quant.ref import srft_quant_ref
 
-__all__ = ["srft_quant", "rotate_quantize", "quantize_rotated", "launches"]
+__all__ = ["srft_quant", "rotate_quantize", "quantize_rotated", "launches",
+           "ARGTYPES"]
 
 launches = 0  # kernel launches since the caller last set this to 0
 _FN = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C signature of csrc/srft_quant.cu's launch function
+ARGTYPES = {"srft_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 
 
 def _fn():
@@ -26,9 +30,8 @@ def _fn():
     if _FN is None:
         lib = _build.library("srft_quant")
         fn = lib.srft_quant_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, P, P, I, I, I, I, P]
-        fn.restype = I
+        fn.argtypes = ARGTYPES["srft_quant_launch"]
+        fn.restype = _I
         _FN = (lib, fn)
     return _FN
 

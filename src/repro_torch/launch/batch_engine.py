@@ -1,0 +1,610 @@
+"""Continuous batching: ragged multi-request serving over a slot cache
+(port of ``repro/launch/batch_engine.py``: ``Request``, ``Completion``
+and ``BatchEngine`` with monolithic admission (:1129-1236, :1497-1528),
+the paged page plan with its page-aligned copy-on-write prefix index
+(:687-770), slot release (:772-824, without the host-tier spill), LRU
+recompute preemption (:826-878, :1409-1457) and the decode chunk
+(:945-977, :1705-1777)).
+
+``BatchEngine`` keeps a fixed-capacity slot cache (one ragged
+``CacheState`` per layer: per-row lengths) and a host-side scheduler:
+
+  * **admit**: a queued request is prefilled alone into a batch-1 ragged
+    row that shares the slot cache's rotations, then copied into a free
+    slot (``policy.insert_row``); the first token is drawn from the
+    prefill logits.
+  * **decode**: the whole batch advances ``chunk`` tokens.  The chunk is
+    a Python loop of decode steps that keeps the last token, the
+    ``active`` mask and the per-row budgets on the device; finished rows
+    are masked (their lengths stand still) and the (capacity, n_steps)
+    tokens are read back once per chunk.
+  * **retire**: finished slots get ``policy.reset_rows`` and return to
+    the free list.
+
+Paged mode (``paged=True``) swaps the dense slot stripes for a page pool
+(``core/paged.py``): admission allocates only the pages a request needs,
+requests whose prompts share a page-aligned prefix map the same physical
+pages copy-on-write (a host-side prefix index keyed by the prefix's token
+bytes), and when the pool cannot fit the next request the least recently
+admitted live slot is preempted to the front of the queue as a recompute
+continuation (prompt + tokens so far, the last sampled token resumed in
+the token buffer).  ``Completion`` stitches the carried tokens back on.
+The allocator lives on the host, so the scheduler reads its page counts
+and tables without a device readback.
+
+Sampling is greedy, or by temperature from the explicit ``generator``.
+Not in this slice, each raising if asked for: chunked prefill
+(``prefill_chunk`` / ``prefill_budget``) and token-level reuse, packed
+admission (``admit_packed``), speculative decoding (``spec_k``), the host
+prefix tier (``offload_bytes``), tracing (``trace``) and meshes
+(``mesh``).
+
+    eng = BatchEngine(model, params, capacity=4, s_max=4608,
+                      policy="int4-srft", backend="kernel", paged=True)
+    for c in eng.run([Request(rid=0, prompt=toks, max_new_tokens=64)]):
+        ...  # Completion(rid, prompt_len, tokens, finish_reason)
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.cache_api import AttendBackend
+from repro_torch.core.paged import NULL_PAGE
+from repro_torch.launch.engine import GREEDY, Sampler
+
+__all__ = ["Request", "Completion", "BatchEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.  ``max_new_tokens`` counts every sampled
+    token, the one drawn from the prefill logits included.  ``resume_tok``
+    is engine-internal (paged preemption): the continuation's last sampled
+    token, which resumes in the token buffer instead of being drawn."""
+
+    rid: int
+    prompt: Any  # (S,) int array
+    max_new_tokens: int
+    resume_tok: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    prompt_len: int
+    tokens: np.ndarray  # (n_generated,) int32
+    finish_reason: str  # "length" | "eos" | "cancelled"
+
+
+_LATER = {
+    "prefill_chunk": "ROADMAP A item 11: chunked prefill",
+    "prefill_budget": "ROADMAP A item 11: chunked prefill",
+    "spec_k": "ROADMAP A item f: speculative decoding",
+    "offload_bytes": "ROADMAP A item 11: the host prefix tier",
+    "trace": "ROADMAP A item 12: tracing with the server",
+    "mesh": "ROADMAP A item 15: multi-device serving",
+}
+
+
+class BatchEngine:
+    """Continuous-batching engine for one (model, policy, backend,
+    sampler) configuration.  ``eos_id`` is an early-stop token (None =
+    length only).  The decode chunk is the scheduling quantum.
+    ``device`` must be the model's (``cuda`` unless ``"cpu"`` is asked
+    for)."""
+
+    def __init__(self, model, params, *, capacity: int, s_max: int,
+                 policy=None, backend: "AttendBackend | str | None" = None,
+                 sampler: Optional[Sampler] = None, kv_block: int = 512,
+                 chunk: int = 8, eos_id: Optional[int] = None, rots=None,
+                 generator: Optional[torch.Generator] = None,
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None, device=None,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_budget: Optional[int] = None,
+                 spec_k: Optional[int] = None,
+                 offload_bytes: Optional[int] = None, trace=None, mesh=None):
+        asked = dict(prefill_chunk=prefill_chunk,
+                     prefill_budget=prefill_budget, spec_k=spec_k,
+                     offload_bytes=offload_bytes, trace=trace, mesh=mesh)
+        for name, value in asked.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"BatchEngine({name}=...) is not ported yet "
+                    f"({_LATER[name]})")
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.device = resolve_device(device)
+        if self.device != model.device:
+            raise ValueError(f"engine device {self.device} != model device "
+                             f"{model.device}")
+        self.model = model
+        self.params = params
+        self.capacity = capacity
+        self.policy = model.cache_policy(policy)
+        self.backend = None if backend is None else AttendBackend.parse(backend)
+        self.sampler = sampler if sampler is not None else GREEDY
+        self.kv_block = kv_block
+        self.chunk = chunk
+        self.eos_id = eos_id
+        self.generator = (generator if generator is not None else
+                          torch.Generator(device=self.device).manual_seed(0))
+
+        self.paged = paged
+        if paged:
+            # logical extent is whole pages; the pool defaults to the dense
+            # slot footprint + the null page -- a smaller n_pages
+            # oversubscribes it (LRU preemption when it runs dry)
+            s_max += (-s_max) % page_size
+            self.page_size = page_size
+            self.max_pages = s_max // page_size
+            self.n_pages = (capacity * self.max_pages + 1
+                            if n_pages is None else n_pages)
+            if self.n_pages < self.max_pages + 1:
+                raise ValueError(
+                    f"n_pages={self.n_pages} cannot hold even one full row "
+                    f"({self.max_pages} pages + the null page)")
+        self.s_max = s_max
+
+        self.cache = model.init_cache(
+            capacity, s_max, policy=self.policy, rots=rots, ragged=True,
+            n_pages=self.n_pages if paged else None,
+            page_size=page_size if paged else None)
+        # every admission row is built with the slot cache's rotations
+        # (an insert_row requirement)
+        first = self.cache["attn"][0].data
+        self._rots = None if not hasattr(first, "rot_k") else [
+            (st.data.rot_k, st.data.rot_v) for st in self.cache["attn"]]
+        self.tok = torch.zeros((capacity, 1), dtype=torch.long,
+                               device=self.device)  # last sampled
+        self.active = np.zeros((capacity,), bool)
+        self.budget = np.zeros((capacity,), np.int32)  # decode steps left
+        self._slot_req: list[Optional[Request]] = [None] * capacity
+        self._slot_toks: list[list[int]] = [[] for _ in range(capacity)]
+        self._queue: deque[Request] = deque()
+
+        if paged:
+            # host views of layer 0's allocator (every layer's pool makes
+            # the same choices); the prefix index maps page-aligned prompt
+            # prefixes to resident pages; admission sequence numbers pick
+            # the LRU preemption victim; _carried/_orig stitch preempted
+            # streams back together
+            self._prefix_pages: dict[bytes, int] = {}
+            self._slot_seq = [0] * capacity
+            self._admit_seq = 0
+            self._carried: dict[int, list[int]] = {}
+            self._orig: dict[int, tuple[int, int]] = {}
+            self.n_preemptions = 0
+            self.peak_pages = 0
+            self._sync_pool()
+
+    # ------------------------------------------------------- paged pool state
+    def _pd(self):
+        d = self.cache["attn"][0].data
+        return getattr(d, "kv", d)
+
+    def _sync_pool(self) -> None:
+        """Refresh the host views of the allocator (a CPU copy: the pool
+        lives on the host), track peak residency and prune prefix-index
+        entries whose page was freed."""
+        pd = self._pd()
+        self._refcount_host = pd.pool.refcount.numpy().copy()
+        self._ptab_host = pd.table_host.numpy().copy()
+        used = int((self._refcount_host > 0).sum()) - 1  # null pinned
+        self.peak_pages = max(self.peak_pages, used)
+        for k in [k for k, p in self._prefix_pages.items()
+                  if self._refcount_host[p] == 0]:
+            del self._prefix_pages[k]
+
+    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+        return -(-(prompt_len + max_new) // self.page_size)
+
+    def _plan_pages(self, req: Request):
+        """Host-side admission plan: walk the prefix index page by page
+        (COW hits must be prefix-contiguous), then check the remainder
+        against the free supply.  (shared_page_ids, n_new), or None when
+        the pool cannot fit the request now."""
+        prompt = np.asarray(req.prompt, np.int32)
+        ps = self.page_size
+        total = self._pages_needed(prompt.shape[-1], req.max_new_tokens)
+        shared: list[int] = []
+        for i in range(prompt.shape[-1] // ps):
+            key = prompt[:(i + 1) * ps].tobytes()
+            page = self._prefix_pages.get(key)
+            if page is None or self._refcount_host[page] == 0 \
+                    or not self._page_backed(page, i, key):
+                break
+            shared.append(page)
+        n_new = total - len(shared)
+        if n_new > int((self._refcount_host == 0).sum()):
+            return None
+        return shared, n_new
+
+    def _page_backed(self, page: int, idx: int, key: bytes) -> bool:
+        """True iff a live slot maps ``page`` at entry ``idx`` and its
+        prompt spells the key's tokens: a stale index hit can then never
+        alias a freed and reallocated page."""
+        end = (idx + 1) * self.page_size
+        for s in range(self.capacity):
+            req = self._slot_req[s]
+            if req is None or int(self._ptab_host[s, idx]) != page:
+                continue
+            p = np.asarray(req.prompt, np.int32)
+            if p.shape[-1] >= end and p[:end].tobytes() == key:
+                return True
+        return False
+
+    def _register_prefix(self, req: Request, slot: int) -> None:
+        """Index this row's full prompt pages for later COW admissions.
+        Full prompt pages are immutable: decode appends and int4 flushes
+        land at or past the admission-time packed length."""
+        prompt = np.asarray(req.prompt, np.int32)
+        ps = self.page_size
+        row = self._ptab_host[slot]
+        for i in range(prompt.shape[-1] // ps):
+            self._prefix_pages[prompt[:(i + 1) * ps].tobytes()] = int(row[i])
+
+    def _release_slots(self, slots) -> None:
+        """Called before the reset that drops these slots' page references:
+        prune every prefix-index entry whose page is about to be freed (a
+        freed page may be reallocated with other content before the next
+        sync could notice)."""
+        if not self.paged:
+            return
+        drops = np.zeros((self.n_pages,), np.int32)
+        for s in np.atleast_1d(np.asarray(slots, np.int64)):
+            pages = self._ptab_host[int(s)]
+            np.add.at(drops, pages[pages != NULL_PAGE], 1)
+        rc = self._refcount_host
+        dying = (rc > 0) & (rc - drops <= 0)
+        dying[NULL_PAGE] = False
+        for k in [k for k, p in self._prefix_pages.items() if dying[p]]:
+            del self._prefix_pages[k]
+
+    def _reset(self, mask: np.ndarray) -> None:
+        """Retire the masked rows in every layer; their positions go to 0."""
+        for st in self.cache["attn"]:
+            self.policy.reset_rows(st, mask)
+        pos = self.cache["pos"]
+        self.cache["pos"] = torch.where(
+            torch.as_tensor(mask, device=pos.device), 0, pos).to(pos.dtype)
+        if self.paged:
+            self._sync_pool()
+
+    def _preempt_one(self, protect_from_seq: int) -> bool:
+        """Preempt the least recently admitted live slot to the front of
+        the queue as a recompute continuation, freeing its pages.  Slots
+        admitted in the current admission round (seq >= protect_from_seq)
+        are never victims: that would make no progress.  False when no
+        slot is eligible."""
+        live = [s for s in range(self.capacity)
+                if self._slot_req[s] is not None
+                and self._slot_seq[s] < protect_from_seq]
+        if not live:
+            return False
+        slot = min(live, key=lambda s: self._slot_seq[s])
+        req = self._slot_req[slot]
+        toks = self._slot_toks[slot]
+        self._carried[req.rid] = self._carried.get(req.rid, []) + list(toks)
+        # the prompt absorbs every token the cache has appended; the last
+        # sampled one is not in the cache yet and resumes in the buffer
+        gen = ([] if req.resume_tok is None else [req.resume_tok]) \
+            + list(toks)
+        self._queue.appendleft(Request(
+            rid=req.rid,
+            prompt=np.concatenate([np.asarray(req.prompt, np.int32),
+                                   np.asarray(gen[:-1], np.int32)]),
+            max_new_tokens=req.max_new_tokens - len(toks),
+            resume_tok=int(gen[-1]),
+        ))
+        self._slot_req[slot] = None
+        self._slot_toks[slot] = []
+        self.active[slot] = False
+        self.budget[slot] = 0
+        self._release_slots([slot])
+        mask = np.zeros((self.capacity,), bool)
+        mask[slot] = True
+        self._reset(mask)
+        self.n_preemptions += 1
+        return True
+
+    def pool_stats(self) -> Optional[dict]:
+        """Pool utilization snapshot (None for dense engines): page
+        counts, live per-request page spans, COW sharing and bytes (pool
+        bytes from the policy's own ``nbytes``, summed over layers)."""
+        if not self.paged:
+            return None
+        rc = self._refcount_host
+        used = int((rc > 0).sum()) - 1
+        usable = self.n_pages - 1
+        live = [s for s in range(self.capacity)
+                if self._slot_req[s] is not None]
+        mapped = int((self._ptab_host[live] != NULL_PAGE).sum()) if live \
+            else 0
+        pool_bytes = sum(self.policy.nbytes(st) for st in self.cache["attn"])
+        page_bytes = pool_bytes / self.n_pages
+        return {
+            "n_pages": usable,
+            "page_size": self.page_size,
+            "pages_used": used,
+            "pages_free": usable - used,
+            "utilization": used / max(usable, 1),
+            "peak_pages": self.peak_pages,
+            "live_requests": len(live),
+            "pages_per_request": mapped / max(len(live), 1),
+            "shared_pages": int((rc > 1).sum()),
+            "preemptions": self.n_preemptions,
+            "pool_bytes": int(pool_bytes),
+            "used_page_bytes": int(used * page_bytes),
+            "dense_equiv_bytes": int(
+                page_bytes * self.max_pages * self.capacity),
+        }
+
+    # ----------------------------------------------------------- requests
+    def _validate(self, req: Request) -> int:
+        n = int(np.asarray(req.prompt).shape[-1])
+        if n < 1:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(f"request {req.rid}: max_new_tokens must be >= 1")
+        if n + req.max_new_tokens > self.s_max:
+            raise ValueError(
+                f"request {req.rid}: prompt ({n}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds s_max={self.s_max}")
+        return n
+
+    def submit(self, req: Request) -> None:
+        # paged: the s_max bound caps a request at max_pages pages, and the
+        # constructor's floor lets the pool hold that once all else is
+        # preempted
+        self._validate(req)
+        self._queue.append(req)
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet decoding."""
+        return len(self._queue)
+
+    @property
+    def n_active(self) -> int:
+        return int(self.active.sum())
+
+    @property
+    def n_free_slots(self) -> int:
+        return sum(1 for r in self._slot_req if r is None)
+
+    @property
+    def has_work(self) -> bool:
+        return self.pending > 0 or bool(self.active.any())
+
+    def admit_packed(self, reqs: list[Request]) -> None:
+        raise NotImplementedError(
+            "BatchEngine.admit_packed is not ported yet (ROADMAP A item 12: "
+            "packed admission with the serving front-end)")
+
+    # ---------------------------------------------------------- admission
+    def _admit(self, req: Request, slot: int, plan=None
+               ) -> Optional[Completion]:
+        """Prefill alone, copy into ``slot``, draw the first token.
+        ``plan`` is the paged (shared_pages, n_new) admission plan."""
+        plen = int(np.asarray(req.prompt).shape[-1])
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=self.device)[None, :]
+        row = self.model.init_cache(1, self.s_max, policy=self.policy,
+                                    rots=self._rots, ragged=True)
+        logits, row = self.model.prefill(self.params, prompt, row)
+        tok0 = self._draw_tok0(req, logits)
+        self._insert_row(req, slot, row, tok0, plen, plan)
+        return self._post_insert(req, slot, tok0)
+
+    def _draw_tok0(self, req: Request, logits) -> torch.Tensor:
+        """The admission token; a preemption resume re-enters its pending
+        token and draws nothing."""
+        if req.resume_tok is not None:
+            return torch.full((1, 1), req.resume_tok, dtype=torch.long,
+                              device=self.device)
+        return self.sampler.sample(logits[:, -1], self.generator)[:, None]
+
+    def _insert_row(self, req: Request, slot: int, row, tok0,
+                    prompt_len: int, plan) -> None:
+        """Copy a prefilled batch-1 row into ``slot``: a dense copy, or
+        the paged COW insert plus its host bookkeeping."""
+        if self.paged:
+            shared, n_new = plan
+            for st, r in zip(self.cache["attn"], row["attn"]):
+                self.policy.insert_row_paged(st, r, slot, shared,
+                                             len(shared), n_new)
+            self._slot_seq[slot] = self._admit_seq
+            self._admit_seq += 1
+            self._orig.setdefault(req.rid, (prompt_len, req.max_new_tokens))
+            self._sync_pool()
+            self._register_prefix(req, slot)
+        else:
+            for st, r in zip(self.cache["attn"], row["attn"]):
+                self.policy.insert_row(st, r, slot)
+        self.cache["pos"][slot] = row["pos"][0]
+        self.tok[slot] = tok0[0]
+
+    def _reset_slot_now(self, slot: int) -> None:
+        """Reset one slot at admission time (it may be re-admitted within
+        the same quantum, so the reset cannot wait)."""
+        self._release_slots([slot])
+        mask = np.zeros((self.capacity,), bool)
+        mask[slot] = True
+        self._reset(mask)
+
+    def _post_insert(self, req: Request, slot: int, tok0
+                     ) -> Optional[Completion]:
+        t0 = int(tok0[0, 0])
+        self._slot_req[slot] = req
+        if req.resume_tok is not None:
+            # t0 was already counted and streamed before the preemption
+            self._slot_toks[slot] = []
+            self.budget[slot] = req.max_new_tokens
+            self.active[slot] = True
+            return None
+        self._slot_toks[slot] = [t0]
+        self.budget[slot] = req.max_new_tokens - 1
+        done = self.budget[slot] <= 0 or (
+            self.eos_id is not None and t0 == self.eos_id)
+        self.active[slot] = not done
+        return self._retire(slot) if done else None
+
+    def _admit_monolithic(self, round_start: int, events: list,
+                          completions: list) -> None:
+        """Admit from the queue into free slots, one whole-prompt prefill
+        each.  Paged: plan the head's pages and, when the pool is dry,
+        preempt the LRU live slot and replan (its continuation lands at
+        the head).  Victims predate this round, so the loop ends."""
+        while self._queue:
+            free = [s for s in range(self.capacity)
+                    if self._slot_req[s] is None]
+            if not free:
+                break
+            slot = free[0]
+            plan = None
+            if self.paged:
+                plan = self._plan_pages(self._queue[0])
+                if plan is None:
+                    if not self._preempt_one(round_start):
+                        break  # pages return at the end-of-step reset
+                    continue
+            req = self._queue.popleft()
+            done = self._admit(req, slot, plan)
+            if done is not None:  # finished at admission (eos / n=1)
+                events.append((req.rid, [int(done.tokens[-1])]))
+                completions.append(done)
+                self._reset_slot_now(slot)
+            elif req.resume_tok is None:  # resumes already streamed theirs
+                events.append((req.rid, [self._slot_toks[slot][0]]))
+
+    # ---------------------------------------------------------- retirement
+    def _retire(self, slot: int, reason: Optional[str] = None) -> Completion:
+        req = self._slot_req[slot]
+        toks = self._slot_toks[slot]
+        max_new = req.max_new_tokens
+        plen = int(np.asarray(req.prompt).shape[-1])
+        if self.paged:
+            # stitch tokens carried across preemptions back on, reported
+            # against the original prompt and budget
+            toks = self._carried.pop(req.rid, []) + toks
+            plen, max_new = self._orig.pop(req.rid, (plen, max_new))
+        toks = np.asarray(toks, np.int32)
+        if reason is None:
+            reason = ("eos" if self.eos_id is not None and len(toks)
+                      and toks[-1] == self.eos_id and len(toks) < max_new
+                      else "length")
+        self._slot_req[slot] = None
+        self._slot_toks[slot] = []
+        self.active[slot] = False
+        self.budget[slot] = 0
+        return Completion(rid=req.rid, prompt_len=plen, tokens=toks,
+                          finish_reason=reason)
+
+    def _cancelled(self, req: Request) -> Completion:
+        """A queued request (or continuation) cancelled: everything it
+        streamed lives in ``_carried``."""
+        plen = int(np.asarray(req.prompt).shape[-1])
+        toks: list[int] = []
+        if self.paged:
+            toks = self._carried.pop(req.rid, [])
+            plen, _ = self._orig.pop(req.rid, (plen, req.max_new_tokens))
+        return Completion(rid=req.rid, prompt_len=plen,
+                          tokens=np.asarray(toks, np.int32),
+                          finish_reason="cancelled")
+
+    def cancel_all(self) -> list[Completion]:
+        """Cancel every live and queued request, returning partial
+        ``Completion``s.  Afterwards every slot is free, every length zero
+        and, paged, every refcount zero but the null page's."""
+        completions = [self._retire(s, reason="cancelled")
+                       for s in range(self.capacity)
+                       if self._slot_req[s] is not None]
+        while self._queue:
+            completions.append(self._cancelled(self._queue.popleft()))
+        self.active[:] = False
+        self.budget[:] = 0
+        self._release_slots(list(range(self.capacity)))
+        self._reset(np.ones((self.capacity,), bool))
+        return completions
+
+    # -------------------------------------------------------------- decode
+    def _decode_chunk(self, n_steps: int):
+        """``n_steps`` decode steps of the whole batch with ``tok``,
+        ``active`` and ``budget`` kept on the device; one readback at the
+        end.  Returns host (tokens (cap, n), valid (cap, n), budget (cap,),
+        still-active (cap,))."""
+        dev = self.device
+        active = torch.as_tensor(self.active, device=dev)
+        budget = torch.as_tensor(self.budget, device=dev)
+        tok = self.tok
+        toks, valid = [], []
+        for _ in range(n_steps):
+            logits, self.cache = self.model.decode_step(
+                self.params, tok, self.cache, kv_block=self.kv_block,
+                backend=self.backend, active=active)
+            nxt = self.sampler.sample(logits[:, -1], self.generator)[:, None]
+            valid.append(active)  # rows live when this token was drawn
+            budget = budget - active.to(budget.dtype)
+            alive = active & (budget > 0)
+            if self.eos_id is not None:
+                alive = alive & (nxt[:, 0] != self.eos_id)
+            toks.append(nxt[:, 0])
+            tok, active = nxt, alive
+        self.tok = tok
+        host = torch.cat([torch.stack(toks, 1), torch.stack(valid, 1).long(),
+                          budget[:, None].long(), active[:, None].long()],
+                         1).cpu().numpy()
+        n = n_steps
+        return (host[:, :n], host[:, n:2 * n].astype(bool),
+                host[:, 2 * n].astype(np.int32), host[:, 2 * n + 1] != 0)
+
+    def step(self) -> tuple[list[tuple[int, list[int]]], list[Completion]]:
+        """One scheduler quantum: admit into free slots, decode one chunk.
+        Returns (events, completions); ``events`` holds one ``(rid,
+        new_tokens)`` per live request."""
+        events: list[tuple[int, list[int]]] = []
+        completions: list[Completion] = []
+        round_start = self._admit_seq if self.paged else 0
+        self._admit_monolithic(round_start, events, completions)
+        if not self.active.any():  # admission retires were reset in-loop
+            return events, completions
+
+        # the chunk is clipped to the longest remaining budget
+        n_steps = int(min(self.chunk, self.budget[self.active].max()))
+        toks, valid, budget, still_active = self._decode_chunk(n_steps)
+        self.budget = budget.copy()
+        newly_retired = np.zeros((self.capacity,), bool)
+        for slot in range(self.capacity):
+            req = self._slot_req[slot]
+            if req is None or not self.active[slot]:
+                continue
+            new = [int(t) for t, ok in zip(toks[slot], valid[slot]) if ok]
+            self._slot_toks[slot].extend(new)
+            events.append((req.rid, new))
+            if not still_active[slot]:
+                completions.append(self._retire(slot))
+                newly_retired[slot] = True
+        self.active = still_active.copy()
+        if newly_retired.any():  # lengths back to zero, pages released
+            self._release_slots(np.nonzero(newly_retired)[0])
+            self._reset(newly_retired)
+        return events, completions
+
+    def run(self, requests: Optional[list[Request]] = None
+            ) -> Iterator[Completion]:
+        """Drain the queue (plus ``requests``), yielding completions as
+        they finish."""
+        for r in requests or ():
+            self.submit(r)
+        while self._queue or self.active.any():
+            _, completions = self.step()
+            yield from completions

@@ -75,12 +75,20 @@ def attention_forward(p, x: torch.Tensor, cfg, *, q_offset: int = 0,
 
 
 def attention_decode(p, x: torch.Tensor, cfg, cache: CacheState, *,
-                     position: int, kv_block: int = 512,
-                     backend: "AttendBackend | str | None" = None):
-    """One-token decode (x (B, 1, d)) against the cache.  Returns (y, cache)."""
-    pos = torch.tensor([position], device=x.device)
+                     position: "int | torch.Tensor", kv_block: int = 512,
+                     backend: "AttendBackend | str | None" = None,
+                     active: Optional[torch.Tensor] = None):
+    """One-token decode (x (B, 1, d)) against the cache (ref
+    ``repro/models/attention.py:176-212``).  ``position`` is a shared int
+    or, for a ragged cache, per-row (B,): each row RoPE-rotates at its own
+    position; ``active`` (B,) bool keeps finished rows' lengths still.
+    Returns (y, cache)."""
+    if isinstance(position, int):
+        pos = torch.tensor([position], device=x.device)
+    else:
+        pos = position[:, None]
     q, k, v = _project_qkv(p, x, cfg, pos)
-    cache = cache.policy.update(cache, k, v)
+    cache = cache.policy.update(cache, k, v, active=active)
     o = cache.policy.attend(q, cache, scale=cfg.head_dim ** -0.5,
                             backend=backend, kv_block=kv_block)
     return _merge_heads(p, o), cache

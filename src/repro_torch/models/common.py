@@ -101,10 +101,13 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
-    """Rotary embedding.  x: (B, H, S, d), positions: (S,)."""
+    """Rotary embedding (ref ``repro/models/common.py:145-158``).
+    x: (B, H, S, d); positions: (S,) shared, or (B, S) per row."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
-    ang = positions[:, None].float() * inv[None, :]  # (S, d/2)
+    ang = positions[..., None].float() * inv  # (S, d/2) or (B, S, d/2)
+    if positions.dim() == 2:
+        ang = ang[:, None]  # (B, 1, S, d/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,11 +1,12 @@
 """Decoder-only LM, dense family (port of the dense branch of
-``repro/models/lm.py``): ``init``, ``init_cache``, ``prefill``,
-``decode_step`` and ``decode_body``.
+``repro/models/lm.py``): ``init``, ``init_cache`` (:155-217),
+``prefill``, ``decode_step`` (:731-768) and ``decode_body``.
 
 The reference's ``lax.scan`` over stacked layers becomes a Python loop
 over a list of per-layer parameter dicts and a list of per-layer cache
-states; caches are preallocated and updated in place, and ``pos`` is a
-Python int shared by every row.
+states; caches are preallocated and updated in place.  ``pos`` is a
+Python int shared by every row or, in a ragged or paged slot cache
+(continuous batching), a per-row (B,) int32 tensor on the device.
 """
 from __future__ import annotations
 
@@ -71,22 +72,45 @@ class LM:
 
     def init_cache(self, batch: int, s_max: int, *, policy=None,
                    rots: Optional[list[tuple[Rotation, Rotation]]] = None,
-                   generator: Optional[torch.Generator] = None) -> dict:
+                   generator: Optional[torch.Generator] = None,
+                   ragged: bool = False, n_pages: Optional[int] = None,
+                   page_size: Optional[int] = None) -> dict:
         """Fresh serving cache: ``{"pos": 0, "attn": [CacheState] * L}``.
         Rotations come from ``generator`` or, given ``rots`` (one (k, v)
-        pair per layer), are embedded as they are."""
+        pair per layer), are embedded as they are.
+
+        ``ragged=True`` builds a continuous-batching slot cache: ``pos``
+        and every state's length become per-row (B,) tensors.  ``n_pages``
+        and ``page_size`` build a paged slot cache instead (needs
+        ``ragged=True``): per-layer page pools behind per-row page tables,
+        filled through ``insert_row_paged``."""
         cfg = self.cfg
+        is_paged = n_pages is not None or page_size is not None
+        if is_paged and (n_pages is None or page_size is None):
+            raise ValueError("paged caches need both n_pages and page_size")
+        if is_paged and not ragged:
+            raise ValueError("paged caches are ragged by construction: "
+                             "pass ragged=True")
         pol = self.cache_policy(policy)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         attn = []
         for i in range(cfg.n_layers):
-            st = pol.init_state(batch, cfg.n_kv_heads, s_max, cfg.head_dim,
-                                generator=generator, device=self.device)
+            if is_paged:
+                st = pol.init_paged(batch, cfg.n_kv_heads, s_max,
+                                    cfg.head_dim, n_pages=n_pages,
+                                    page_size=page_size, generator=generator,
+                                    device=self.device)
+            else:
+                st = pol.init_state(batch, cfg.n_kv_heads, s_max,
+                                    cfg.head_dim, generator=generator,
+                                    device=self.device, ragged=ragged)
             if rots is not None:
                 st = pol.with_rotations(st, *rots[i])
             attn.append(st)
-        return {"pos": 0, "attn": attn}
+        pos = (torch.zeros((batch,), dtype=torch.int32, device=self.device)
+               if ragged else 0)
+        return {"pos": pos, "attn": attn}
 
     # ------------------------------------------------------------- embedding
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -115,11 +139,11 @@ class LM:
         return self._ffn(p, x + h), cache
 
     def _block_decode(self, p, x, cache, *, position, kv_block=512,
-                      backend=None):
+                      backend=None, active=None):
         h, cache = attention.attention_decode(
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
             self.cfg, cache, position=position, kv_block=kv_block,
-            backend=backend)
+            backend=backend, active=active)
         return self._ffn(p, x + h), cache
 
     # --------------------------------------------------------------- serving
@@ -130,20 +154,30 @@ class LM:
         for i, p in enumerate(params["blocks"]):
             x, cache["attn"][i] = self._block_prefill(p, x, cache["attn"][i],
                                                       kv_block=kv_block)
-        cache["pos"] = tokens.shape[1]
+        S = tokens.shape[1]
+        pos = cache["pos"]
+        cache["pos"] = S if isinstance(pos, int) else torch.full_like(pos, S)
         return self._unembed(params, x[:, -1:]), cache
 
     def decode_step(self, params, token: torch.Tensor, cache: dict, *,
-                    kv_block: int = 512, backend=None):
+                    kv_block: int = 512, backend=None, active=None):
         """token (B, 1) -> (logits (B, 1, V) fp32, cache).  ``backend``
-        (AttendBackend or its value) picks the read path; None = GATHER."""
+        (AttendBackend or its value) picks the read path; None = GATHER.
+
+        A ragged cache decodes every row at its own position; ``active``
+        (B,) bool masks finished rows: their length and position stand
+        still and their logits are meaningless."""
         pos = cache["pos"]
+        if active is not None and isinstance(pos, int):
+            raise ValueError("active masks need a ragged cache "
+                             "(init_cache(..., ragged=True))")
         x = self._embed(params, token)
         for i, p in enumerate(params["blocks"]):
             x, cache["attn"][i] = self._block_decode(
                 p, x, cache["attn"][i], position=pos, kv_block=kv_block,
-                backend=backend)
-        cache["pos"] = pos + 1
+                backend=backend, active=active)
+        cache["pos"] = pos + 1 if active is None \
+            else pos + active.to(pos.dtype)
         return self._unembed(params, x), cache
 
     def decode_body(self, params, *, kv_block: int = 512, backend=None):

@@ -1,7 +1,8 @@
 """The port's hand-written kernels on the card, each against its plain
-PyTorch version on the same CUDA tensors.  Marked ``cuda``: skips where
-no card is visible (the CPU tests hold the plain versions against the
-JAX reference).  On the card: ``python -m pytest -q tests/test_torch_cuda.py``.
+PyTorch version on the same CUDA tensors, and B2 (paged) against B1
+(dense) on the gathered view, bitwise.  Marked ``cuda``: skips where no
+card is visible (the CPU tests hold the plain versions against the JAX
+reference).  On the card: ``python -m pytest -q tests/test_torch_cuda.py``.
 """
 import pytest
 
@@ -122,3 +123,126 @@ def test_int4_cache_kernel_read_matches_gather_on_card(dev):
     got = pol.attend(q, state, backend="kernel")
     want = pol.attend(q, state, backend="gather")
     torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+
+
+def _b2_case(dev, seed, lengths, H, G, d, group, ps, s_max, W=16):
+    """Random pools behind a shuffled page table (rows of length 0 map
+    nothing), per-row windows and per-(b, h) lengths."""
+    g = _gen(dev, seed)
+    gc = torch.Generator().manual_seed(seed)
+    MP = s_max // ps
+    need = [-(-n // ps) for n in lengths]
+    n_pages = sum(need) + 2
+    perm = (torch.randperm(n_pages - 1, generator=gc) + 1).tolist()
+    table = torch.zeros((len(lengths), MP), dtype=torch.int32)
+    for b, n in enumerate(need):
+        table[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+    N, BH = n_pages * H, len(lengths) * H
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def f(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    args = (f(BH, G, d, scale=0.2), u8(N, ps, d // 2),
+            f(N, ps, d // group).abs() * 0.3, u8(N, ps, d // 2),
+            f(N, ps, d // group).abs() * 0.3, f(BH, W, d), f(BH, W, d))
+    L = torch.tensor(lengths, dtype=torch.int32, device=dev
+                     ).repeat_interleave(H)
+    return args, (L - L % W).int(), L, table.to(dev)
+
+
+# (lengths, H, G, d, group, page_size, s_max): small shapes, pages smaller
+# than, equal to and larger than the 64-token tile, and the main path's
+# (internlm2-1.8b: 8 kv heads, G=2, d=128; rows of 517..4093 tokens and a
+# retired row)
+B2_CASES = [
+    ((0, 15, 37, 200), 2, 2, 64, 32, 16, 256),
+    ((5, 64, 130, 255), 2, 4, 128, 16, 32, 256),
+    ((0, 100, 1000), 4, 2, 128, 32, 64, 1024),
+    ((300, 17), 1, 8, 256, 32, 128, 512),
+    ((517, 1031, 2055, 4093, 0), 8, 2, 128, 32, 16, 4608),
+]
+
+
+@pytest.mark.parametrize("case", B2_CASES)
+def test_b2_kernel_matches_plain_and_equals_b1(dev, case):
+    lengths, H, G, d, group, ps, s_max = case
+    args, plen, tlen, table = _b2_case(dev, sum(lengths), lengths, H, G, d,
+                                       group, ps, s_max)
+    kw = dict(group=group, page_size=ps, n_kv_heads=H)
+    before = qa_ops.paged_launches
+    got = qa_ops.quant_decode_attention_paged(*args, plen, tlen, table, **kw)
+    assert qa_ops.paged_launches == before + 1
+    want = qa_ref.quant_decode_attention_paged_ref(
+        *args, plen, tlen, table, group=group, n_kv_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+    # B1 on the gathered view (S = MP * page_size): the same bits
+    q, kp, ks, vp, vs, kr, vr = args
+    rows = [qa_ref.paged_rows(t, table, H).contiguous()
+            for t in (kp, ks, vp, vs)]
+    dense = qa_ops.quant_decode_attention(q, *rows, kr, vr, plen, tlen,
+                                          group=group)
+    assert torch.equal(got, dense)
+
+
+def test_paged_engine_equals_dense_engine_on_card(dev):
+    """A small model served through both slot caches on the card: the int4
+    KERNEL streams (B2 paged, B1 dense) are equal token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.batch_engine import BatchEngine, Request
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device=dev)
+    params = model.init(model.generator(0))
+    g = torch.Generator().manual_seed(1)
+    reqs = [Request(i, torch.randint(0, 256, (n,), generator=g).numpy(), m)
+            for i, (n, m) in enumerate([(9, 8), (70, 20), (40, 33), (23, 12)])]
+    out = {}
+    for paged in (False, True):
+        eng = BatchEngine(model, params, capacity=3, s_max=128,
+                          policy="int4-srft", backend="kernel", chunk=4,
+                          paged=paged, page_size=16)
+        before = qa_ops.paged_launches
+        out[paged] = {c.rid: c.tokens for c in eng.run(list(reqs))}
+        assert (qa_ops.paged_launches > before) == paged
+    for i in range(len(reqs)):
+        assert (out[True][i] == out[False][i]).all(), i
+
+
+def test_b1_after_b2_keeps_its_shared_memory(dev):
+    """B1 and B2 share the combine pass, whose dynamic shared memory grows
+    with the number of splits.  A B2 call that needs less must not lower
+    the limit a later B1 call needs (batch 1 at 4608 tokens takes more
+    than the default 48 KB).  In a fresh process: the limit is process
+    state, so earlier tests must not decide the outcome."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = """
+import torch
+from repro_torch.kernels.quant_attention import ops
+import test_torch_cuda as t
+dev = torch.device("cuda")
+args = t._b1_args(dev, 3, 8, 2, 128, 4608, 16, 32)
+want = ops.quant_decode_attention(*args, 4096, 4101, group=32)
+b2, plen, tlen, table = t._b2_case(dev, 4, (517, 1031, 2055, 4093, 0), 8, 2,
+                                   128, 32, 16, 4608)
+ops.quant_decode_attention_paged(*b2, plen, tlen, table, group=32,
+                                 page_size=16, n_kv_heads=8)
+got = ops.quant_decode_attention(*args, 4096, 4101, group=32)
+torch.cuda.synchronize()
+assert torch.equal(got, want)
+"""
+    here = Path(__file__).resolve().parent
+    env_path = f"{here.parent / 'src'}:{here}"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": env_path})
+    assert res.returncode == 0, res.stderr[-2000:]

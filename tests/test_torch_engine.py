@@ -147,6 +147,25 @@ def test_module_generate_and_backends_agree(bridged):
 
 
 def test_entry_points_refuse_a_silent_cpu_path(monkeypatch):
+    """Without a card, every entry point raises unless asked for the CPU:
+    the model, both policies' ``init_state`` / ``init_paged`` and
+    ``BatchEngine``."""
+    from repro_torch.core.cache_api import get_policy
+    from repro_torch.launch.batch_engine import BatchEngine
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(get_config("smol-d64"))
+    for name in ("bf16", "int4-srft"):
+        pol = get_policy(name)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pol.init_state(1, 1, 32, 64)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pol.init_paged(1, 1, 32, 64, n_pages=3, page_size=16)
+        st = pol.init_state(1, 1, 32, 64, device="cpu", ragged=True)
+        assert st.lengths.device.type == "cpu"
+    model = LM(get_config("smol-d64"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchEngine(model, {}, capacity=1, s_max=32)
+    eng = BatchEngine(model, {}, capacity=1, s_max=32, device="cpu")
+    assert eng.device.type == "cpu"

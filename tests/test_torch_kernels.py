@@ -257,7 +257,8 @@ def test_int4_attend_gather_and_kernel_match_reference(prompt, n_dec):
     jrk, jrv = _jrot(d, 31), _jrot(d, 32)
     jc, _, _ = _jax_cache(5, B, Hkv, S_max, d, prompt, n_dec, jrk, jrv)
     pol = get_policy("int4-srft")
-    state = pol.with_rotations(pol.init_state(B, Hkv, S_max, d), _trot(jrk),
+    state = pol.with_rotations(pol.init_state(B, Hkv, S_max, d, device="cpu"),
+                               _trot(jrk),
                                _trot(jrv))
     state.data.kv = _bridge_cache(jc)
     q = np.random.default_rng(6).standard_normal((B, Hq, 1, d)).astype(
@@ -273,15 +274,43 @@ def test_int4_attend_gather_and_kernel_match_reference(prompt, n_dec):
 
 def test_kernel_backend_refuses_sliding_window_and_bf16_refuses_kernel():
     pol = get_policy("int4-srft")
-    state = pol.init_state(1, 1, 32, 64)
+    state = pol.init_state(1, 1, 32, 64, device="cpu")
     q = torch.zeros(1, 2, 1, 64)
     with pytest.raises(NotImplementedError):
         pol.attend(q, state, backend="kernel", sliding_window=8)
     bf = get_policy("bf16")
     with pytest.raises(NotImplementedError):
-        bf.attend(q, bf.init_state(1, 1, 32, 64), backend="kernel")
+        bf.attend(q, bf.init_state(1, 1, 32, 64, device="cpu"),
+                  backend="kernel")
 
 
 def test_b1_plain_row_lengths_broadcast():
     assert qa_ref.row_lengths(7, 3, "cpu").tolist() == [7, 7, 7]
     assert qa_ref.row_lengths(torch.tensor([1, 2]), 2, "cpu").tolist() == [1, 2]
+
+
+@pytest.mark.parametrize("source,ops", [("quant_attention", "qa"),
+                                        ("srft_quant", "sq")])
+def test_ctypes_argtypes_match_the_c_signatures(source, ops):
+    """Every bound launch function's ``argtypes`` has one entry per
+    parameter of its ``extern "C"`` definition, a pointer where the C
+    parameter is a pointer and an int where it is an int (a missing entry
+    shifts every later argument, the stream included)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.quant_attention import ops as qa_ops_mod
+
+    argtypes = (qa_ops_mod if ops == "qa" else sq_ops).ARGTYPES
+    src = (Path(qa_ops_mod.__file__).resolve().parents[1] / "csrc"
+           / f"{source}.cu").read_text()
+    extern = src[src.index('extern "C" {'):]
+    for name, types in argtypes.items():
+        m = re.search(rf"\bint {name}\(([^)]*)\)", extern)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                 for p in params]
+        assert types == kinds, f"{name}: {len(types)} argtypes for " \
+                               f"{len(params)} parameters"
