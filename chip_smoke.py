@@ -6,7 +6,12 @@ Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); TF32 off;
   2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
   3. hold each kernel against its plain PyTorch version on the card at
-     the shapes the main path gives it, and time both;
+     the shapes the main path gives it, and time both with CUDA events,
+     L2 flushed before each call (B4, off the serving
+     path, at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
+     and at d 64 / 128 / 256, int4 and int8); B3 and B4 are then timed
+     in alternation over B4_ROUNDS rounds and reported as the medians,
+     the SM clock polled by nvidia-smi through the whole phase;
   4. check the served model against the port's plain CPU path on a small
      input;
   5. the main path: internlm2-1.8b at full width and depth, random weights
@@ -26,18 +31,33 @@ Phases (any failure exits non-zero):
      carry one reference per sharer, an undersized pool must preempt and
      still complete every request, and every page must come back.  The
      launch counters are zeroed just before the paged int4 run and read
-     just after.
+     just after;
+  8. the quality path, on fp32 operands (``common.dot_mode(False)``, as
+     the reference's benchmarks run): ``kernel_quality.run`` on the card
+     -- B3 (folded) and B4 against their plain versions at d 64/128/256,
+     int4 and int8, plain and scaled lambda (codes equal up to .5 ties);
+     smol-d128 trained 250 Adam steps (batch 8 x 128 tokens, lr 3e-3;
+     the final loss must be below the first); Table 7's ladder (alpha =
+     100 K outlier, 8 x 256 eval tokens: base PPL and hook dPPL of
+     per_token, g32_no_lambda, scaled_g32, logged with the paper's two
+     claims, which do not gate) -- with the counters zeroed just before
+     and read just after; then, on a reduced smol model with the same
+     params, rotations and tokens, hook PPL on the card against the CPU
+     plain path for every scheme, within 1e-3 relative.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+from datetime import datetime
 from pathlib import Path
 
 import torch
@@ -56,8 +76,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (data sheet)
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 LOGIT_TOL = 0.05  # GATHER vs KERNEL, relative to the largest logit
 B1_ATOL = 1e-4  # fp32 sums in another order (split-K) over ~4K tokens
-TIE_BAND = 1e-4  # B3 codes may flip by 1 only this close to a .5 boundary
-MAX_FLIP_SHARE = 1e-3
+B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
+PPL_RTOL = 1e-3  # hook PPL on the card vs the CPU plain path
 
 
 def log(*a):
@@ -81,10 +101,7 @@ def card_line() -> str:
 
 class L2Flush:
     """Rewrite a buffer larger than the 50 MB L2 before each timed call: on
-    the main path each layer's cache is read cold.  Its kernel
-    (bitwise_not) is left out of the device sums."""
-
-    NAME = "bitwise_not"
+    the main path each layer's cache is read cold."""
 
     def __init__(self):
         self.buf = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
@@ -107,23 +124,36 @@ def _kernel_us(prof, skip=()) -> dict:
     return out
 
 
-def device_ms(fn, flush, iters=20, warmup=3) -> float:
-    """Device time of one call: the sum of the durations of the CUDA
-    kernels it launches (torch.profiler), L2 flushed before each call."""
-    from torch.profiler import ProfilerActivity, profile
+TIMED = []  # (label, ms, t0, t1) of each labelled device_ms, host clock
+SPIN_CYCLES = 2_000_000  # ~1 ms at 1980 MHz
 
+
+def device_ms(fn, flush, iters=20, warmup=3, label=None) -> float:
+    """Device time of one call, L2 flushed before each: CUDA events
+    around each call, averaged.  A spin kernel ahead of each call lets
+    the host queue the whole call before the device reaches it, so the
+    events see device time and not the host's launch gaps.  (On the card
+    torch.profiler kept 15 of 20 kernel records of such a loop, so it
+    times no kernel here.)  With a ``label`` the host-clock window goes
+    into TIMED."""
     for _ in range(warmup):
         fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_kernel_us(prof, skip=(L2Flush.NAME,)).values())
-    assert total > 0, "the profiler recorded no device time"
-    return total / iters / 1e3
+    t0 = time.time()
+    for a, b in ev:
+        flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    ms = sum(a.elapsed_time(b) for a, b in ev) / iters
+    if label is not None:
+        TIMED.append((label, ms, t0, t1))
+    return ms
 
 
 def wall_ms(fn, iters=50) -> float:
@@ -141,6 +171,42 @@ def wall_ms(fn, iters=50) -> float:
     return a.elapsed_time(b) / iters
 
 
+class ClockSampler:
+    """The SM clock polled by nvidia-smi every 50 ms while the block runs;
+    after it, ``mhz(t0, t1)`` gives the samples taken between two
+    ``time.time()``s."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        # read as the lines come: a full pipe would stall nvidia-smi
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        time.sleep(0.5)
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                ts, mhz = (f.strip() for f in line.split(","))
+                self.samples.append((datetime.strptime(
+                    ts, "%Y/%m/%d %H:%M:%S.%f").timestamp(), int(mhz)))
+            except ValueError:
+                continue
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+        return False
+
+    def mhz(self, t0, t1) -> list[int]:
+        return [m for t, m in self.samples if t0 <= t <= t1]
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -152,6 +218,7 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 def check_b3(sq_ops, ref, rot, x, *, group):
     """Kernel vs plain on the same inputs: scales rtol 1e-6, codes equal
     except +-1 flips at .5 ties of y/scale (float64 y)."""
+    from repro_torch.benchmarks.kernel_quality import MAX_FLIP_SHARE, TIE_BAND
     from repro_torch.core import packing
 
     mat = None if rot is None else rot.matrix
@@ -197,10 +264,11 @@ def kernel_phase(flush):
     x = torch.randn((n, d), generator=g, device="cuda").to(torch.bfloat16)
     err, flips = check_b3(sq_ops, sq_ref, rot, x, group=group)
     log(f"B3 prefill write n={n} d={d} bf16 in: max |deq diff| {err:.3e} "
-        f"({flips} tie flips, share <= {MAX_FLIP_SHARE}), scales rtol 1e-6")
-    call = lambda: sq_ops.srft_quant(x, rot.matrix, rot.lam,  # noqa: E731
-                                     group=group)
-    ms, ms_wall = device_ms(call, flush), wall_ms(call)
+        f"({flips} tie flips), scales rtol 1e-6")
+    b3_call = lambda: sq_ops.srft_quant(x, rot.matrix, rot.lam,  # noqa
+                                        group=group)
+    call = b3_call
+    ms, ms_wall = device_ms(call, flush, label="B3"), wall_ms(call)
     plain = device_ms(lambda: sq_ref.srft_quant_ref(
         x, rot.matrix, rot.lam, group=group), flush)
     nbytes = n * d * 2 + d * d * 4 + d * 4 + n * d // 2 + n * d // group * 4
@@ -251,7 +319,7 @@ def kernel_phase(flush):
         f"tolerance {B1_ATOL}")
     call = lambda: qa_ops.quant_decode_attention(  # noqa: E731
         *args, plen, total, group=group)
-    ms, ms_wall = device_ms(call, flush), wall_ms(call)
+    ms, ms_wall = device_ms(call, flush, label="B1"), wall_ms(call)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, plen, total, group=group), flush)
     nbytes = (BH * G * d * 4 * 2 + 2 * BH * plen * (d // 2 + d // group * 4)
@@ -271,7 +339,69 @@ def kernel_phase(flush):
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     wall_ms=ms_wall))
     out.append(check_b2(flush, g, Hkv, G, d, group, W))
+    b4, b3_rounds = check_b4(flush, g, (PROMPTS[-1] // W) * W * Hkv, group,
+                             b3_call)
+    b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
+    b3["ms_rounds"] = b3_rounds
+    out.append(b4)
     return out
+
+
+def check_b4(flush, g, n, group, b3_call):
+    """B4 on codes the folded B3 wrote, against its plain version on the
+    same codes (``kernel_quality.fold_and_invert``): at n rows x d 128
+    int4 (B3's prefill write), timed, and at d 64 / 128 / 256 x int4 /
+    int8, checked.  Scaled lambda inflates the outputs, so the tolerance
+    is relative to max |x|.  B4's time is the median of B4_ROUNDS rounds,
+    each also timing B3's prefill write (``b3_call``) with the SM clock
+    sampled; returns B4's record and B3's times by round."""
+    from repro_torch.benchmarks.kernel_quality import B4_RTOL, fold_and_invert
+    from repro_torch.core.transforms import make_rotation
+    from repro_torch.kernels.srft_quant import ops as sq_ops
+    from repro_torch.kernels.srft_quant import ref as sq_ref
+
+    checks, timed = [], None
+    for d, bits in ((128, 4), (128, 8), (64, 4), (64, 8), (256, 4),
+                    (256, 8)):
+        rot = make_rotation("srft", g, d, "cuda")
+        rot.lam = torch.exp(0.3 * torch.randn(d, generator=g, device="cuda"))
+        x = torch.randn((n, d), generator=g, device="cuda")
+        rt = fold_and_invert(x, rot, group=group, bits=bits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(rt["x"]).all() and rt["err"] <= rt["tol"], \
+            f"B4 d={d} bits={bits}: err {rt['err']} > {rt['tol']}"
+        checks.append(dict(d=d, bits=bits, rows=n, max_abs_err=rt["err"],
+                           tol=rt["tol"]))
+        if timed is None:
+            timed = (rt["packed"], rt["scales"], rt["minv"], d, bits,
+                     rt["err"])
+    pk, sc, minv, d, bits, err = timed
+    call = lambda: sq_ops.srft_dequant(pk, sc, minv, group=group,  # noqa
+                                       bits=bits)
+    b3_rounds, b4_rounds = [], []
+    for i in range(B4_ROUNDS):
+        b3_rounds.append(device_ms(b3_call, flush, label=f"B3 round {i}"))
+        b4_rounds.append(device_ms(call, flush, label=f"B4 round {i}"))
+    ms = sorted(b4_rounds)[B4_ROUNDS // 2]
+    ms_wall = wall_ms(call)
+    plain = device_ms(lambda: sq_ref.srft_dequant_ref(
+        pk, sc, minv, group=group, bits=bits), flush)
+    nbytes = pk.numel() + sc.numel() * 4 + d * d * 4 + n * d * 4
+    b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
+    log(f"B4 dequantize + inverse rotation n={n} d={d} int4: max abs err "
+        f"{err:.3e}; all shapes within {B4_RTOL} x max(1, max|x|): "
+        + ", ".join(f"d{c['d']}/b{c['bits']} {c['max_abs_err']:.2e}"
+                    for c in checks)
+        + f"; median {ms:.4f} ms of {B4_ROUNDS} rounds (min "
+        f"{min(b4_rounds):.4f}, max {max(b4_rounds):.4f}), plain "
+        f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(name="srft_dequant", route="cuda",
+                source="src/repro_torch/kernels/csrc/srft_quant.cu",
+                replaces="src/repro/kernels/srft_quant/srft_quant.py:132",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, wall_ms=ms_wall,
+                ms_rounds=b4_rounds,
+                checks=checks), b3_rounds
 
 
 def check_b2(flush, g, H, G, d, group, W):
@@ -318,7 +448,7 @@ def check_b2(flush, g, H, G, d, group, W):
     torch.cuda.synchronize()
     assert torch.equal(got, dense), "B2 != B1 on the gathered view"
     call = lambda: qa_ops.quant_decode_attention_paged(*args, **kw)  # noqa
-    ms, ms_wall = device_ms(call, flush), wall_ms(call)
+    ms, ms_wall = device_ms(call, flush, label="B2"), wall_ms(call)
     b1_ms = device_ms(lambda: qa_ops.quant_decode_attention(
         *dense_args, group=group), flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_paged_ref(
@@ -528,6 +658,7 @@ def _counters():
     from repro_torch.kernels.srft_quant import ops as sq_ops
 
     return {"srft_quant": sq_ops.launches,
+            "srft_dequant": sq_ops.dequant_launches,
             "quant_decode_attention": qa_ops.launches,
             "quant_decode_attention_paged": qa_ops.paged_launches}
 
@@ -536,7 +667,8 @@ def _zero_counters():
     from repro_torch.kernels.quant_attention import ops as qa_ops
     from repro_torch.kernels.srft_quant import ops as sq_ops
 
-    sq_ops.launches = qa_ops.launches = qa_ops.paged_launches = 0
+    sq_ops.launches = sq_ops.dequant_launches = 0
+    qa_ops.launches = qa_ops.paged_launches = 0
 
 
 def batch_requests(vocab):
@@ -759,6 +891,81 @@ def batch_phase(model, params):
     return launches
 
 
+# ---------------------------------------------------------------- quality
+
+def quality_phase():
+    """The quality path on the card (see the module doc, phase 8).
+    Returns its launch counts."""
+    from repro_torch.benchmarks import kernel_quality
+
+    _zero_counters()
+    rec = kernel_quality.run(device="cuda")
+    launches = _counters()
+    for r in rec["bit_exactness"]:
+        log("bit_exactness " + json.dumps(r))
+    kc = kernel_quality.kernel_claims(rec["bit_exactness"])
+    assert all(kc.values()), f"B3/B4 against their plain versions: {kc}"
+    st = rec["standin"]
+    log(f"standin {st['model']}: {st['steps']} steps, loss "
+        f"{st['first_loss']:.4f} -> {st['final_loss']:.4f} in "
+        f"{st['seconds']:.1f}s")
+    assert st["final_loss"] < st["first_loss"], "training did not learn"
+    lad = rec["quality_ladder"]
+    log(f"Table 7 ladder ({lad['model']}, alpha 100 on K, eval tokens "
+        f"{lad['eval_tokens']}): base PPL {lad['base_ppl']:.4f}; "
+        + ", ".join(f"{r['kernel_variant']} dPPL {r['dppl']:+.4f}"
+                    for r in lad["rows"])
+        + f"; paper claims (logged, not gated): {lad['claims']}")
+    log(f"quality-path launches: {launches}; record {rec['path']}")
+    assert launches["srft_quant"] > 0 and launches["srft_dequant"] > 0, \
+        launches
+    return launches
+
+
+def quality_reference_phase():
+    """Hook PPL on the card against the CPU plain path, for every scheme,
+    on a reduced smol-d128 (head_dim 64, the corpus's 256 tokens) with the
+    same params, rotations (static lambda for the per-channel schemes)
+    and tokens."""
+    from repro_torch.benchmarks.common import (
+        calibrated_rots,
+        eval_tokens,
+        hook_ppl,
+    )
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.transforms import Rotation
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(reduced(get_config("smol-d128")),
+                              vocab_size=256, head_dim=64)
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device="cuda")
+    params = cpu.init(cpu.generator(SEED))
+    toks = eval_tokens(batch=8, seq_len=128, device="cpu")
+    plain = cpu.init_rotations(cpu.generator(1))
+    cal = calibrated_rots(cpu, params, toks, plain)
+    mv = lambda rots: [tuple(Rotation(r.matrix.cuda(), r.lam.cuda(),  # noqa
+                                      r.signs.cuda(), r.kind) for r in p)
+                       for p in rots]
+    on = {"cpu": (cpu, params, toks, plain, cal),
+          "cuda": (gpu, _to(params, "cuda"), toks.cuda(), mv(plain), mv(cal))}
+    worst = 0.0
+    for scheme in (None, "per_token", "per_tensor", "per_group",
+                   "per_channel", "per_channel_group"):
+        kw = None if scheme is None else dict(bits=4, scheme=scheme,
+                                              group=32)
+        ppl = {}
+        for dev, (model, p, t, rp, rc) in on.items():
+            ppl[dev] = hook_ppl(model, p, t, rc if scheme and "channel" in
+                                scheme else rp, kw)
+        rel = abs(ppl["cuda"] - ppl["cpu"]) / ppl["cpu"]
+        worst = max(worst, rel)
+        log(f"  hook PPL {scheme or 'full precision'}: card "
+            f"{ppl['cuda']:.6f}, CPU {ppl['cpu']:.6f} (rel {rel:.2e})")
+        assert rel <= PPL_RTOL, f"{scheme}: card vs CPU hook PPL rel {rel}"
+    log(f"hook PPL card vs CPU (reduced smol-d128, 8 x 128 tokens): "
+        f"worst rel {worst:.2e}, tolerance {PPL_RTOL}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -792,18 +999,39 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     flush = L2Flush()
-    kernels = kernel_phase(flush)
+    with ClockSampler() as clock:
+        kernels = kernel_phase(flush)
+    log("SM clock during the kernel timings (nvidia-smi, 50 ms polls):")
+    mhz = {}
+    for label, ms, t0, t1 in TIMED:
+        m = clock.mhz(t0, t1)
+        mhz[label] = [min(m), max(m)] if m else None
+        log(f"  {label}: {ms:.5f} ms, SM clock {mhz[label]} MHz "
+            f"({len(m)} samples, {t1 - t0:.2f} s)")
+    for k, label in zip(kernels, ("B3", "B1", "B2", None)):
+        k["sm_mhz"] = mhz[label] if label else [
+            mhz[f"B4 round {i}"] for i in range(B4_ROUNDS)]
     small_reference_phase()
+    from repro_torch.models import common
+
+    t0 = time.perf_counter()
+    with common.dot_mode(False):
+        log("dot mode for the quality path: fp32 operands, TF32 off")
+        quality = quality_phase()
+        quality_reference_phase()
+    log(f"quality phase {time.perf_counter() - t0:.1f}s")
     launches, model, params = main_path_phase()
     t0 = time.perf_counter()
     batch = batch_phase(model, params)
     log(f"batch phase {time.perf_counter() - t0:.1f}s")
-    by_path = {"engine": launches, **batch}
+    by_path = {"engine": launches, **batch, "quality": quality}
+    own_path = {"quant_decode_attention_paged": "batch_paged",
+                "srft_dequant": "quality"}
     for k in kernels:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in by_path.items()}
-        own = "batch_paged" if k["name"].endswith("_paged") else "engine"
-        k["launches"] = k["launches_by_path"][own]
+        k["launches"] = k["launches_by_path"][own_path.get(k["name"],
+                                                           "engine")]
         assert k["launches"] > 0, f"{k['name']} never launched on its path"
     log(card)
     log(json.dumps({"kernels": kernels}))

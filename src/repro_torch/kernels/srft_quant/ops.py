@@ -1,9 +1,11 @@
-"""Wrapper for kernel B3, the fused rotate + quantize + pack (port of
-``repro/kernels/srft_quant/ops.py:27``).
+"""Wrappers for kernel B3, the fused rotate + quantize + pack, and kernel
+B4, its inverse: unpack + dequantize + inverse rotation (port of
+``repro/kernels/srft_quant/ops.py``).
 
-On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
-CUDA tensor it launches ``csrc/srft_quant.cu`` or raises.  ``launches``
-counts kernel launches (plain-version calls do not count).
+On a CPU tensor a wrapper runs the plain version (``ref.py``); on a CUDA
+tensor it launches ``csrc/srft_quant.cu`` or raises.  ``launches`` (B3)
+and ``dequant_launches`` (B4) count kernel launches (plain-version calls
+do not count).
 """
 from __future__ import annotations
 
@@ -13,27 +15,33 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.srft_quant.ref import srft_quant_ref
+from repro_torch.kernels.srft_quant.ref import (
+    fold_inverse_matrix,
+    srft_dequant_ref,
+    srft_quant_ref,
+)
 
-__all__ = ["srft_quant", "rotate_quantize", "quantize_rotated", "launches",
-           "ARGTYPES"]
+__all__ = ["srft_quant", "srft_dequant", "rotate_quantize",
+           "dequantize_rotate", "quantize_rotated", "launches",
+           "dequant_launches", "ARGTYPES"]
 
-launches = 0  # kernel launches since the caller last set this to 0
-_FN = None
+launches = 0  # B3 launches since the caller last set this to 0
+dequant_launches = 0  # B4 launches since the caller last set this to 0
+_FNS: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the C signature of csrc/srft_quant.cu's launch function
-ARGTYPES = {"srft_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+# the C signatures of csrc/srft_quant.cu's launch functions
+ARGTYPES = {"srft_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            "srft_dequant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
+def _fn(name: str):
+    if name not in _FNS:
         lib = _build.library("srft_quant")
-        fn = lib.srft_quant_launch
-        fn.argtypes = ARGTYPES["srft_quant_launch"]
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
         fn.restype = _I
-        _FN = (lib, fn)
-    return _FN
+        _FNS[name] = (lib, fn)
+    return _FNS[name]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -58,7 +66,7 @@ def _launch(x, m, lam, group, bits):
                       dtype=torch.uint8 if bits == 4 else torch.int8,
                       device=x.device)
     scales = torch.empty((n, d // group), dtype=torch.float32, device=x.device)
-    lib, fn = _fn()
+    lib, fn = _fn("srft_quant_launch")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(m),
@@ -80,6 +88,46 @@ def srft_quant(x: torch.Tensor, m: Optional[torch.Tensor],
     return _launch(x, m, lam, group, bits)
 
 
+def _launch_dequant(packed, scales, minv, group, bits):
+    global dequant_launches
+    n = packed.shape[0]
+    d = packed.shape[1] * 2 if bits == 4 else packed.shape[1]
+    want = torch.uint8 if bits == 4 else torch.int8
+    if bits not in (4, 8) or packed.dtype != want or not packed.is_contiguous():
+        raise ValueError(f"bits={bits} needs contiguous {want} codes, got "
+                         f"{packed.dtype}")
+    if d % 2 or group <= 0 or d % group or group % 2 or d > 256:
+        raise ValueError(f"unsupported d={d} group={group}")
+    for name, t, shape in (("scales", scales, (n, d // group)),
+                           ("minv", minv, (d, d))):
+        if (t.device != packed.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 {shape} on "
+                             f"{packed.device}")
+    out = torch.empty((n, d), dtype=torch.float32, device=packed.device)
+    lib, fn = _fn("srft_dequant_launch")
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(packed.data_ptr(), scales.data_ptr(), minv.data_ptr(),
+                out.data_ptr(), n, d, group, bits, stream)
+    _build.check(lib, "srft_quant", rc)
+    dequant_launches += 1
+    return out
+
+
+def srft_dequant(packed: torch.Tensor, scales: torch.Tensor,
+                 minv: torch.Tensor, *, group: int = 32, bits: int = 4
+                 ) -> torch.Tensor:
+    """(packed (N, d/2|d), scales (N, d/group)) -> x (N, d) fp32; see
+    ``ref.srft_dequant_ref``."""
+    if packed.device.type == "cpu":
+        return srft_dequant_ref(packed, scales, minv, group=group, bits=bits)
+    if packed.device.type != "cuda":
+        raise ValueError(f"srft_dequant runs on cpu or cuda, not "
+                         f"{packed.device}")
+    return _launch_dequant(packed, scales, minv, group, bits)
+
+
 def _flat(fn, x: torch.Tensor, *args, group: int, bits: int):
     lead, d = x.shape[:-1], x.shape[-1]
     packed, scales = fn(x.reshape(-1, d).contiguous(), *args, group=group,
@@ -99,3 +147,16 @@ def rotate_quantize(x: torch.Tensor, rot, *, group: int = 32, bits: int = 4):
 def quantize_rotated(y: torch.Tensor, *, group: int = 32, bits: int = 4):
     """y (..., d) already rotated -> (packed, scales): the W-flush."""
     return _flat(srft_quant, y, None, None, group=group, bits=bits)
+
+
+def dequantize_rotate(packed: torch.Tensor, scales: torch.Tensor, rot, *,
+                      group: int = 32, bits: int = 4) -> torch.Tensor:
+    """Inverse of the folded write ``srft_quant(x, fold_matrix(rot))``
+    (ref ``ops.py:46``): (packed (..., d/2|d), scales (..., d/group)) ->
+    (..., d) fp32, through B4 with the folded inverse matrix."""
+    lead = packed.shape[:-1]
+    d = packed.shape[-1] * 2 if bits == 4 else packed.shape[-1]
+    x = srft_dequant(packed.reshape(-1, packed.shape[-1]).contiguous(),
+                     scales.reshape(-1, d // group).contiguous(),
+                     fold_inverse_matrix(rot), group=group, bits=bits)
+    return x.reshape(*lead, d)

@@ -1,0 +1,53 @@
+"""The training step: forward, backward, clip, AdamW (port of
+``repro/launch/steps.py:20-43``).
+
+The reference differentiates with ``jax.value_and_grad``; here autograd
+runs through the port's plain modules (training has no Pallas kernel, so
+it needs no backward kernel).  Params are plain tensors: each step makes
+them require grad, and the update returns new tensors that do not.  Run
+it outside ``torch.inference_mode``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.optim.adam import (
+    adam_init,
+    adam_update,
+    clip_by_global_norm,
+    tree_leaves,
+    tree_map,
+)
+
+__all__ = ["init_train_state", "make_train_step"]
+
+
+def init_train_state(model, generator: torch.Generator):
+    """(params, Adam state) for ``model``."""
+    params = model.init(generator)
+    return params, adam_init(params)
+
+
+def make_train_step(model, *, lr=3e-4, clip: float = 1.0):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``lr`` is a float or a schedule ``fn(step) -> lr``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def train_step(params, opt_state, batch):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tree_leaves(params)
+        loss, metrics = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        grads, gnorm = clip_by_global_norm(grads, clip)
+        step_lr = lr_fn(opt_state.step)
+        params = tree_map(lambda p: p.detach(), params)
+        params, opt_state = adam_update(grads, opt_state, params, lr=step_lr)
+        out = {"loss": loss.detach(), "grad_norm": gnorm, "lr": step_lr,
+               **{k: v.detach() for k, v in metrics.items()}}
+        return params, opt_state, out
+
+    return train_step

@@ -2,14 +2,16 @@
 serving paths behind the cache-policy protocol (port of
 ``repro/models/attention.py``):
 
-  * prefill : blockwise flash attention on the raw bf16 K/V; K/V are also
-              written into the cache through its policy;
-  * decode  : one token -- append first, then attend, so the new token
-              is read back from the residual window.
+  * full sequence : blockwise flash attention on the raw bf16 K/V
+                    (training and eval, optionally through the KV
+                    round-trip hook); a prefill also writes K/V into the
+                    cache through its policy;
+  * decode        : one token -- append first, then attend, so the new
+                    token is read back from the residual window.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -61,16 +63,26 @@ def _merge_heads(p, o):
 
 def attention_forward(p, x: torch.Tensor, cfg, *, q_offset: int = 0,
                       kv_block: int = 1024,
-                      cache: Optional[CacheState] = None):
-    """Full-sequence attention (prefill).  Returns (y, cache); the cache,
-    if given, is filled in place through its policy."""
+                      kv_roundtrip: Optional[Callable] = None,
+                      cache: Optional[CacheState] = None,
+                      return_kv: bool = False):
+    """Full-sequence attention (train, eval or prefill; ref
+    ``attention.py:77-126``).  Returns (y, cache), or (y, cache, (k, v))
+    with ``return_kv`` (activations for lambda calibration).  The cache,
+    if given, is filled in place through its policy.  ``kv_roundtrip``
+    maps (k, v) -> (k~, v~) before attention: the paper's hook
+    measurement, quantization error on every read."""
     S = x.shape[1]
     positions = q_offset + torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if kv_roundtrip is not None:
+        k, v = kv_roundtrip(k, v)
     if cache is not None:
         cache = cache.policy.prefill(cache, k, v)
     o = flash_attention(q, k, v, q_offset=q_offset, kv_block=kv_block,
                         scale=cfg.head_dim ** -0.5)
+    if return_kv:
+        return _merge_heads(p, o), cache, (k, v)
     return _merge_heads(p, o), cache
 
 

@@ -6,10 +6,13 @@ activations are bf16 with fp32 accumulation.  ``REPRO_BF16_DOTS`` is the
 reference's switch with the reference's default: unset or ``0`` runs
 every matmul on fp32 operands (what the CPU tests compare), ``1`` on bf16
 operands with fp32 accumulation (the TPU-faithful mode; on a card it runs
-the tensor cores).  It is read once, at import.
+the tensor cores).  It is read once, at import; :func:`dot_mode`
+switches it for a block (the quality measurements run on fp32 operands,
+as the reference's benchmarks do, inside a process that serves in bf16).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -22,6 +25,7 @@ __all__ = [
     "PARAM_DTYPE",
     "COMPUTE_DTYPE",
     "BF16_DOTS",
+    "dot_mode",
     "dot_operand",
     "matmul",
     "dense_init",
@@ -32,6 +36,17 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
 ]
+
+
+@contextlib.contextmanager
+def dot_mode(bf16: bool):
+    """Run the block with bf16 (True) or fp32 (False) matmul operands."""
+    global BF16_DOTS
+    saved, BF16_DOTS = BF16_DOTS, bf16
+    try:
+        yield
+    finally:
+        BF16_DOTS = saved
 
 
 def dot_operand(x: torch.Tensor) -> torch.Tensor:

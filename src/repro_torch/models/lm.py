@@ -1,6 +1,9 @@
 """Decoder-only LM, dense family (port of the dense branch of
-``repro/models/lm.py``): ``init``, ``init_cache`` (:155-217),
-``prefill``, ``decode_step`` (:731-768) and ``decode_body``.
+``repro/models/lm.py``): ``init``, ``init_rotations`` (:132),
+``init_cache`` (:155-217), the teacher-forced ``forward`` (:352-402),
+``collect_kv`` (:404) and ``loss`` (:501) for training and the quality
+measurements, and ``prefill``, ``decode_step`` (:731-768) and
+``decode_body`` for serving.
 
 The reference's ``lax.scan`` over stacked layers becomes a Python loop
 over a list of per-layer parameter dicts and a list of per-layer cache
@@ -13,11 +16,13 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache_api
-from repro_torch.core.transforms import Rotation
+from repro_torch.core.hooks import make_roundtrip
+from repro_torch.core.transforms import Rotation, make_rotation
 from repro_torch.models import attention, common, ffn
 
 __all__ = ["LM"]
@@ -65,6 +70,18 @@ class LM:
         params["blocks"] = [self._block_init(generator)
                             for _ in range(cfg.n_layers)]
         return params
+
+    def init_rotations(self, generator: torch.Generator
+                       ) -> Optional[list[tuple[Rotation, Rotation]]]:
+        """Fresh unlearned rotations, one (k, v) pair per layer: the form
+        ``init_cache(rots=...)`` and ``forward(rots=...)`` take.  None
+        when the config does not quantize its KV cache."""
+        cfg = self.cfg
+        if not cfg.kv_quant:
+            return None
+        return [tuple(make_rotation(cfg.rotation, generator, cfg.head_dim,
+                                    self.device) for _ in "kv")
+                for _ in range(cfg.n_layers)]
 
     # ----------------------------------------------------------------- cache
     def cache_policy(self, policy=None):
@@ -132,11 +149,15 @@ class LM:
         h_in = common.rmsnorm(p["ln_ffn"], x, eps=self.cfg.norm_eps)
         return x + ffn.ffn_apply(p["ffn"], h_in, self.cfg.ffn_activation)
 
-    def _block_prefill(self, p, x, cache, *, kv_block=1024):
-        h, cache = attention.attention_forward(
+    def _block_full(self, p, x, cache=None, *, kv_roundtrip=None,
+                    kv_block=1024, return_kv=False):
+        """Full-sequence block (train, eval, prefill): (x, cache), plus the
+        layer's (k, v) with ``return_kv``."""
+        out = attention.attention_forward(
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
-            self.cfg, cache=cache, kv_block=kv_block)
-        return self._ffn(p, x + h), cache
+            self.cfg, cache=cache, kv_block=kv_block,
+            kv_roundtrip=kv_roundtrip, return_kv=return_kv)
+        return (self._ffn(p, x + out[0]), *out[1:])
 
     def _block_decode(self, p, x, cache, *, position, kv_block=512,
                       backend=None, active=None):
@@ -146,14 +167,60 @@ class LM:
             backend=backend, active=active)
         return self._ffn(p, x + h), cache
 
+    # ------------------------------------------------------- full sequence
+    def forward(self, params, tokens: torch.Tensor, *,
+                rots: Optional[list[tuple[Rotation, Rotation]]] = None,
+                kv_quant_cfg: Optional[dict] = None, remat: bool = False,
+                kv_block: int = 1024) -> torch.Tensor:
+        """Teacher-forced logits (B, S, V) fp32.  ``kv_quant_cfg`` =
+        {bits, scheme, group} with ``rots`` (one (k, v) pair per layer)
+        turns on the paper's KV round-trip hook.  ``remat`` recomputes
+        each block in the backward pass (``torch.utils.checkpoint``)."""
+        hook = kv_quant_cfg is not None and rots is not None
+        x = self._embed(params, tokens)
+        for i, p in enumerate(params["blocks"]):
+            rt = make_roundtrip(*rots[i], **kv_quant_cfg) if hook else None
+
+            def block(p_, x_, rt=rt):
+                return self._block_full(p_, x_, kv_roundtrip=rt,
+                                        kv_block=kv_block)[0]
+
+            x = (torch.utils.checkpoint.checkpoint(block, p, x,
+                                                   use_reentrant=False)
+                 if remat else block(p, x))
+        return self._unembed(params, x)
+
+    def collect_kv(self, params, tokens: torch.Tensor, *,
+                   kv_block: int = 1024):
+        """Per-layer raw K/V activations, (k, v) each (L, B, Hkv, S, d):
+        the calibration-data pass."""
+        x = self._embed(params, tokens)
+        ks, vs = [], []
+        for p in params["blocks"]:
+            x, _, (k, v) = self._block_full(p, x, kv_block=kv_block,
+                                            return_kv=True)
+            ks.append(k)
+            vs.append(v)
+        return torch.stack(ks), torch.stack(vs)
+
+    def loss(self, params, batch: dict, *, remat: bool = False):
+        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S):
+        (loss, {"ce": loss})."""
+        tokens = batch["tokens"]
+        logits = self.forward(params, tokens, remat=remat)
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+        loss = nll.mean()
+        return loss, {"ce": loss}
+
     # --------------------------------------------------------------- serving
     def prefill(self, params, tokens: torch.Tensor, cache: dict, *,
                 kv_block: int = 1024):
         """tokens (B, S) -> (last-token logits (B, 1, V) fp32, cache)."""
         x = self._embed(params, tokens)
         for i, p in enumerate(params["blocks"]):
-            x, cache["attn"][i] = self._block_prefill(p, x, cache["attn"][i],
-                                                      kv_block=kv_block)
+            x, cache["attn"][i] = self._block_full(p, x, cache["attn"][i],
+                                                   kv_block=kv_block)
         S = tokens.shape[1]
         pos = cache["pos"]
         cache["pos"] = S if isinstance(pos, int) else torch.full_like(pos, S)

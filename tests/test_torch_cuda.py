@@ -1,6 +1,6 @@
 """The port's hand-written kernels on the card, each against its plain
-PyTorch version on the same CUDA tensors, and B2 (paged) against B1
-(dense) on the gathered view, bitwise.  Marked ``cuda``: skips where no
+PyTorch version on the same CUDA tensors, B4 on codes B3 wrote, and B2
+(paged) against B1 (dense) on the gathered view, bitwise.  Marked ``cuda``: skips where no
 card is visible (the CPU tests hold the plain versions against the JAX
 reference).  On the card: ``python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -63,6 +63,35 @@ def test_b3_kernel_matches_plain(dev, d, group, bits, n, dtype, mode):
     near_tie = ((ratio.abs() % 1.0) - 0.5).abs() < TIE_BAND
     assert int(diff.abs().max()) <= 1
     assert not bool(((diff != 0) & ~near_tie).any())
+
+
+@pytest.mark.parametrize("d,group,bits,n", [
+    (128, 32, 4, 32640), (64, 32, 4, 1000), (64, 16, 8, 33),
+    (256, 32, 4, 70), (256, 32, 8, 513), (112, 28, 4, 65),
+])
+def test_b4_kernel_matches_plain(dev, d, group, bits, n):
+    """B4 on the codes of the folded B3 write: max abs error within 1e-5
+    of max(1, max |x|) (fp32 sums of d terms in another order; lambda
+    inflates the outputs), and the round trip within the reference
+    test's bound."""
+    g = _gen(dev, d + n + bits)
+    rot = make_rotation("srft", g, d, dev)
+    rot.lam = torch.exp(0.3 * torch.randn(d, generator=g, device=dev))
+    x = torch.randn((n, d), generator=g, device=dev)
+    pk, sc = sq_ops.srft_quant(x, sq_ref.fold_matrix(rot), group=group,
+                               bits=bits)
+    minv = sq_ref.fold_inverse_matrix(rot)
+    before = sq_ops.dequant_launches
+    got = sq_ops.srft_dequant(pk, sc, minv, group=group, bits=bits)
+    assert sq_ops.dequant_launches == before + 1
+    want = sq_ref.srft_dequant_ref(pk, sc, minv, group=group, bits=bits)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    rt = sq_ops.dequantize_rotate(pk, sc, rot, group=group, bits=bits)
+    assert torch.equal(rt, got)
+    assert (rt - x).abs().max().item() < (1.5 if bits == 4 else 0.1)
 
 
 def _b1_args(dev, seed, BH, G, d, S, W, group):
