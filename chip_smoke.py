@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
      path, at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
      and at d 64 / 128 / 256, int4 and int8); B3 and B4 are then timed
      in alternation over B4_ROUNDS rounds and reported as the medians,
-     the SM clock polled by nvidia-smi through the whole phase;
+     the SM clock polled by nvidia-smi through the whole phase; B1 and
+     B2 (``check_b1``, ``check_b2``, each callable alone) are also timed
+     as one call captured in a CUDA graph and replayed (``graph_ms``);
   4. check the served model against the port's plain CPU path on a small
      input;
   5. the main path: internlm2-1.8b at full width and depth, random weights
@@ -171,6 +173,22 @@ def wall_ms(fn, iters=50) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, flush, iters=20) -> float:
+    """Device time of one call captured once in a CUDA graph and replayed,
+    L2 flushed before each replay (``device_ms`` of the replay): the
+    kernels' own time, without the host's gaps between a call's launches."""
+    fn()  # first call: library load, shared-memory limits
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return device_ms(graph.replay, flush, iters=iters)
+
+
 class ClockSampler:
     """The SM clock polled by nvidia-smi every 50 ms while the block runs;
     after it, ``mhz(t0, t1)`` gives the samples taken between two
@@ -248,8 +266,6 @@ def check_b3(sq_ops, ref, rot, x, *, group):
 
 def kernel_phase(flush):
     from repro_torch.core.transforms import make_rotation
-    from repro_torch.kernels.quant_attention import ops as qa_ops
-    from repro_torch.kernels.quant_attention import ref as qa_ref
     from repro_torch.kernels.srft_quant import ops as sq_ops
     from repro_torch.kernels.srft_quant import ref as sq_ref
 
@@ -287,7 +303,24 @@ def kernel_phase(flush):
     b3["flush_ms"] = ms_f
     out.append(b3)
 
-    # B1 at the longest request's last decode step
+    out.append(check_b1(flush, g, Hkv, G, d, group, W))
+    out.append(check_b2(flush, g, Hkv, G, d, group, W))
+    b4, b3_rounds = check_b4(flush, g, (PROMPTS[-1] // W) * W * Hkv, group,
+                             b3_call)
+    b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
+    b3["ms_rounds"] = b3_rounds
+    out.append(b4)
+    return out
+
+
+def check_b1(flush, g, Hkv, G, d, group, W):
+    """B1 at the longest request's last decode step (batch 1, scalar
+    lengths) and at per-row lengths with an empty row and tile-edge rows,
+    against its plain version (B1_ATOL); then timed: CUDA events around
+    each call, and each call captured once in a CUDA graph and replayed."""
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.quant_attention import ref as qa_ref
+
     total = PROMPTS[-1] + NEW_TOKENS - 1
     plen = total - total % W
     BH = Hkv
@@ -320,6 +353,7 @@ def kernel_phase(flush):
     call = lambda: qa_ops.quant_decode_attention(  # noqa: E731
         *args, plen, total, group=group)
     ms, ms_wall = device_ms(call, flush, label="B1"), wall_ms(call)
+    ms_graph = graph_ms(call, flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, plen, total, group=group), flush)
     nbytes = (BH * G * d * 4 * 2 + 2 * BH * plen * (d // 2 + d // group * 4)
@@ -331,20 +365,15 @@ def kernel_phase(flush):
     sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qb, kb, kb, enable_gqa=True), flush)
     log(f"context: bf16 SDPA over a {total}-token bf16 cache: {sdpa:.4f} ms")
-    out.append(dict(name="quant_decode_attention", route="cuda",
-                    source="src/repro_torch/kernels/csrc/quant_attention.cu",
-                    replaces="src/repro/kernels/quant_attention/"
-                             "quant_attention.py:157",
-                    max_abs_err=max(err, err_r), ms=ms, plain_ms=plain,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    wall_ms=ms_wall))
-    out.append(check_b2(flush, g, Hkv, G, d, group, W))
-    b4, b3_rounds = check_b4(flush, g, (PROMPTS[-1] // W) * W * Hkv, group,
-                             b3_call)
-    b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
-    b3["ms_rounds"] = b3_rounds
-    out.append(b4)
-    return out
+    log(f"B1 {ms:.4f} ms (events), {ms_graph:.4f} ms (graph replay), plain "
+        f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(name="quant_decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_attention.cu",
+                replaces="src/repro/kernels/quant_attention/"
+                         "quant_attention.py:157",
+                max_abs_err=max(err, err_r), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                wall_ms=ms_wall, graph_ms=ms_graph)
 
 
 def check_b4(flush, g, n, group, b3_call):
@@ -449,6 +478,7 @@ def check_b2(flush, g, H, G, d, group, W):
     assert torch.equal(got, dense), "B2 != B1 on the gathered view"
     call = lambda: qa_ops.quant_decode_attention_paged(*args, **kw)  # noqa
     ms, ms_wall = device_ms(call, flush, label="B2"), wall_ms(call)
+    ms_graph = graph_ms(call, flush)
     b1_ms = device_ms(lambda: qa_ops.quant_decode_attention(
         *dense_args, group=group), flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_paged_ref(
@@ -459,15 +489,16 @@ def check_b2(flush, g, H, G, d, group, W):
     b_ms, b_by = bound(nbytes, 4.0 * G * d * (n_tok + BH * W))
     log(f"B2 paged read rows={lengths} H={H} G={G} d={d} page_size={ps} "
         f"(shuffled table): max abs err {err:.3e} (tol {B1_ATOL}); equal "
-        f"to B1 on the gathered view; B2 {ms:.4f} ms, B1 on the same bytes "
-        f"{b1_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        f"to B1 on the gathered view; B2 {ms:.4f} ms (graph replay "
+        f"{ms_graph:.4f} ms), B1 on the same bytes {b1_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
     return dict(name="quant_decode_attention_paged", route="cuda",
                 source="src/repro_torch/kernels/csrc/quant_attention.cu",
                 replaces="src/repro/kernels/quant_attention/"
                          "quant_attention.py:228",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, wall_ms=ms_wall,
-                b1_same_bytes_ms=b1_ms)
+                graph_ms=ms_graph, b1_same_bytes_ms=b1_ms)
 
 
 # ------------------------------------------------------------------ model

@@ -32,22 +32,65 @@
 // about 4*G FLOP per byte -- far below the H100's ridge.  At batch 1 there
 // are only B * Hkv rows (8 for internlm2-1.8b); one block per row, as the
 // TPU's sequential grid does, would use 8 of 132 SMs.  So the sequence is
-// split (split-K): pass 1 runs a (splits, rows) grid, each block streaming
-// its share of the tiles into shared memory and writing (m, l, acc)
-// partials; pass 2 runs one block per row, combines the partials and folds
-// in the residual window.  The wrapper picks the number of splits so that
-// about four blocks land on every SM, as far as pass 2's shared memory
-// holds their partials.  Tiles arrive by cp.async, all of a tile's loads
-// in flight at once and the next tile's loads overlapping the current
-// tile's arithmetic (double buffering): the first version staged tiles
-// through registers, one load at a time, and was bound by DRAM latency.
-// Packed rows are stored in shared memory with one word of padding, so the
-// per-token score loop reads them without bank conflicts.  The combine
-// pass stages its row's partials and residual window in shared memory with
-// every load in flight at once (the first version read them from global
-// memory in dependent loops), then reduces with warp shuffles.  expf is
-// the accurate one: build without --use_fast_math.
-// Not yet: TMA, tensor-core scores, one fused pass, 16-byte page copies.
+// split (split-K): pass 1 runs a (rows, splits) grid, each block reading
+// its share of the 64-token tiles and writing (m, l, acc) partials; pass 2
+// runs one block per row, combines the partials and folds in the residual
+// window.  The wrapper picks the number of splits so that about four
+// blocks land on every SM, as far as pass 2's shared memory holds their
+// partials; at batch 1 that is one tile per block.
+//
+// Pass 1, second design.  The first gave a thread one (head, token) score,
+// a dependent chain of d FMAs, and a thread one coordinate of P.V over the
+// whole tile, with three block barriers per tile.  Now:
+//   * Warps.  A block of NW warps gives each kTile/NW tokens of every tile
+//     of its split (16 with 4 warps).  A warp copies its tokens into its own
+//     double buffer and scores them, synchronising by __syncwarp alone; the
+//     block meets once, at the merge.  The next tile's copies overlap the
+//     current tile's math.  A one-tile split (batch 1) runs 4 warps, so
+//     four blocks share an SM and the whole grid is resident at once; a
+//     longer split runs 8, halving the chain of tiles each warp walks.
+//     Blocks run split-major, so a long row's splits reach the SMs before
+//     the empty splits past the shorter rows' ends.
+//   * Lanes.  A token's d/8 packed words are spread over sw lanes (a power
+//     of two), WPL words a lane; a warp step scores 32/sw tokens.  WPL is
+//     4 at G = 1, 2 at G = 2 (8 lanes a token at d = 128: 4 tokens a
+//     step) and 1 above, so that q's and acc's 8*WPL coordinates of the
+//     lane's words for every head take <= 32 registers each (64 at G > 4;
+//     the kernel is instantiated for at most 1, 2, 4 or 8 heads).  The lane
+//     dots q with its codes, scales by the token's group scale (per
+//     coordinate in a second instantiation, where group % 8 != 0 and a
+//     word straddles groups) and sums over the slot's lanes by xor
+//     shuffles.  P.V keeps the mapping: the lanes that scored a token hold
+//     its probability and accumulate their coordinates x G heads.  One
+//     word a lane, the mapping first tried, spent most of each step on
+//     per-token shuffles and softmax; WPL halves the steps.
+//   * Unpacking (unpack8): three logic ops a word, then a byte permute and
+//     an FADD a code, where a shift, a shift and a convert were.
+//   * Softmax.  Every slot runs its own online softmax (m, l, acc) over
+//     its tokens, updated only for tokens below packed_len (a slot with
+//     none keeps l = 0, acc = 0, so no ghost mass), rescaling its sums
+//     only when its maximum grows.  At the end of the split the slots
+//     merge by xor shuffles and the warps through shared memory, each
+//     weighted by exp(m_i - m), into the split's (m, l, acc).
+//   * Copies.  Rows are stored unpadded (the lanes read consecutive
+//     words, so no bank conflict) and copied by cp.async in the widest of
+//     16 / 8 / 4 bytes that divides the row and both addresses: codes in 16
+//     when d % 32 == 0 (8 at d = 112), scales in 16 when d/group % 4 == 0
+//     (8 at d = 64, group 32).  The lanes that copy a token's four rows
+//     resolve its address once (B2: one page-table load) and share it by
+//     shuffle.  A deeper ring of copies measured slower (more registers),
+//     so two tiles are in flight.
+// What still bounds pass 1: instruction throughput.  A step spends more
+// on per-token work (the slot shuffles, the softmax each of a
+// token's lanes repeats, loop and addressing) than on unpacking and FMAs,
+// and the SM's schedulers are busy most of the time.  At batch 1 a block
+// also waits out one tile's copy latency, and the read pays for two
+// launches and pass 2's combine of every split.  The combine pass stages
+// its row's partials and residual window in shared memory with every load
+// in flight at once, then reduces with warp shuffles.  expf is the
+// accurate one: build without --use_fast_math.
+// Not yet: TMA, tensor-core scores, one fused pass, fusing the per-token
+// rotations into the read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,20 +99,37 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;      // tokens per tile
-constexpr int kMaxG = 8;       // query heads per kv head
-constexpr int kMaxCols = 2;    // coordinates per thread: d <= 256
+constexpr int kTile = 64;                  // tokens per tile
+constexpr int kMaxG = 8;                   // query heads per kv head
+constexpr int kMaxD = 256;                 // head dim: 32 words a row at most
 constexpr float kNeg = -1e30f;
+constexpr unsigned kAll = 0xffffffffu;
 
-// code i of a word: byte i/2, low nibble = even index, sign-extended by
-// an arithmetic shift
-__device__ __forceinline__ int nibble(uint32_t word, int i) {
-  return static_cast<int32_t>(word << (28 - 4 * i)) >> 28;
+// The 8 codes of a packed word as exact floats.  Code i sits in bits
+// 4i..4i+3, two's complement; XOR with 0x8 makes it n = code + 8 in
+// [0, 15].  The even codes, masked to the low nibble of each byte, and the
+// odd ones, shifted down and masked, are each moved by one byte permute
+// into the low byte of 0x4B000000, which makes the float 2^23 + n exactly;
+// one FADD of -(2^23 + 8) leaves the code.  Three logic ops per word and
+// a PRMT and an FADD per code, where a shift, a shift and a convert were.
+__device__ __forceinline__ void unpack8(uint32_t word, float (&c)[8]) {
+  const uint32_t x = word ^ 0x88888888u;
+  const uint32_t ev = x & 0x0F0F0F0Fu, od = (x >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const uint32_t sel = 0x7540u + b;  // byte b, then 0, 0, 0x4B
+    c[2 * b] = __uint_as_float(__byte_perm(ev, 0x4B000000u, sel)) - 8388616.0f;
+    c[2 * b + 1] = __uint_as_float(__byte_perm(od, 0x4B000000u, sel)) - 8388616.0f;
+  }
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -81,6 +141,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// one row of ``bytes`` bytes by ``vec``-byte copies (vec divides bytes and
+// both addresses)
+__device__ __forceinline__ void copy_row(void* dst, const void* src, int bytes,
+                                         int vec) {
+  char* o = static_cast<char*>(dst);
+  const char* i = static_cast<const char*>(src);
+  if (vec == 16) {
+    for (int b = 0; b < bytes; b += 16) cp_async16(o + b, i + b);
+  } else if (vec == 8) {
+    for (int b = 0; b < bytes; b += 8) cp_async8(o + b, i + b);
+  } else {
+    for (int b = 0; b < bytes; b += 4) cp_async4(o + b, i + b);
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -109,168 +183,263 @@ struct PagedRows {  // B2: (n_pages*H, ps, .) pools behind a (B, MP) table
   }
 };
 
-// Pass 1: grid (n_splits, BH).  Writes part_ml[bh][split][g] = (m, l) and
-// part_acc[bh][split][g][d].  S is the logical length of every row.
-template <class Rows>
-__global__ void __launch_bounds__(kThreads)
+// Pass 1: grid (BH, n_splits).  Writes part_ml[bh][split][g] = (m, l) and
+// part_acc[bh][split][g][d].  S is the logical length of every row.  MG >=
+// G bounds the per-lane arrays, WPL is the words a lane, NW the warps; OG:
+// every word lies in one scale group (group % 8 == 0).
+template <class Rows, int MG, int WPL, int NW, bool OG>
+__global__ void __launch_bounds__(NW * 32)
 qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
                  const float* __restrict__ ks, const uint8_t* __restrict__ vp,
                  const float* __restrict__ vs, const int* __restrict__ plen_rows,
                  int plen_all, float* __restrict__ part_ml,
                  float* __restrict__ part_acc, int S, int G, int d, int group,
-                 int tiles_per_split, Rows rows) {
+                 int tiles_per_split, int code_vec, int scale_vec, Rows rows) {
   extern __shared__ __align__(16) float smem[];
-  const int split = blockIdx.x, bh = blockIdx.y, n_splits = gridDim.x;
-  const int tid = threadIdx.x;
-  const int wpr = d / 8;        // 4-byte words per packed row
-  const int ldw = wpr + 1;      // padded row stride (words)
+  // split-major order: every row's first splits, which hold its tokens,
+  // reach the SMs before the empty splits past shorter rows' ends
+  const int bh = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wpr = d / 8;  // 4-byte words per packed row
   const int ng = d / group;
-  const int tile_words = kTile * ldw;
-  const int tile_scales = kTile * ng;
-  float* qs = smem;                                          // G * d
-  uint32_t* kw = reinterpret_cast<uint32_t*>(qs + G * d);    // 2 * tile_words
-  uint32_t* vw = kw + 2 * tile_words;                        // 2 * tile_words
-  float* kss = reinterpret_cast<float*>(vw + 2 * tile_words);  // 2 * tile_scales
-  float* vss = kss + 2 * tile_scales;                        // 2 * tile_scales
-  float* ps = vss + 2 * tile_scales;                         // G * kTile
-  float* ms = ps + G * kTile;                                // G
-  float* ls = ms + G;                                        // G
-  float* cs = ls + G;                                        // G
+  int sw = 1;  // lanes per token slot
+  while (sw * WPL < wpr) sw <<= 1;
+  const int slot = lane / sw, w0 = WPL * (lane % sw);  // the lane's first word
+  const int tpw = 32 / sw;  // tokens a warp step scores
+  bool live_w[WPL];  // the lane's words that exist
+  int gw[WPL];       // their groups, if OG
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) {
+    live_w[k] = w0 + k < wpr;
+    gw[k] = live_w[k] ? 8 * (w0 + k) / group : 0;
+  }
+  constexpr int TPW = kTile / NW;  // tokens per warp per tile
+  constexpr int LPC = 32 / TPW;    // lanes copying one token's rows
+  // this warp's two buffers, each [K codes | V codes | K scales | V scales]
+  // of TPW unpadded rows; then the warps' sums for the merge
+  const int buf_words = TPW * (2 * wpr + 2 * ng);
+  uint32_t* wbuf = reinterpret_cast<uint32_t*>(smem) + warp * 2 * buf_words;
+  float* wacc = smem + NW * 2 * buf_words;  // NW * G * d
+  float* wm = wacc + NW * G * d;            // NW * G
+  float* wl = wm + NW * G;                  // NW * G
 
   const int plen = min(plen_rows != nullptr ? plen_rows[bh] : plen_all, S);
-  const uint32_t* kp32 = reinterpret_cast<const uint32_t*>(kp);
-  const uint32_t* vp32 = reinterpret_cast<const uint32_t*>(vp);
   const int t_begin = split * tiles_per_split;
   const int t_live = min(t_begin + tiles_per_split, (plen + kTile - 1) / kTile);
   const int n_my = max(t_live - t_begin, 0);  // tiles past packed_len skipped
 
-  // tokens [s0, s0 + n_tok) of a live tile: those below packed_len only
-  auto issue = [&](int buf, int tile) {
-    const int s0 = tile * kTile;
-    const int n_tok = min(kTile, plen - s0);
-    uint32_t* kb = kw + buf * tile_words;
-    uint32_t* vb = vw + buf * tile_words;
-    for (int i = tid; i < n_tok * wpr; i += kThreads) {
-      const int t = i / wpr, w = i % wpr;
-      const size_t r = rows(bh, s0 + t);
-      cp_async4(kb + t * ldw + w, kp32 + r * wpr + w);
-      cp_async4(vb + t * ldw + w, vp32 + r * wpr + w);
+  // the warp's live tokens of a tile (those below packed_len): lanes
+  // LPC*t .. LPC*t + LPC-1 copy token t's four rows (K codes, V codes, K
+  // scales, V scales); the first resolves the token's address, once, and
+  // hands it to the others
+  auto copy_tile = [&](int buf, int tile) {
+    const int s0 = tile * kTile + warp * TPW;
+    const int n = min(TPW, plen - s0);
+    const int t = lane / LPC, part = lane % LPC;
+    unsigned long long r = 0;
+    if (t < n && part == 0) r = rows(bh, s0 + t);
+    r = __shfl_sync(kAll, r, lane - part);
+    if (t < n) {
+      uint32_t* b = wbuf + buf * buf_words;
+      float* sc = reinterpret_cast<float*>(b + 2 * TPW * wpr);
+      for (int job = part; job < 4; job += LPC) {
+        const int v = job & 1;  // 0: K, 1: V
+        if (job < 2)
+          copy_row(b + (v * TPW + t) * wpr, (v ? vp : kp) + r * (d / 2),
+                   d / 2, code_vec);
+        else
+          copy_row(sc + (v * TPW + t) * ng, (v ? vs : ks) + r * ng, ng * 4,
+                   scale_vec);
+      }
     }
-    for (int i = tid; i < n_tok * ng; i += kThreads) {
-      const int t = i / ng, j = i % ng;
-      const size_t r = rows(bh, s0 + t);
-      cp_async4(kss + buf * tile_scales + i, ks + r * ng + j);
-      cp_async4(vss + buf * tile_scales + i, vs + r * ng + j);
-    }
-    cp_async_commit();
   };
 
-  if (n_my > 0) issue(0, t_begin);
-  for (int i = tid; i < G * d; i += kThreads) qs[i] = q[(size_t)bh * G * d + i];
-  if (tid < G) { ms[tid] = kNeg; ls[tid] = 0.0f; }
-  float acc[kMaxCols][kMaxG];
+  // one commit group per tile, the last one empty, so that waiting for
+  // all but the newest group waits for the tile about to be read
+  if (n_my > 0) copy_tile(0, t_begin);
+  cp_async_commit();
+  float qr[MG][WPL][8];  // q's coordinates of the lane's words, every head
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c)
+  for (int g = 0; g < MG; ++g)
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) acc[c][g] = 0.0f;
-  const int warp = tid / 32, lane = tid % 32;
+    for (int k = 0; k < WPL; ++k)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        qr[g][k][i] = g < G && live_w[k]
+                          ? q[((size_t)bh * G + g) * d + 8 * (w0 + k) + i]
+                          : 0.0f;
+  float m[MG], l[MG], acc[MG][WPL][8];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    m[g] = kNeg;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WPL; ++k)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[g][k][i] = 0.0f;
+  }
+  // per-step strides in shared memory, and the lane's offsets in a buffer
+  const int code_step = tpw * wpr, scale_step = tpw * ng;
+  const int code_at = slot * wpr + w0, scale_at = slot * ng;
 
   for (int j = 0; j < n_my; ++j) {
     const int buf = j & 1;
-    const int s0 = (t_begin + j) * kTile;
-    const int n_tok = min(kTile, plen - s0);
-    if (j + 1 < n_my) {
-      issue(buf ^ 1, t_begin + j + 1);  // buffer freed by the last sync
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t* kb = kw + buf * tile_words;
-    const uint32_t* vb = vw + buf * tile_words;
-    const float* ksb = kss + buf * tile_scales;
-    const float* vsb = vss + buf * tile_scales;
-    // scores: one (g, t) pair per thread
-    for (int p = tid; p < G * kTile; p += kThreads) {
-      const int g = p / kTile, t = p % kTile;
-      float s = kNeg;
-      if (t < n_tok) {
-        const float* qg = qs + g * d;
-        const uint32_t* row = kb + t * ldw;
-        const float* sc = ksb + t * ng;
-        float part = 0.0f;
-        s = 0.0f;
-        int gi = 0, left = group;
-        for (int w = 0; w < wpr; ++w) {
-          const uint32_t word = row[w];
+    if (j + 1 < n_my) copy_tile(buf ^ 1, t_begin + j + 1);  // freed at j - 1
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();  // every lane's copies of this tile seen by the warp
+    const int n = min(TPW, plen - ((t_begin + j) * kTile + warp * TPW));
+    const uint32_t* kc = wbuf + buf * buf_words + code_at;
+    const uint32_t* vc = kc + TPW * wpr;
+    const float* ksc = reinterpret_cast<const float*>(
+                           wbuf + buf * buf_words + 2 * TPW * wpr) + scale_at;
+    const float* vsc = ksc + TPW * ng;
+    for (int t = slot; t - slot < n; t += tpw) {  // n <= 0: no live token
+      const bool live = t < n;  // the same for every lane of the slot
+      float c[WPL][8], s[MG];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            part = fmaf(qg[8 * w + i], (float)nibble(word, i), part);
-            if (--left == 0) {
-              s = fmaf(part, sc[gi], s);
-              part = 0.0f;
-              ++gi;
-              left = group;
-            }
+      for (int g = 0; g < MG; ++g) s[g] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < WPL; ++k) {
+        const bool mine = live && live_w[k];
+        unpack8(mine ? kc[k] : 0u, c[k]);
+        if (OG) {
+          const float sc = mine ? ksc[gw[k]] : 0.0f;
+#pragma unroll
+          for (int g = 0; g < MG; ++g) {
+            float a = 0.0f;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) a = fmaf(qr[g][k][i], c[k][i], a);
+            s[g] = fmaf(a, sc, s[g]);
+          }
+        } else {  // the word straddles groups: a scale per coordinate
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            c[k][i] *= mine ? ksc[(8 * (w0 + k) + i) / group] : 0.0f;
+#pragma unroll
+          for (int g = 0; g < MG; ++g)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s[g] = fmaf(qr[g][k][i], c[k][i], s[g]);
+        }
+      }
+      // the token's score, summed over the slot's lanes (no branch: a
+      // partner in another slot adds 0)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const bool in_slot = o < sw;
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          const float other = __shfl_xor_sync(kAll, s[g], o);
+          s[g] += in_slot ? other : 0.0f;
+        }
+      }
+      if (live) {  // a slot past packed_len adds nothing
+        float vsk[WPL];
+#pragma unroll
+        for (int k = 0; k < WPL; ++k) {
+          unpack8(live_w[k] ? vc[k] : 0u, c[k]);
+          vsk[k] = 1.0f;
+          if (OG) {
+            vsk[k] = live_w[k] ? vsc[gw[k]] : 0.0f;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              c[k][i] *= live_w[k] ? vsc[(8 * (w0 + k) + i) / group] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          if (g >= G) continue;
+          if (s[g] > m[g]) {  // a new maximum: rescale the slot's sums
+            const float corr = expf(m[g] - s[g]);
+            m[g] = s[g];
+            l[g] *= corr;
+#pragma unroll
+            for (int k = 0; k < WPL; ++k)
+#pragma unroll
+              for (int i = 0; i < 8; ++i) acc[g][k][i] *= corr;
+          }
+          const float p = expf(s[g] - m[g]);
+          l[g] += p;
+#pragma unroll
+          for (int k = 0; k < WPL; ++k) {
+            const float pv = p * vsk[k];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              acc[g][k][i] = fmaf(pv, c[k][i], acc[g][k][i]);
           }
         }
       }
-      ps[g * kTile + t] = s;
+      kc += code_step;
+      vc += code_step;
+      ksc += scale_step;
+      vsc += scale_step;
     }
-    __syncthreads();
-    // online softmax statistics, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNeg;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, ps[g * kTile + t]);
-      mx = warp_max(mx);
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float e = expf(ps[g * kTile + t] - m_new);
-        ps[g * kTile + t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        cs[g] = corr;
-        ls[g] = ls[g] * corr + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc = acc * corr + p . v, one coordinate per thread per column slot
+    __syncwarp();  // the warp is done with buf before it is refilled
+  }
+
+  // merge the slots (lanes with the same words): an empty slot has l = 0
+  // and acc = 0, and weighs exp(-1e30 - m) = 0 against a live one
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int e = tid + c * kThreads;
-      if (e < d) {
-        const int w = e / 8, i = e % 8, gi = e / group;
+  for (int o = 1; o < 32; o <<= 1) {
+    if (o < sw) continue;
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) acc[c][g] *= cs[g];
-        for (int t = 0; t < n_tok; ++t) {
-          const float v = (float)nibble(vb[t * ldw + w], i) * vsb[t * ng + gi];
+    for (int g = 0; g < MG; ++g) {
+      if (g >= G) continue;
+      const float mo = __shfl_xor_sync(kAll, m[g], o);
+      const float lo = __shfl_xor_sync(kAll, l[g], o);
+      const float mn = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mn), b = expf(mo - mn);
+      l[g] = l[g] * a + lo * b;
+      m[g] = mn;
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) acc[c][g] = fmaf(ps[g * kTile + t], v, acc[c][g]);
+      for (int k = 0; k < WPL; ++k)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ao = __shfl_xor_sync(kAll, acc[g][k][i], o);
+          acc[g][k][i] = acc[g][k][i] * a + ao * b;
         }
+    }
+  }
+  if (lane < sw) {  // slot 0 holds the warp's sums now
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      if (g >= G) continue;
+#pragma unroll
+      for (int k = 0; k < WPL; ++k) {
+        if (!live_w[k]) continue;
+        float4* dst = reinterpret_cast<float4*>(wacc + (warp * G + g) * d +
+                                                8 * (w0 + k));
+        dst[0] = make_float4(acc[g][k][0], acc[g][k][1], acc[g][k][2], acc[g][k][3]);
+        dst[1] = make_float4(acc[g][k][4], acc[g][k][5], acc[g][k][6], acc[g][k][7]);
       }
     }
-    __syncthreads();  // tile buffer and ps consumed
   }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      if (g >= G) continue;
+      wm[warp * G + g] = m[g];
+      wl[warp * G + g] = l[g];
+    }
+  }
+  __syncthreads();
+  // merge the warps: the split's (m, l, acc), one output per thread
   const size_t base = ((size_t)bh * n_splits + split) * G;
-  if (tid < G) {
-    part_ml[(base + tid) * 2 + 0] = ms[tid];
-    part_ml[(base + tid) * 2 + 1] = ls[tid];
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int e = tid + c * kThreads;
-    if (e < d) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) part_acc[(base + g) * d + e] = acc[c][g];
+  for (int p = tid; p < G * d; p += NW * 32) {
+    const int g = p / d, e = p % d;
+    float mx = kNeg;
+    for (int v = 0; v < NW; ++v) mx = fmaxf(mx, wm[v * G + g]);
+    float a = 0.0f, ls = 0.0f;
+    for (int v = 0; v < NW; ++v) {
+      const float f = expf(wm[v * G + g] - mx);
+      a = fmaf(f, wacc[(v * G + g) * d + e], a);
+      ls = fmaf(f, wl[v * G + g], ls);
+    }
+    part_acc[(base + g) * d + e] = a;
+    if (e == 0) {
+      part_ml[(base + g) * 2 + 0] = mx;
+      part_ml[(base + g) * 2 + 1] = ls;
     }
   }
 }
@@ -384,6 +553,61 @@ cudaError_t allow_smem(K kernel, int bytes, int* have) {
 // qda_combine_kernel's limit: one kernel, shared by B1 and B2
 int combine_smem_have = 0;
 
+// the widest cp.async (16, 8 or 4 bytes) that divides a row of ``bytes``
+// bytes and the addresses of both arrays
+int copy_width(int bytes, const void* a, const void* b) {
+  for (int v = 16; v > 4; v /= 2)
+    if (bytes % v == 0 && (uintptr_t)a % v == 0 && (uintptr_t)b % v == 0)
+      return v;
+  return 4;
+}
+
+// Pass 1 for at most MG query heads, WPL words a lane, NW warps.  Its
+// shared memory: each warp's two buffers of kTile/NW unpadded K and V
+// code and scale rows, then the warps' (acc, m, l) for the merge.
+template <class Rows, int MG, int WPL, int NW, bool OG>
+cudaError_t launch_split(const float* q, const uint8_t* kp, const float* ks,
+                         const uint8_t* vp, const float* vs,
+                         const int* plen_rows, int plen, float* part_ml,
+                         float* part_acc, int BH, int S, int G, int d,
+                         int group, int n_splits, int tiles_per_split,
+                         Rows rows, cudaStream_t st) {
+  static int smem_have = 0;  // the one record of this instantiation
+  const int wpr = d / 8, ng = d / group;
+  const size_t words = 2 * (size_t)kTile * (2 * wpr + 2 * ng) +
+                       (size_t)NW * G * (d + 2);
+  const int smem = (int)(words * sizeof(float));
+  cudaError_t err =
+      allow_smem(qda_split_kernel<Rows, MG, WPL, NW, OG>, smem, &smem_have);
+  if (err != cudaSuccess) return err;
+  qda_split_kernel<Rows, MG, WPL, NW, OG>
+      <<<dim3(BH, n_splits), NW * 32, smem, st>>>(
+          q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, S, G, d,
+          group, tiles_per_split, copy_width(d / 2, kp, vp),
+          copy_width(ng * 4, ks, vs), rows);
+  return cudaGetLastError();
+}
+
+// A split of one tile (batch 1) runs 4 warps, so that four blocks share an
+// SM; a longer split runs 8, halving the chain of tiles each warp walks.
+// B1 on B2's gathered view plans the same splits, so picks the same code.
+template <class Rows, int MG, int WPL>
+cudaError_t launch_split_nw(const float* q, const uint8_t* kp,
+                            const float* ks, const uint8_t* vp,
+                            const float* vs, const int* plen_rows, int plen,
+                            float* part_ml, float* part_acc, int BH, int S,
+                            int G, int d, int group, int n_splits,
+                            int tiles_per_split, Rows rows, cudaStream_t st) {
+  const bool og = group % 8 == 0;
+  auto split = tiles_per_split > 1
+                   ? (og ? launch_split<Rows, MG, WPL, 8, true>
+                         : launch_split<Rows, MG, WPL, 8, false>)
+                   : (og ? launch_split<Rows, MG, WPL, 4, true>
+                         : launch_split<Rows, MG, WPL, 4, false>);
+  return split(q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, BH, S,
+               G, d, group, n_splits, tiles_per_split, rows, st);
+}
+
 // The two passes; Rows picks B1's or B2's token address.  Returns
 // cudaGetLastError() after the launches.
 template <class Rows>
@@ -394,22 +618,17 @@ int launch_passes(const float* q, const uint8_t* kp, const float* ks,
                   float* out, int BH, int S, int G, int d, int group, int W,
                   int n_splits, int tiles_per_split, Rows rows,
                   cudaStream_t st) {
-  static int smem1_have = 0;  // one qda_split_kernel<Rows> per Rows
   if (BH <= 0) return 0;
-  if (G < 1 || G > kMaxG || d > kThreads * kMaxCols || d % 8 || group <= 0 ||
-      d % group || n_splits < 1 || W < 0)
+  if (G < 1 || G > kMaxG || d > kMaxD || d % 8 || group <= 0 || d % group ||
+      n_splits < 1 || W < 0)
     return (int)cudaErrorInvalidValue;
-  const int ng = d / group;
-  const int ldw = d / 8 + 1;
-  const size_t words1 = (size_t)G * d + 4 * (size_t)kTile * ldw +
-                        4 * (size_t)kTile * ng + (size_t)G * kTile + 3 * G;
-  const int smem1 = (int)(words1 * sizeof(float));
-  cudaError_t err = allow_smem(qda_split_kernel<Rows>, smem1, &smem1_have);
-  if (err != cudaSuccess) return (int)err;
-  qda_split_kernel<Rows><<<dim3(n_splits, BH), kThreads, smem1, st>>>(
-      q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, S, G, d, group,
-      tiles_per_split, rows);
-  err = cudaGetLastError();
+  auto split = G <= 1   ? launch_split_nw<Rows, 1, 4>
+               : G <= 2 ? launch_split_nw<Rows, 2, 2>
+               : G <= 4 ? launch_split_nw<Rows, 4, 1>
+                        : launch_split_nw<Rows, kMaxG, 1>;
+  cudaError_t err = split(q, kp, ks, vp, vs, plen_rows, plen, part_ml,
+                          part_acc, BH, S, G, d, group, n_splits,
+                          tiles_per_split, rows, st);
   if (err != cudaSuccess) return (int)err;
   const size_t words2 = (size_t)n_splits * G * (d + 3) + 2 * (size_t)W * d +
                         (size_t)G * W + 3 * G;

@@ -134,6 +134,50 @@ def test_b1_kernel_matches_plain_scalar_lengths(dev, plen, tlen):
     torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
 
 
+# packed lengths at the edges of a warp's tokens and of the 64-token tile:
+# a warp, or a token slot within it, with no live token must add no
+# probability mass.  At S = 160 a split holds one tile (4 warps of 16
+# tokens), at S = 4096 two (8 warps of 8 tokens).
+EDGES = (1, 15, 16, 17, 31, 33, 47, 48, 63, 64, 65)
+
+
+@pytest.mark.parametrize("S", [160, 4096])
+@pytest.mark.parametrize("d,G,group", [(128, 2, 32), (112, 2, 28),
+                                       (64, 4, 16), (256, 8, 32)])
+def test_b1_kernel_matches_plain_at_warp_and_tile_edges(dev, d, G, group, S):
+    W = 16
+    plen = torch.tensor(EDGES, dtype=torch.int32, device=dev)
+    extra = torch.tensor([0, 3, 1, 16, 5, 0, 2, 9, 1, 4, 7], device=dev)
+    args = _b1_args(dev, d + G, len(EDGES), G, d, S, W, group)
+    got = qa_ops.quant_decode_attention(*args, plen, (plen + extra).int(),
+                                        group=group)
+    want = qa_ref.quant_decode_attention_ref(*args, plen, plen + extra,
+                                             group=group)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+
+
+# every head dim the lane mapping handles differently (the tokens a warp
+# step scores change with d and G; d = 112 leaves lanes of a slot idle) by
+# every group that divides it (group 28 straddles words) by G = 1, 2, 4, 8
+B1_SHAPES = [(d, group, G)
+             for d, groups in ((64, (16, 32, 64)), (112, (16, 28)),
+                               (128, (16, 32, 64)), (256, (16, 32, 64)))
+             for group in groups for G in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("d,group,G", B1_SHAPES)
+def test_b1_kernel_matches_plain_across_shapes(dev, d, group, G):
+    W, S = 16, 300
+    plen = torch.tensor([0, 77, 200, S], dtype=torch.int32, device=dev)
+    tlen = (plen + torch.tensor([5, 16, 2, 0], device=dev)).int()
+    args = _b1_args(dev, d * G + group, 4, G, d, S, W, group)
+    got = qa_ops.quant_decode_attention(*args, plen, tlen, group=group)
+    want = qa_ref.quant_decode_attention_ref(*args, plen, tlen, group=group)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+
+
 def test_int4_cache_kernel_read_matches_gather_on_card(dev):
     """A cache written by B3 (prefill + two W-flushes) read through B1
     equals the GATHER read of the same bytes."""
@@ -211,6 +255,30 @@ def test_b2_kernel_matches_plain_and_equals_b1(dev, case):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
     # B1 on the gathered view (S = MP * page_size): the same bits
+    q, kp, ks, vp, vs, kr, vr = args
+    rows = [qa_ref.paged_rows(t, table, H).contiguous()
+            for t in (kp, ks, vp, vs)]
+    dense = qa_ops.quant_decode_attention(q, *rows, kr, vr, plen, tlen,
+                                          group=group)
+    assert torch.equal(got, dense)
+
+
+def test_b2_pages_of_16_ending_mid_page_match_plain_and_b1(dev):
+    """Packed lengths that end inside a 16-token page (and inside a warp's
+    16 tokens), so a token's page lookup and copies stop mid-page."""
+    lengths = (23, 47, 130, 250, 1001, 0)
+    H, G, d, group, ps = 2, 2, 128, 32, 16
+    args, _, tlen, table = _b2_case(dev, 15, lengths, H, G, d, group, ps,
+                                    1024)
+    plen = torch.tensor((7, 40, 129, 249, 993, 0), dtype=torch.int32,
+                        device=dev).repeat_interleave(H)
+    kw = dict(group=group, page_size=ps, n_kv_heads=H)
+    got = qa_ops.quant_decode_attention_paged(*args, plen, tlen, table, **kw)
+    want = qa_ref.quant_decode_attention_paged_ref(
+        *args, plen, tlen, table, group=group, n_kv_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
     q, kp, ks, vp, vs, kr, vr = args
     rows = [qa_ref.paged_rows(t, table, H).contiguous()
             for t in (kp, ks, vp, vs)]
