@@ -7,7 +7,11 @@ Phases (any failure exits non-zero):
   2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
   3. hold each kernel against its plain PyTorch version on the card at
      the shapes the main path gives it, and time both with CUDA events,
-     L2 flushed before each call (B4, off the serving
+     L2 flushed before each call (B3 at the prefill writes of 32,640 and
+     4,096 rows, bf16, and without a matrix at the W-flush's 128 rows and
+     the batch ring's 512, fp32, each beside its bound, with cuBLAS's fp32
+     x @ M^T alone at 32,640 rows as context; B2 at page sizes 16 and 48;
+     B4, off the serving
      path, at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
      and at d 64 / 128 / 256, int4 and int8); B3 and B4 are then timed
      in alternation over B4_ROUNDS rounds and reported as the medians,
@@ -124,6 +128,18 @@ def _kernel_us(prof, skip=()) -> dict:
         if t:
             out[e.key] = out.get(e.key, 0.0) + t
     return out
+
+
+# the port's kernels by source, as torch.profiler names them
+OWN_KERNELS = {"srft_quant.cu": ("quant_rows_kernel", "quant_units_kernel",
+                                 "srft_tile_kernel"),
+               "quant_attention.cu": ("qda_",)}
+
+
+def _own_ms(us, steps) -> dict:
+    """Device ms per step of the port's own kernels, by source file."""
+    return {src: sum(t for k, t in us.items() if any(n in k for n in names))
+            / 1e3 / steps for src, names in OWN_KERNELS.items()}
 
 
 TIMED = []  # (label, ms, t0, t1) of each labelled device_ms, host clock
@@ -264,6 +280,27 @@ def check_b3(sq_ops, ref, rot, x, *, group):
     return err, int(flips.sum())
 
 
+def b3_shape(sq_ops, x, rot, group, flush, label=None) -> dict:
+    """B3 at one shape: held to its plain version (``check_b3``) and timed
+    by events beside its bound; ``rot`` None is the no-matrix route."""
+    from repro_torch.kernels.srft_quant import ref
+
+    n, d = x.shape
+    err, flips = check_b3(sq_ops, ref, rot, x, group=group)
+    mat = None if rot is None else rot.matrix
+    lam = None if rot is None else rot.lam
+    ms = device_ms(lambda: sq_ops.srft_quant(x, mat, lam, group=group),
+                   flush, label=label)
+    nbytes = (x.numel() * x.element_size() + n * d // 2 + n * d // group * 4
+              + (0 if rot is None else d * d * 4 + d * 4))
+    b_ms, b_by = bound(nbytes, 0.0 if rot is None else 2.0 * n * d * d)
+    rec = dict(rows=n, dtype=str(x.dtype).replace("torch.", ""),
+               matrix=rot is not None, max_abs_err=err, tie_flips=flips,
+               ms=ms, bound_ms=b_ms, bound_by=b_by)
+    log("B3 " + json.dumps(rec))
+    return rec
+
+
 def kernel_phase(flush):
     from repro_torch.core.transforms import make_rotation
     from repro_torch.kernels.srft_quant import ops as sq_ops
@@ -275,38 +312,50 @@ def kernel_phase(flush):
     rot.lam = torch.exp(0.3 * torch.randn(d, generator=g, device="cuda"))
     out = []
 
-    # B3, prefill bulk of the longest prompt: (4093 // W * W) * Hkv rows
+    # B3, prefill bulk of the longest prompt: (4093 // W * W) * Hkv rows,
+    # and of the batch path's shortest (517 // W * W) * Hkv
     n = (PROMPTS[-1] // W) * W * Hkv
     x = torch.randn((n, d), generator=g, device="cuda").to(torch.bfloat16)
-    err, flips = check_b3(sq_ops, sq_ref, rot, x, group=group)
-    log(f"B3 prefill write n={n} d={d} bf16 in: max |deq diff| {err:.3e} "
-        f"({flips} tie flips), scales rtol 1e-6")
+    shapes = [b3_shape(sq_ops, x, rot, group, flush, label="B3")]
+    n_short = (BATCH_PROMPTS[0] // W) * W * Hkv
+    x_short = torch.randn((n_short, d), generator=g,
+                          device="cuda").to(torch.bfloat16)
+    shapes.append(b3_shape(sq_ops, x_short, rot, group, flush))
+    # without a matrix: the Engine's W-flush (Hkv * W rows) and the
+    # capacity-4 batch ring (CAPACITY * Hkv * W), fp32
+    for rows in (Hkv * W, CAPACITY * Hkv * W):
+        xf = torch.randn((rows, d), generator=g, device="cuda")
+        shapes.append(b3_shape(sq_ops, xf, None, group, flush))
     b3_call = lambda: sq_ops.srft_quant(x, rot.matrix, rot.lam,  # noqa
                                         group=group)
-    call = b3_call
-    ms, ms_wall = device_ms(call, flush, label="B3"), wall_ms(call)
+    ms_wall = wall_ms(b3_call)
     plain = device_ms(lambda: sq_ref.srft_quant_ref(
         x, rot.matrix, rot.lam, group=group), flush)
-    nbytes = n * d * 2 + d * d * 4 + d * 4 + n * d // 2 + n * d // group * 4
-    b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
+    # context only, never called by the port: cuBLAS's fp32 x @ M^T alone
+    # (TF32 off) at the prefill write's shape
+    xf32 = x.float()
+    cublas = device_ms(lambda: torch.matmul(xf32, rot.matrix.T), flush)
+    log(f"context: cuBLAS fp32 x @ M^T at {n} x {d} x {d} (TF32 off, "
+        f"product only): {cublas:.4f} ms")
     b3 = dict(name="srft_quant", route="cuda",
               source="src/repro_torch/kernels/csrc/srft_quant.cu",
               replaces="src/repro/kernels/srft_quant/srft_quant.py:91",
-              max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-              bound_by=b_by, library_ms=None, wall_ms=ms_wall)
-    # B3 flush mode: one W-window of K (already rotated, fp32)
-    xf = torch.randn((Hkv * W, d), generator=g, device="cuda")
-    err_f, _ = check_b3(sq_ops, sq_ref, None, xf, group=group)
-    ms_f = device_ms(lambda: sq_ops.srft_quant(xf, None, group=group), flush)
-    log(f"B3 flush n={Hkv * W}: max |deq diff| {err_f:.3e}, {ms_f:.4f} ms")
-    b3["max_abs_err"] = max(err, err_f)
-    b3["flush_ms"] = ms_f
+              max_abs_err=max(r["max_abs_err"] for r in shapes),
+              ms=shapes[0]["ms"], plain_ms=plain,
+              bound_ms=shapes[0]["bound_ms"], bound_by=shapes[0]["bound_by"],
+              library_ms=None, wall_ms=ms_wall, shapes=shapes,
+              cublas_fp32_product_ms=cublas)
     out.append(b3)
 
     out.append(check_b1(flush, g, Hkv, G, d, group, W))
-    out.append(check_b2(flush, g, Hkv, G, d, group, W))
-    b4, b3_rounds = check_b4(flush, g, (PROMPTS[-1] // W) * W * Hkv, group,
-                             b3_call)
+    b2 = check_b2(flush, g, Hkv, G, d, group, W)
+    # pages of 48 tokens: neither a divisor nor a multiple of B2's tile
+    b2_48 = check_b2(flush, g, Hkv, G, d, group, W, ps=48)
+    b2["page_48"] = {k: b2_48[k] for k in ("max_abs_err", "ms", "graph_ms",
+                                           "b1_same_bytes_ms")}
+    b2["max_abs_err"] = max(b2["max_abs_err"], b2_48["max_abs_err"])
+    out.append(b2)
+    b4, b3_rounds = check_b4(flush, g, n, group, b3_call)
     b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
     b3["ms_rounds"] = b3_rounds
     out.append(b4)
@@ -433,16 +482,16 @@ def check_b4(flush, g, n, group, b3_call):
                 checks=checks), b3_rounds
 
 
-def check_b2(flush, g, H, G, d, group, W):
+def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE):
     """B2 at the batch path's shapes: rows at the batch prompts' lengths
-    plus a retired row of length 0, pages shuffled.  Against its plain
-    version (B1_ATOL) and against B1 on the gathered view (bitwise), then
-    both timed on the same bytes."""
+    plus a retired row of length 0, pages of ``ps`` tokens shuffled.
+    Against its plain version (B1_ATOL) and against B1 on the gathered view
+    (bitwise), then both timed on the same bytes."""
     from repro_torch.kernels.quant_attention import ops as qa_ops
     from repro_torch.kernels.quant_attention import ref as qa_ref
 
     lengths = BATCH_PROMPTS + (0,)
-    ps, MP = PAGE_SIZE, S_MAX // PAGE_SIZE
+    MP = S_MAX // ps
     need = [-(-n // ps) for n in lengths]
     n_pages = sum(need) + 1
     perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
@@ -477,7 +526,8 @@ def check_b2(flush, g, H, G, d, group, W):
     torch.cuda.synchronize()
     assert torch.equal(got, dense), "B2 != B1 on the gathered view"
     call = lambda: qa_ops.quant_decode_attention_paged(*args, **kw)  # noqa
-    ms, ms_wall = device_ms(call, flush, label="B2"), wall_ms(call)
+    ms = device_ms(call, flush, label="B2" if ps == PAGE_SIZE else None)
+    ms_wall = wall_ms(call)
     ms_graph = graph_ms(call, flush)
     b1_ms = device_ms(lambda: qa_ops.quant_decode_attention(
         *dense_args, group=group), flush)
@@ -625,7 +675,8 @@ def profile_decode(model, params, policy, backend, prompt_len, steps=4):
                 prompt=prompt_len, wall_ms_per_step=wall,
                 device_busy_ms_per_step=busy, idle_share=1 - busy / wall,
                 top_kernels_ms_per_step=[(k[:60], v / 1e3 / steps)
-                                         for k, v in top])
+                                         for k, v in top],
+                own_kernels_ms_per_step=_own_ms(us, steps))
 
 
 def main_path_phase():
@@ -812,7 +863,8 @@ def profile_batch_decode(model, params, policy, backend, paged):
                 wall_ms_per_step=wall, device_busy_ms_per_step=busy,
                 idle_share=1 - busy / wall,
                 top_kernels_ms_per_step=[(k[:60], v / 1e3 / CHUNK)
-                                         for k, v in top])
+                                         for k, v in top],
+                own_kernels_ms_per_step=_own_ms(us, CHUNK))
 
 
 def forced_logits(model, params, policy, backend, prompt, toks, rots):

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_attention import ops
+from repro_torch.kernels.srft_quant import ops as sq_ops
 
 SPIN_CYCLES = 2_000_000  # ~1 ms at 1980 MHz: the host queues the call ahead
 ROUNDS = 2
@@ -45,10 +46,11 @@ def build(source: str) -> str:
     return str(path)
 
 
-def use(path: str) -> None:
-    """Make the wrappers launch the library at ``path``."""
-    _build._LIBS["quant_attention"] = ctypes.CDLL(path)
-    ops._FNS.clear()
+def use(path: str, source: str = "quant_attention") -> None:
+    """Make the wrappers of ``csrc/<source>.cu`` launch the library at
+    ``path``."""
+    _build._LIBS[source] = ctypes.CDLL(path)
+    {"quant_attention": ops, "srft_quant": sq_ops}[source]._FNS.clear()
 
 
 def inputs(seed: int = 0) -> dict:

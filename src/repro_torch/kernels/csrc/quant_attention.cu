@@ -23,9 +23,9 @@
 // the arithmetic, the split plan (chosen by the wrapper from S = MP*ps for
 // both when lengths are per row), the tile and the combine pass are the
 // same code, so B2 equals B1 bitwise on the gathered view.  Every token is
-// addressed on its own, so a tile may span pages of any size; the wrapper
-// still requires page_size to divide or be a multiple of kTile.  The TPU
-// kernel runs one grid step per page; this one keeps B1's 64-token tiles.
+// addressed on its own, so a tile may span pages of any size (the card
+// tests run 16, 32, 48, 64, 80 and 128).  The TPU kernel runs one grid
+// step per page; this one keeps B1's 64-token tiles.
 //
 // What bounds it on the card: bytes.  A decode step reads each cached
 // token's d/2 code bytes and d/group fp32 scales for K and V once and does

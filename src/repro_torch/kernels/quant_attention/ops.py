@@ -148,9 +148,6 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
                   page_table, group, page_size, H):
     global paged_launches
     ps = page_size
-    if TILE % ps and ps % TILE:
-        raise ValueError(f"page_size={ps} must divide or be a multiple of "
-                         f"the kernel's {TILE}-token tile")
     BH, G, d = q_eff.shape
     B, MP = page_table.shape
     N, W = kp.shape[0], kr.shape[1]

@@ -34,13 +34,33 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("d,group,bits,n,dtype,mode", [
+# the product's tile edges (32-row tiles at d 128 / 256, 64 at d 64) up to
+# the prefill write's 32,640 rows; the no-matrix route at the W-flush's 128
+# rows, the batch ring's 512, d 256 and group 16; bits 4 and 8; bf16 and
+# fp32 input; the generic routes (d 112, group 28)
+B3_CASES = [
     (128, 32, 4, 1000, torch.bfloat16, "rotate"),
     (128, 32, 4, 128, torch.float32, "flush"),
     (64, 16, 4, 33, torch.float32, "rotate"),
     (256, 32, 8, 70, torch.float32, "rotate"),
     (112, 28, 4, 65, torch.bfloat16, "folded"),
-])
+    (128, 32, 4, 1, torch.bfloat16, "rotate"),
+    (128, 32, 4, 63, torch.bfloat16, "rotate"),
+    (128, 32, 8, 64, torch.float32, "rotate"),
+    (128, 32, 4, 65, torch.float32, "folded"),
+    (128, 32, 4, 4096, torch.bfloat16, "rotate"),
+    (128, 32, 4, 32640, torch.bfloat16, "rotate"),
+    (64, 64, 8, 65, torch.bfloat16, "rotate"),
+    (128, 32, 4, 512, torch.float32, "flush"),
+    (256, 16, 4, 128, torch.float32, "flush"),
+    (64, 64, 8, 33, torch.bfloat16, "flush"),
+    (128, 32, 8, 1, torch.float32, "flush"),
+    (112, 28, 4, 128, torch.float32, "flush"),
+    (112, 28, 8, 33, torch.float32, "rotate"),
+]
+
+
+@pytest.mark.parametrize("d,group,bits,n,dtype,mode", B3_CASES)
 def test_b3_kernel_matches_plain(dev, d, group, bits, n, dtype, mode):
     g = _gen(dev, d + n)
     rot = make_rotation("srft", g, d, dev)
@@ -68,6 +88,8 @@ def test_b3_kernel_matches_plain(dev, d, group, bits, n, dtype, mode):
 @pytest.mark.parametrize("d,group,bits,n", [
     (128, 32, 4, 32640), (64, 32, 4, 1000), (64, 16, 8, 33),
     (256, 32, 4, 70), (256, 32, 8, 513), (112, 28, 4, 65),
+    (128, 32, 4, 1), (128, 32, 4, 63), (128, 32, 8, 64), (128, 32, 4, 65),
+    (128, 32, 4, 4096), (64, 16, 4, 129), (112, 28, 8, 33),
 ])
 def test_b4_kernel_matches_plain(dev, d, group, bits, n):
     """B4 on the codes of the folded B3 write: max abs error within 1e-5
@@ -228,15 +250,19 @@ def _b2_case(dev, seed, lengths, H, G, d, group, ps, s_max, W=16):
 
 
 # (lengths, H, G, d, group, page_size, s_max): small shapes, pages smaller
-# than, equal to and larger than the 64-token tile, and the main path's
-# (internlm2-1.8b: 8 kv heads, G=2, d=128; rows of 517..4093 tokens and a
-# retired row)
+# than, equal to and larger than the 64-token tile, pages of 48 and 80 that
+# neither divide nor are a multiple of it (tiles span page boundaries; rows
+# end inside a page), and the main path's (internlm2-1.8b: 8 kv heads, G=2,
+# d=128; rows of 517..4093 tokens and a retired row) at pages of 16 and 48
 B2_CASES = [
     ((0, 15, 37, 200), 2, 2, 64, 32, 16, 256),
     ((5, 64, 130, 255), 2, 4, 128, 16, 32, 256),
     ((0, 100, 1000), 4, 2, 128, 32, 64, 1024),
     ((300, 17), 1, 8, 256, 32, 128, 512),
     ((517, 1031, 2055, 4093, 0), 8, 2, 128, 32, 16, 4608),
+    ((0, 47, 49, 130, 300), 2, 2, 128, 32, 48, 336),
+    ((0, 79, 81, 170, 639), 2, 4, 64, 16, 80, 640),
+    ((517, 1031, 2055, 4093, 0), 8, 2, 128, 32, 48, 4608),
 ]
 
 

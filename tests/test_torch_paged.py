@@ -391,12 +391,13 @@ def test_paged_nbytes_counts_metadata():
 
 # ------------------------------------------------------ B2 and the reads
 
-def _paged_inputs(seed, lengths, G, d, group):
-    """Random pools, per-row windows, a shuffled page table (unmapped
-    entries at the null page) and per-(b, h) lengths."""
+def _paged_inputs(seed, lengths, G, d, group, ps=PS, s_max=S_MAX):
+    """Random pools of ``ps``-token pages, per-row windows, a shuffled page
+    table (unmapped entries at the null page) and per-(b, h) lengths;
+    ``s_max`` is a multiple of ``ps``."""
     rng = np.random.default_rng(seed)
-    Bn, MP = len(lengths), S_MAX // PS
-    need = [-(-L // PS) for L in lengths]
+    Bn, MP = len(lengths), s_max // ps
+    need = [-(-L // ps) for L in lengths]
     n_pages = sum(need) + 3
     perm = list(rng.permutation(np.arange(1, n_pages)))
     table = np.zeros((Bn, MP), np.int32)
@@ -405,11 +406,11 @@ def _paged_inputs(seed, lengths, G, d, group):
     N = n_pages * H
     inp = dict(
         q_eff=rng.standard_normal((Bn * H, G, d)).astype(np.float32) * 0.3,
-        k_packed=rng.integers(0, 256, (N, PS, d // 2)).astype(np.uint8),
-        k_scales=rng.uniform(0.05, 0.5, (N, PS, d // group)).astype(
+        k_packed=rng.integers(0, 256, (N, ps, d // 2)).astype(np.uint8),
+        k_scales=rng.uniform(0.05, 0.5, (N, ps, d // group)).astype(
             np.float32),
-        v_packed=rng.integers(0, 256, (N, PS, d // 2)).astype(np.uint8),
-        v_scales=rng.uniform(0.05, 0.5, (N, PS, d // group)).astype(
+        v_packed=rng.integers(0, 256, (N, ps, d // 2)).astype(np.uint8),
+        v_scales=rng.uniform(0.05, 0.5, (N, ps, d // group)).astype(
             np.float32),
         k_residual=rng.standard_normal((Bn * H, W, d)).astype(np.float32),
         v_residual=rng.standard_normal((Bn * H, W, d)).astype(np.float32),
@@ -420,21 +421,27 @@ def _paged_inputs(seed, lengths, G, d, group):
 
 # row lengths: empty (a retired row), W-1 (all residual), a non-multiple of
 # W, a full row, a flush boundary
-B2_LENGTHS = [0, W - 1, 37, S_MAX, 48]
+def _b2_lengths(s_max):
+    return [0, W - 1, 37, s_max, 48]
 
 
-@pytest.mark.parametrize("d,G,group", [(64, 2, 32), (128, 2, 32),
-                                       (128, 4, 16)])
-def test_b2_plain_matches_interpret_kernel(d, G, group):
-    inp, plen, tlen, table = _paged_inputs(d + G, B2_LENGTHS, G, d, group)
+# page sizes of 16 and, as the int4 paged policy also serves them, 48 and
+# 80: pages that neither divide nor are a multiple of the card kernel's
+# 64-token tile, with rows that end inside a page
+@pytest.mark.parametrize("d,G,group,ps,s_max", [
+    (64, 2, 32, PS, S_MAX), (128, 2, 32, PS, S_MAX), (128, 4, 16, PS, S_MAX),
+    (64, 2, 32, 48, 144), (128, 2, 32, 80, 160)])
+def test_b2_plain_matches_interpret_kernel(d, G, group, ps, s_max):
+    inp, plen, tlen, table = _paged_inputs(d + G, _b2_lengths(s_max), G, d,
+                                           group, ps, s_max)
     ref = quant_decode_attention_paged_fwd(
         *(jnp.asarray(v) for v in inp.values()), jnp.asarray(plen),
-        jnp.asarray(tlen), jnp.asarray(table), group=group, page_size=PS,
+        jnp.asarray(tlen), jnp.asarray(table), group=group, page_size=ps,
         n_kv_heads=H)
     before = qa_ops.paged_launches
     got = qa_ops.quant_decode_attention_paged(
         *(_t(v) for v in inp.values()), _t(plen), _t(tlen), _t(table),
-        group=group, page_size=PS, n_kv_heads=H)
+        group=group, page_size=ps, n_kv_heads=H)
     assert qa_ops.paged_launches == before  # the plain version on the CPU
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), _n(ref), atol=2e-5)
@@ -443,7 +450,7 @@ def test_b2_plain_matches_interpret_kernel(d, G, group):
             for k in ("k_packed", "k_scales", "v_packed", "v_scales")]
     dense = qa_ref.quant_decode_attention_ref(
         _t(inp["q_eff"]), *rows, _t(inp["k_residual"]),
-        _t(inp["v_residual"]), _t(plen), _t(tlen), group=group, blk=PS)
+        _t(inp["v_residual"]), _t(plen), _t(tlen), group=group, blk=ps)
     np.testing.assert_array_equal(got.numpy(), dense.numpy())
 
 
@@ -507,11 +514,3 @@ def test_ragged_gather_read_matches_reference_per_row():
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=2e-5)
     assert kvcache.packed_len(td.kv).tolist() == [0, 0, 48]
-
-
-def test_b2_wrapper_refuses_a_page_size_the_tile_cannot_take():
-    """A page size that neither divides nor is a multiple of the 64-token
-    tile is refused before anything else is looked at."""
-    for ps in (24, 96):
-        with pytest.raises(ValueError, match=f"page_size={ps}"):
-            qa_ops._launch_paged(*(None,) * 10, 32, ps, 2)
