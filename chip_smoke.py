@@ -18,14 +18,28 @@ Phases (any failure exits non-zero):
      the SM clock polled by nvidia-smi through the whole phase; B1 and
      B2 (``check_b1``, ``check_b2``, each callable alone) are also timed
      as one call captured in a CUDA graph and replayed (``graph_ms``);
-  4. check the served model against the port's plain CPU path on a small
-     input;
+     B1 is also replayed at the 517- and 4093-token requests' lengths
+     with scalar lengths (a plain cache) and per-row lengths (the ragged
+     cache a graph decodes), which plan their splits from the prefix and
+     from s_max;
+  4. check the served model (a graph decode) against the port's plain
+     CPU path on a small input;
   5. the main path: internlm2-1.8b at full width and depth, random weights
      from a seed, bf16-operand / fp32-accumulate dots, answering requests
-     of 517, 2055 and 4093 prompt tokens (64 new tokens each) through the
-     int4-srft cache (KERNEL read) and, as context, the bf16 cache; the
-     kernels' launch counters are zeroed just before and read just after;
-  6. one request again under the GATHER read, held against KERNEL;
+     of 517, 2055 and 4093 prompt tokens (64 new tokens each) through
+     ``Engine``'s captured decode step (a CUDA graph replayed per token,
+     on a ragged batch-1 cache) with the int4-srft cache (KERNEL read);
+     the kernels' launch counters are zeroed just before each request
+     and read just after, so they count replays;
+  6. the same requests in ENGINE_ROUNDS interleaved rounds, eager loop
+     and graph replay in alternating order, int4-srft KERNEL and bf16
+     GATHER (and int4-srft GATHER at 2055 tokens): ms per token by CUDA
+     events around the decode loop, capture time; the graph's tokens must
+     equal the eager loop's up to a near-tie and its logits agree within
+     GRAPH_TOL; GATHER is held against KERNEL; decode profiles of both
+     modes (device busy ms per step, idle share, the port's kernels); and
+     a replay loop inside ``torch.cuda.set_sync_debug_mode("error")``,
+     which must raise nothing: the step makes no host sync;
   7. batch serving: the same model through ``BatchEngine`` (capacity 4,
      prompts of 517 / 1031 / 2055 / 4093 tokens with 40 / 24 / 32 / 16 new
      tokens, and two requests sharing a 1024-token page-aligned prefix),
@@ -35,9 +49,12 @@ Phases (any failure exits non-zero):
      stream must agree with the request served alone
      (``Engine.generate``) up to a near-tie, shared prefix pages must
      carry one reference per sharer, an undersized pool must preempt and
-     still complete every request, and every page must come back.  The
-     launch counters are zeroed just before the paged int4 run and read
-     just after;
+     still complete every request, and every page must come back.  Each
+     run is made with the captured step (the default) and with the eager
+     loop, whose streams must agree up to a near-tie; ms per step by
+     CUDA events and the host clock around each chunk, capture time, and
+     decode profiles of both modes.  The launch counters are zeroed just
+     before each int4 graph run and read just after;
   8. the quality path, on fp32 operands (``common.dot_mode(False)``, as
      the reference's benchmarks run): ``kernel_quality.run`` on the card
      -- B3 (folded) and B4 against their plain versions at d 64/128/256,
@@ -84,6 +101,8 @@ LOGIT_TOL = 0.05  # GATHER vs KERNEL, relative to the largest logit
 B1_ATOL = 1e-4  # fp32 sums in another order (split-K) over ~4K tokens
 B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
 PPL_RTOL = 1e-3  # hook PPL on the card vs the CPU plain path
+GRAPH_TOL = 1e-5  # graph vs eager logits, relative to the largest logit
+ENGINE_ROUNDS = 2  # interleaved eager / graph rounds of the Engine requests
 
 
 def log(*a):
@@ -416,13 +435,30 @@ def check_b1(flush, g, Hkv, G, d, group, W):
     log(f"context: bf16 SDPA over a {total}-token bf16 cache: {sdpa:.4f} ms")
     log(f"B1 {ms:.4f} ms (events), {ms_graph:.4f} ms (graph replay), plain "
         f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    # the graph decodes a ragged cache: per-row lengths plan the split from
+    # S = s_max, scalar lengths from the prefix
+    by_length = {}
+    for n in (PROMPTS[0], PROMPTS[-1]):
+        tot = n + NEW_TOKENS - 1
+        pl = tot - tot % W
+        rows_p = torch.full((BH,), pl, dtype=torch.int32, device="cuda")
+        rows_t = torch.full((BH,), tot, dtype=torch.int32, device="cuda")
+        by_length[n] = dict(
+            scalar_ms=graph_ms(lambda: qa_ops.quant_decode_attention(
+                *args, pl, tot, group=group), flush),
+            per_row_ms=graph_ms(lambda: qa_ops.quant_decode_attention(
+                *args, rows_p, rows_t, group=group), flush))
+        log(f"B1 at the {n}-token request's last step (graph replay): "
+            f"scalar lengths {by_length[n]['scalar_ms']:.4f} ms, per-row "
+            f"lengths {by_length[n]['per_row_ms']:.4f} ms")
     return dict(name="quant_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/quant_attention.cu",
                 replaces="src/repro/kernels/quant_attention/"
                          "quant_attention.py:157",
                 max_abs_err=max(err, err_r), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                wall_ms=ms_wall, graph_ms=ms_graph)
+                wall_ms=ms_wall, graph_ms=ms_graph,
+                graph_ms_by_prompt=by_length)
 
 
 def check_b4(flush, g, n, group, b3_call):
@@ -570,7 +606,7 @@ def small_reference_phase():
                            generator=torch.Generator().manual_seed(SEED))
     res = {}
     for name, model, p in (("cpu", cpu, params), ("cuda", gpu, params_gpu)):
-        cache = model.init_cache(1, 96, policy="int4-srft",
+        cache = model.init_cache(1, 96, policy="int4-srft", ragged=True,
                                  generator=torch.Generator().manual_seed(5))
         res[name] = Engine(model, backend="kernel").generate(
             p, prompt.to(model.device), cache, 24, return_logits=True)
@@ -581,7 +617,8 @@ def small_reference_phase():
     err = (lc[:, :n_same] - lg[:, :n_same]).abs().max().item()
     tol = LOGIT_TOL * lc.abs().max().item()
     assert err <= tol, f"small model: card vs CPU logits {err} > {tol}"
-    log(f"small model (reduced internlm2, 37+24 tokens): card vs CPU plain "
+    log(f"small model (reduced internlm2, 37+24 tokens): card (graph) vs "
+        f"CPU plain "
         f"max logit err {err:.3e} (tol {tol:.3e}), tokens agree for "
         f"{n_same}/24 steps")
 
@@ -609,46 +646,69 @@ def _agree_until(t_ref, t_got, l_ref) -> int:
     return i + 1
 
 
-def serve(model, params, policy, backend, prompt_len):
-    from repro_torch.launch.engine import Engine
+def serve(model, params, policy, backend, prompt_len, graph=True,
+          keep=False):
+    """One request through ``Engine`` on a ragged batch-1 cache: the
+    captured step (``graph``) or the eager loop.  The first decode call
+    makes one step (under a graph it warms up and captures first); the
+    other NEW_TOKENS - 2 are timed by CUDA events.  Returns (row, tokens,
+    logits), plus (engine, cache) with ``keep``."""
+    from repro_torch.launch.engine import GRAPH_KEY, Engine
 
     g = torch.Generator(device="cuda").manual_seed(SEED + prompt_len)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
                            generator=g, device="cuda")
-    cache = model.init_cache(1, S_MAX, policy=policy,
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
                              generator=torch.Generator().manual_seed(SEED))
-    eng = Engine(model, backend=backend)
+    eng = Engine(model, backend=backend, graph=graph)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lg, cache = eng.prefill(params, prompt, cache)
     tok = lg[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    toks, step_logits, cache = eng.decode(params, tok, cache, NEW_TOKENS - 1,
-                                          return_logits=True)
+    tok1, l1, cache = eng.decode(params, tok, cache, 1, return_logits=True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    toks = torch.cat([tok, toks], dim=1)
-    all_logits = torch.cat([lg[:, -1:].float(), step_logits], dim=1)
+    a.record()
+    toks, step_logits, cache = eng.decode(params, tok1, cache,
+                                          NEW_TOKENS - 2, return_logits=True)
+    b.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    toks = torch.cat([tok, tok1, toks], dim=1)
+    all_logits = torch.cat([lg[:, -1:].float(), l1, step_logits], dim=1)
     assert toks.shape == (1, NEW_TOKENS)
     assert all_logits.shape == (1, NEW_TOKENS, model.cfg.vocab_size)
     assert torch.isfinite(all_logits).all(), "non-finite logits"
-    assert cache["pos"] == prompt_len + NEW_TOKENS - 1
-    assert all(c.length == cache["pos"] for c in cache["attn"])
+    pos = int(cache["pos"][0])
+    assert pos == prompt_len + NEW_TOKENS - 1, pos
+    assert all(int(c.length[0]) == pos for c in cache["attn"])
     attn = cache["attn"]
+    n = NEW_TOKENS - 2
     row = dict(policy=policy, backend=backend or "gather", prompt=prompt_len,
-               prefill_ms=(t1 - t0) * 1e3,
-               decode_ms_per_tok=(t2 - t1) * 1e3 / (NEW_TOKENS - 1),
+               graph=graph, prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_tok=a.elapsed_time(b) / n,
+               host_ms_per_tok=(t3 - t2) * 1e3 / n,
+               first_step_ms=(t2 - t1) * 1e3,
+               capture_s=cache[GRAPH_KEY].step.capture_s if graph else None,
                cache_bytes=sum(c.nbytes() for c in attn),
                compression=attn[0].policy.compression_ratio(attn[0]))
-    return row, toks, all_logits
+    out = (row, toks.cpu(), all_logits.cpu())
+    return out + (eng, cache) if keep else out
 
 
-def profile_decode(model, params, policy, backend, prompt_len, steps=4):
+def profile_decode(model, params, policy, backend, prompt_len, graph,
+                   steps=4):
     """Decode steps of one request under torch.profiler: wall ms per step
     (host clock, inflated by the profiler), device-busy ms per step (sum of
     kernel durations), the device's idle share, and the kernels that take
-    the most device time."""
+    the most device time; then as many steps again without the profiler,
+    timed by CUDA events, and the idle share against that time.  The
+    eager loop runs on a plain cache (scalar lengths, the path before
+    graphs); the graph on a ragged one."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.engine import Engine
@@ -656,9 +716,9 @@ def profile_decode(model, params, policy, backend, prompt_len, steps=4):
     g = torch.Generator(device="cuda").manual_seed(SEED + prompt_len)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
                            generator=g, device="cuda")
-    cache = model.init_cache(1, S_MAX, policy=policy,
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=graph,
                              generator=torch.Generator().manual_seed(SEED))
-    eng = Engine(model, backend=backend)
+    eng = Engine(model, backend=backend, graph=graph)
     lg, cache = eng.prefill(params, prompt, cache)
     toks, cache = eng.decode(params, lg[:, -1].argmax(-1)[:, None], cache, 2)
     torch.cuda.synchronize()
@@ -668,21 +728,39 @@ def profile_decode(model, params, policy, backend, prompt_len, steps=4):
         eng.decode(params, toks[:, -1:], cache, steps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    eng.decode(params, toks[:, -1:], cache, steps)
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / steps
     us = _kernel_us(prof)
     busy = sum(us.values()) / 1e3 / steps
-    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:10]
     return dict(policy=policy, backend=backend or "gather",
-                prompt=prompt_len, wall_ms_per_step=wall,
+                prompt=prompt_len, graph=graph, wall_ms_per_step=wall,
                 device_busy_ms_per_step=busy, idle_share=1 - busy / wall,
+                events_ms_per_step=ev, idle_share_events=1 - busy / ev,
                 top_kernels_ms_per_step=[(k[:60], v / 1e3 / steps)
                                          for k, v in top],
                 own_kernels_ms_per_step=_own_ms(us, steps))
 
 
+def _graph_agrees(eager, graph, what) -> None:
+    """Graph tokens equal the eager loop's up to a near-tie; logits within
+    GRAPH_TOL of the largest eager logit up to there."""
+    (t_e, l_e), (t_g, l_g) = eager, graph
+    n = _agree_until(t_e, t_g, l_e)
+    err = (l_g[:, :n] - l_e[:, :n]).abs().max().item()
+    tol = GRAPH_TOL * l_e.abs().max().item()
+    assert err <= tol, f"{what}: graph vs eager logits {err} > {tol}"
+    log(f"  {what}: graph == eager for {n}/{t_e.shape[1]} tokens, max "
+        f"logit diff {err:.3e} (tol {tol:.3e})")
+
+
 def main_path_phase():
     from repro_torch.configs import get_config
-    from repro_torch.kernels.quant_attention import ops as qa_ops
-    from repro_torch.kernels.srft_quant import ops as sq_ops
     from repro_torch.models import common
     from repro_torch.models.lm import LM
 
@@ -696,41 +774,94 @@ def main_path_phase():
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f}B params, init {time.perf_counter() - t0:.1f}s")
-    # warm-up request (first-call allocations, cuBLAS handles), not counted
-    serve(model, params, "int4-srft", "kernel", 64)
-    serve(model, params, "bf16", None, 64)
+    # warm-up requests (first-call allocations, cuBLAS handles), not counted
+    for graph in (True, False):
+        serve(model, params, "int4-srft", "kernel", 64, graph)
+        serve(model, params, "bf16", None, 64, graph)
 
-    sq_ops.launches = 0
-    qa_ops.launches = 0
-    rows, kernel_runs = [], {}
+    # the main path: each request's counters zeroed just before, read after
+    launches = dict.fromkeys(_counters(), 0)
+    runs = {}
     for n in PROMPTS:
+        _zero_counters()
         row, toks, logits = serve(model, params, "int4-srft", "kernel", n)
-        rows.append(row)
-        kernel_runs[n] = (toks, logits)
-    launches = {"srft_quant": sq_ops.launches,
-                "quant_decode_attention": qa_ops.launches}
-    for n in PROMPTS:
-        rows.append(serve(model, params, "bf16", None, n)[0])
-    for r in rows:
-        log("request " + json.dumps(r))
-    log(f"main-path launches: {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"{name} never launched on the main path"
+        for k, c in _counters().items():
+            launches[k] += c
+        runs["int4-srft", "kernel", n, True] = [(row, toks, logits)]
+    log(f"main-path launches (graph replays): {launches}")
+    for name in ("srft_quant", "quant_decode_attention"):
+        assert launches[name] > 0, f"{name} never launched on the main path"
 
-    n = PROMPTS[1]
-    row, toks_g, logits_g = serve(model, params, "int4-srft", "gather", n)
-    toks_k, logits_k = kernel_runs[n]
+    # interleaved rounds: eager and graph in alternating order
+    configs = [("int4-srft", "kernel"), ("bf16", None)]
+    for r in range(ENGINE_ROUNDS):
+        for i, n in enumerate(PROMPTS):
+            for j, (policy, backend) in enumerate(configs):
+                modes = (False, True) if (r + i + j) % 2 == 0 \
+                    else (True, False)
+                for graph in modes:
+                    key = (policy, backend, n, graph)
+                    if r == 0 and key in runs:
+                        continue  # the main path's run is round 0's
+                    runs.setdefault(key, []).append(
+                        serve(model, params, policy, backend, n, graph))
+    n_g = PROMPTS[1]  # the GATHER rerun
+    for graph in (True, False):
+        runs["int4-srft", "gather", n_g, graph] = [
+            serve(model, params, "int4-srft", "gather", n_g, graph)]
+    for key, rs in runs.items():
+        for row, _, _ in rs:
+            log("request " + json.dumps(row))
+    for policy, backend, n, graph in runs:
+        if graph:
+            _, t_e, l_e = runs[policy, backend, n, False][0]
+            _, t_g, l_g = runs[policy, backend, n, True][0]
+            _graph_agrees((t_e, l_e), (t_g, l_g),
+                          f"{policy}/{backend or 'gather'} {n} tokens")
+
+    _, toks_g, logits_g = runs["int4-srft", "gather", n_g, True][0]
+    _, toks_k, logits_k = runs["int4-srft", "kernel", n_g, True][0]
     n_same = _agree_until(toks_k, toks_g, logits_k)
     err = (logits_k[:, :n_same] - logits_g[:, :n_same]).abs().max().item()
     tol = LOGIT_TOL * logits_k.abs().max().item()
     assert err <= tol, f"GATHER vs KERNEL logits {err} > {tol}"
-    log(f"GATHER rerun of the {n}-token request: {row['decode_ms_per_tok']:.3f}"
-        f" ms/tok; max logit diff vs KERNEL {err:.3e} (tol {tol:.3e}), "
-        f"tokens agree for {n_same}/{NEW_TOKENS} steps")
-    for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
-        log("decode profile " + json.dumps(profile_decode(
-            model, params, policy, backend, PROMPTS[-1])))
+    log(f"GATHER vs KERNEL at the {n_g}-token request (graph): max logit "
+        f"diff {err:.3e} (tol {tol:.3e}), tokens agree for "
+        f"{n_same}/{NEW_TOKENS} steps")
+    summary = {}
+    for (policy, backend, n, graph), rs in runs.items():
+        summary.setdefault(f"{policy}/{backend or 'gather'}/{n}", {})[
+            "graph" if graph else "eager"] = [
+            round(row["decode_ms_per_tok"], 4) for row, _, _ in rs]
+    log("decode ms/token by CUDA events, per round: " + json.dumps(summary))
+
+    for policy, backend, n in (("int4-srft", "kernel", PROMPTS[-1]),
+                               ("bf16", None, PROMPTS[-1]),
+                               ("int4-srft", "kernel", PROMPTS[0])):
+        for graph in (False, True):
+            log("decode profile " + json.dumps(profile_decode(
+                model, params, policy, backend, n, graph)))
+    no_sync_region(model, params)
     return launches, model, params
+
+
+def no_sync_region(model, params, n=16):
+    """A captured Engine decode of ``n`` tokens inside
+    ``set_sync_debug_mode("error")``: any host sync in the replay loop
+    raises."""
+    _, toks, _, eng, cache = serve(model, params, "int4-srft", "kernel",
+                                   PROMPTS[0], keep=True)
+    tok = toks[:, -1:].cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, cache = eng.decode(params, tok, cache, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out.shape == (1, n)
+    log(f"no host sync: {n} graph replays of Engine.decode under "
+        f"set_sync_debug_mode('error')")
 
 
 # ---------------------------------------------------------- batch serving
@@ -771,24 +902,32 @@ def batch_requests(vocab):
 
 
 def serve_batch(model, params, policy, backend, paged, reqs, *,
-                capacity=CAPACITY, n_pages=None, after_first_step=None):
-    """Run ``reqs`` through a BatchEngine.  Returns (engine, completions by
-    rid, report): decode ms per step (host clock around each decode chunk,
-    which ends in a readback), per-request ms per token (first to last
-    token), cache or pool bytes."""
+                capacity=CAPACITY, n_pages=None, after_first_step=None,
+                graph=True):
+    """Run ``reqs`` through a BatchEngine (the captured step, or the eager
+    loop).  Returns (engine, completions by rid, report): decode ms per
+    step (CUDA events and the host clock around each decode chunk, which
+    ends in a readback; the chunk that captures the graph is left out),
+    capture time, per-request ms per token (first to last token), cache
+    or pool bytes."""
     from repro_torch.launch.batch_engine import BatchEngine
 
     eng = BatchEngine(model, params, capacity=capacity, s_max=S_MAX,
                       policy=policy, backend=backend, chunk=CHUNK,
                       paged=paged, page_size=PAGE_SIZE, n_pages=n_pages,
-                      device=DEV)
+                      device=DEV, graph=graph)
     chunks = []
     decode_chunk = eng._decode_chunk
 
     def timed(n):
+        first = not chunks
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
+        a.record()
         out = decode_chunk(n)
-        chunks.append((n, time.perf_counter() - t))
+        b.record()
+        chunks.append((n, time.perf_counter() - t, (a, b), first))
         return out
 
     eng._decode_chunk = timed
@@ -814,12 +953,17 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
         c = done[r.rid]
         assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
         assert c.finish_reason == "length" and c.prompt_len == len(r.prompt)
+    torch.cuda.synchronize()
+    steady = [c for c in chunks if not c[3]]
     report = dict(
         policy=policy, backend=backend or "gather",
         layout="paged" if paged else "dense", capacity=capacity,
-        wall_s=wall,
-        decode_ms_per_step=sum(t for _, t in chunks) * 1e3
-        / sum(n for n, _ in chunks),
+        graph=graph, wall_s=wall,
+        decode_ms_per_step=sum(a.elapsed_time(b) for _, _, (a, b), _
+                               in steady) / sum(n for n, *_ in steady),
+        host_ms_per_step=sum(t for _, t, _, _ in steady) * 1e3
+        / sum(n for n, *_ in steady),
+        capture_s=eng._step_graph.capture_s if graph else None,
         ms_per_token={r.rid: (last[r.rid] - first[r.rid]) * 1e3
                       / max(r.max_new_tokens - 1, 1) for r in reqs},
         cache_bytes=sum(st.nbytes() for st in eng.cache["attn"]))
@@ -832,21 +976,29 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
     return eng, done, report
 
 
-def profile_batch_decode(model, params, policy, backend, paged):
+def profile_batch_decode(model, params, policy, backend, paged, graph):
     """One decode chunk of the four ragged requests, all resident, under
     torch.profiler: wall ms per step (host clock, inflated by the
-    profiler), device-busy ms per step, idle share, top kernels."""
+    profiler), device-busy ms per step, idle share, top kernels; then the
+    same chunk again (the requests cancelled and admitted anew) without
+    the profiler, timed by CUDA events, and the idle share against that
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.batch_engine import BatchEngine
 
     eng = BatchEngine(model, params, capacity=CAPACITY, s_max=S_MAX,
                       policy=policy, backend=backend, chunk=CHUNK,
-                      paged=paged, page_size=PAGE_SIZE, device=DEV)
-    for r in batch_requests(model.cfg.vocab_size)[2:]:
-        eng.submit(r)
-    eng.step()  # admits all four and decodes one chunk
-    torch.cuda.synchronize()
+                      paged=paged, page_size=PAGE_SIZE, device=DEV,
+                      graph=graph)
+
+    def admit():
+        for r in batch_requests(model.cfg.vocab_size)[2:]:
+            eng.submit(r)
+        eng.step()  # admits all four and decodes one chunk
+        torch.cuda.synchronize()
+
+    admit()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -855,21 +1007,32 @@ def profile_batch_decode(model, params, policy, backend, paged):
         wall = (time.perf_counter() - t0) * 1e3 / CHUNK
     assert len(events) == CAPACITY and eng.pending == 0
     eng.cancel_all()
+    admit()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    eng.step()
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / CHUNK
+    eng.cancel_all()
     us = _kernel_us(prof)
     busy = sum(us.values()) / 1e3 / CHUNK
-    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:10]
     return dict(policy=policy, backend=backend or "gather",
                 layout="paged" if paged else "dense", rows=CAPACITY,
-                wall_ms_per_step=wall, device_busy_ms_per_step=busy,
-                idle_share=1 - busy / wall,
+                graph=graph, wall_ms_per_step=wall,
+                device_busy_ms_per_step=busy,
+                idle_share=1 - busy / wall, events_ms_per_step=ev,
+                idle_share_events=1 - busy / ev,
                 top_kernels_ms_per_step=[(k[:60], v / 1e3 / CHUNK)
                                          for k, v in top],
                 own_kernels_ms_per_step=_own_ms(us, CHUNK))
 
 
 def forced_logits(model, params, policy, backend, prompt, toks, rots):
-    """One request alone, teacher-forced on ``toks``: (1, n, V) logits of
-    every step, for the near-tie rule."""
+    """One request alone, teacher-forced on ``toks`` (eager, plain cache):
+    (1, n, V) logits of every step, for the near-tie rule."""
     cache = model.init_cache(1, S_MAX, policy=policy, rots=rots)
     lg, cache = model.prefill(
         params, torch.as_tensor(prompt, device=DEV)[None].long(), cache)
@@ -891,8 +1054,8 @@ def _tie_check(ref, got, logits, what) -> int:
 
 def batch_phase(model, params):
     """(a) paged vs dense, (b) batched vs alone, (c) COW refcounts, (d)
-    preemption, (e) no page leaks.  Returns launches per kernel on the
-    paged and dense int4 batch paths."""
+    preemption, (e) no page leaks, (f) graph vs eager.  Returns launches
+    per kernel on the paged and dense int4 batch paths (graph runs)."""
     from repro_torch.launch.engine import Engine
 
     reqs = batch_requests(model.cfg.vocab_size)
@@ -914,19 +1077,39 @@ def batch_phase(model, params):
         log(f"  COW: {n_prefix_pages} prefix pages at refcount 2, "
             f"{st['pages_used']} pages used vs {no_share} unshared")
 
+    def graph_vs_eager(policy, backend, rqs, eager, graph, rots, what):
+        """(f): every stream of the graph run equals the eager run's up to
+        a near-tie of the request's own logits."""
+        for r in rqs:
+            t_e, t_g = eager[r.rid].tokens, graph[r.rid].tokens
+            if not (t_e == t_g).all():
+                _tie_check(t_e, t_g, forced_logits(
+                    model, params, policy, backend, r.prompt, t_e, rots),
+                    f"{what} request {r.rid} graph vs eager")
+        log(f"  {what}: graph == eager for every request up to a near-tie")
+
     runs, launches = {}, {}
     for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
         for paged in (True, False):
-            _zero_counters()
-            eng, done, rep = serve_batch(
-                model, params, policy, backend, paged, reqs,
-                after_first_step=check_cow if paged else None)
-            if policy == "int4-srft":
-                launches["batch_paged" if paged else "batch_dense"] = \
-                    _counters()
-            runs[policy, paged] = (eng, done)
-            log("batch " + json.dumps(rep))
-        (_, pag), (eng_d, den) = runs[policy, True], runs[policy, False]
+            order = (True, False) if paged else (False, True)
+            for graph in order:
+                if graph and policy == "int4-srft":
+                    _zero_counters()
+                eng, done, rep = serve_batch(
+                    model, params, policy, backend, paged, reqs,
+                    after_first_step=check_cow if paged else None,
+                    graph=graph)
+                if graph and policy == "int4-srft":
+                    launches["batch_paged" if paged else "batch_dense"] = \
+                        _counters()
+                runs[policy, paged, graph] = (eng, done)
+                log("batch " + json.dumps(rep))
+            graph_vs_eager(policy, backend, reqs, runs[policy, paged, False][1],
+                           runs[policy, paged, True][1],
+                           runs[policy, paged, False][0]._rots,
+                           f"{policy} {'paged' if paged else 'dense'}")
+        (_, pag), (eng_d, den) = (runs[policy, True, True],
+                                  runs[policy, False, True])
         for r in reqs:  # (a)
             if r.rid != sharer_b:
                 assert (pag[r.rid].tokens == den[r.rid].tokens).all(), \
@@ -938,7 +1121,7 @@ def batch_phase(model, params):
             f"shared page")
         for r in reqs:  # (b)
             cache = model.init_cache(1, S_MAX, policy=policy,
-                                     rots=eng_d._rots)
+                                     rots=eng_d._rots, ragged=True)
             toks, lg, _ = Engine(model, backend=backend).generate(
                 params, torch.as_tensor(r.prompt, device=DEV)[None].long(),
                 cache, r.max_new_tokens, return_logits=True)
@@ -948,29 +1131,37 @@ def batch_phase(model, params):
     assert paged_l["quant_decode_attention_paged"] > 0, paged_l
     assert paged_l["quant_decode_attention"] == 0, paged_l
     assert dense_l["quant_decode_attention"] > 0, dense_l
-    log(f"batch-path launches: paged {paged_l}, dense {dense_l}")
+    log(f"batch-path launches (graph replays): paged {paged_l}, dense "
+        f"{dense_l}")
 
     # (d) an undersized pool: one full row of pages, two rows' need
     small = [r for r in reqs if len(r.prompt) in (BATCH_PROMPTS[0],
                                                   BATCH_PROMPTS[-1])]
-    eng, got, rep = serve_batch(model, params, "int4-srft", "kernel", True,
-                                small, capacity=2,
-                                n_pages=S_MAX // PAGE_SIZE + 1)
-    log("batch " + json.dumps(rep))
-    assert eng.n_preemptions > 0, "the undersized pool did not preempt"
-    eng_d, den = runs["int4-srft", False]
+    pre = {}
+    for graph in (True, False):
+        eng, got, rep = serve_batch(model, params, "int4-srft", "kernel",
+                                    True, small, capacity=2,
+                                    n_pages=S_MAX // PAGE_SIZE + 1,
+                                    graph=graph)
+        log("batch " + json.dumps(rep))
+        assert eng.n_preemptions > 0, "the undersized pool did not preempt"
+        pre[graph] = got
+    eng_d, den = runs["int4-srft", False, True]
     for r in small:
-        _tie_check(den[r.rid].tokens, got[r.rid].tokens, forced_logits(
+        _tie_check(den[r.rid].tokens, pre[True][r.rid].tokens, forced_logits(
             model, params, "int4-srft", "kernel", r.prompt,
             den[r.rid].tokens, eng_d._rots),
             f"preempted request {r.rid} vs dense")
+    graph_vs_eager("int4-srft", "kernel", small, pre[False], pre[True],
+                   eng_d._rots, "preempting pool")
     log(f"  preemption: {eng.n_preemptions} preemptions, every request "
         f"complete, no page left in use")
     for policy, backend, paged in (("int4-srft", "kernel", True),
                                    ("int4-srft", "kernel", False),
                                    ("bf16", None, True)):
-        log("batch decode profile " + json.dumps(profile_batch_decode(
-            model, params, policy, backend, paged)))
+        for graph in (False, True):
+            log("batch decode profile " + json.dumps(profile_batch_decode(
+                model, params, policy, backend, paged, graph)))
     return launches
 
 

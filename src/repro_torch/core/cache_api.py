@@ -91,6 +91,11 @@ class CacheState:
         return self.data.length
 
     @property
+    def s_max(self) -> int:
+        """Tokens a row can hold."""
+        return getattr(self.data, "kv", self.data).s_max
+
+    @property
     def is_ragged(self) -> bool:
         """True when ``length`` has one entry per batch row."""
         return isinstance(self.data.length, torch.Tensor)
@@ -159,9 +164,10 @@ def _insert_row_leaf(batched: torch.Tensor, row: torch.Tensor, slot: int
     batched[slot] = row[0].to(batched.dtype)
 
 
-def _reset_lengths(length: torch.Tensor, mask) -> torch.Tensor:
-    mask = torch.as_tensor(mask, dtype=torch.bool).to(length.device)
-    return torch.where(mask, 0, length).to(length.dtype)
+def _reset_lengths(length: torch.Tensor, mask) -> None:
+    """Zero the masked rows' lengths in place."""
+    length.masked_fill_(
+        torch.as_tensor(mask, dtype=torch.bool).to(length.device), 0)
 
 
 def _check_active(state, active) -> None:
@@ -183,31 +189,31 @@ class _LaterSlices:
 
     def _later(self, what: str, item: str):
         raise NotImplementedError(
-            f"{self.name}.{what} is not ported yet (ROADMAP A, {item})")
+            f"{self.name}.{what} is not ported yet (ROADMAP {item})")
 
     def adopt_prefix(self, *a, **k):
-        self._later("adopt_prefix", "item 11: token-level prefix reuse")
+        self._later("adopt_prefix", "A4: token-level prefix reuse")
 
     def export_pages(self, *a, **k):
-        self._later("export_pages", "item 11: the host prefix tier")
+        self._later("export_pages", "A6: the host prefix tier")
 
     def import_pages(self, *a, **k):
-        self._later("import_pages", "item 11: the host prefix tier")
+        self._later("import_pages", "A6: the host prefix tier")
 
     def raw_kv_view(self, *a, **k):
-        self._later("raw_kv_view", "item 11: chunked prefill")
+        self._later("raw_kv_view", "A4: chunked prefill")
 
     def snapshot_rows(self, *a, **k):
-        self._later("snapshot_rows", "item f: speculative decoding")
+        self._later("snapshot_rows", "A5: speculative decoding")
 
     def verify_attend(self, *a, **k):
-        self._later("verify_attend", "item f: speculative decoding")
+        self._later("verify_attend", "A5: speculative decoding")
 
     def truncate_rows(self, *a, **k):
-        self._later("truncate_rows", "item f: speculative decoding")
+        self._later("truncate_rows", "A5: speculative decoding")
 
     def prefill_chunk(self, *a, **k):
-        self._later("prefill_chunk", "item 11: chunked prefill")
+        self._later("prefill_chunk", "A4: chunked prefill")
 
 
 def _unsupported(policy, backend: AttendBackend):
@@ -280,7 +286,7 @@ class BF16Policy(_LaterSlices):
         if state.is_paged:
             paged.reset_rows(state.data, mask)
         else:
-            state.data.length = _reset_lengths(state.data.length, mask)
+            _reset_lengths(state.data.length, mask)
         return state
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
@@ -425,7 +431,7 @@ class Int4SRFTPolicy(_LaterSlices):
         if state.is_paged:
             paged.reset_rows(kv, mask)
         else:
-            kv.length = _reset_lengths(kv.length, mask)
+            _reset_lengths(kv.length, mask)
         return state
 
     def _dense_kv_view(self, pd: PagedData) -> QuantKVCache:

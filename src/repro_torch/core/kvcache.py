@@ -10,9 +10,11 @@ window of the W most recent tokens that is quantized into packed storage
 whenever it fills.  Attention reads in rotated space.
 
 The reference threads an immutable, donated pytree through ``lax.scan``;
-here the buffers are preallocated once and updated in place.  A plain
-cache's ``length`` is a Python int shared by every row, so its flush
-decision is taken on the host without a device sync.  A ragged cache
+here the buffers are preallocated once and updated in place, per-row
+lengths included (a captured CUDA graph replays fixed addresses, so no
+update may rebind a tensor).  A plain cache's ``length`` is a Python
+int shared by every row, so its flush decision is taken on the host
+without a device sync.  A ragged cache
 (``ragged=True``, the continuous-batching slot cache) carries per-row
 ``(B,)`` int32 lengths on the cache's device; its decode update never
 reads them back: every row quantizes its ring each step and a masked
@@ -87,6 +89,10 @@ class BF16KVCache:
     v: torch.Tensor
     length: Length = 0
 
+    @property
+    def s_max(self) -> int:
+        return self.k.shape[-2]
+
 
 def _zero_length(batch: int, ragged: bool, device) -> Length:
     if ragged:
@@ -126,14 +132,13 @@ def init_bf16_cache(batch: int, n_kv_heads: int, s_max: int, head_dim: int,
 
 
 def _all_rows_at(length: Length, n: int) -> Length:
-    """Every row at ``n`` tokens (a ragged length keeps its tensor form)."""
-    return n if isinstance(length, int) else torch.full_like(length, n)
+    """Every row at ``n`` tokens; a ragged length is filled in place."""
+    return n if isinstance(length, int) else length.fill_(n)
 
 
 def _check_room(cache, new_len: int) -> None:
-    s_max = cache.s_max if isinstance(cache, QuantKVCache) else cache.k.shape[-2]
-    if new_len > s_max:
-        raise ValueError(f"cache full: {new_len} tokens > s_max={s_max}")
+    if new_len > cache.s_max:
+        raise ValueError(f"cache full: {new_len} tokens > s_max={cache.s_max}")
 
 
 def prefill(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
@@ -186,9 +191,9 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 def ring_write(res: torch.Tensor, val: torch.Tensor, idx: torch.Tensor
                ) -> None:
-    """Row b writes ``val[b, :, 0]`` into residual slot ``idx[b]`` of
+    """Row b writes ``val[b]`` (B, H, d) into residual slot ``idx[b]`` of
     ``res`` (B, H, W, d), in place."""
-    res[_rows(idx), :, idx] = val[:, :, 0].to(res.dtype)
+    res[_rows(idx), :, idx] = val.to(res.dtype)
 
 
 def slab_write(buf: torch.Tensor, slab: torch.Tensor, off: torch.Tensor,
@@ -218,8 +223,10 @@ def decode_update_ragged(cache: QuantKVCache, rot_k: Rotation,
     W, g = cache.window, cache.group
     L = cache.length
     idx = L % W
-    ring_write(cache.k_residual, rot_k.forward(k), idx)
-    ring_write(cache.v_residual, rot_v.forward(v), idx)
+    # rotated as (B, H, d), the plain update's shape: the same product,
+    # so a ragged single stream writes the plain one's bytes
+    ring_write(cache.k_residual, rot_k.forward(k[:, :, 0]), idx)
+    ring_write(cache.v_residual, rot_v.forward(v[:, :, 0]), idx)
     flush = idx == W - 1
     off = (L + 1 - W).clamp(min=0)
     kp, ks = quantize_rotated(cache.k_residual, group=g)
@@ -227,14 +234,14 @@ def decode_update_ragged(cache: QuantKVCache, rot_k: Rotation,
     for buf, slab in ((cache.k_packed, kp), (cache.k_scales, ks),
                       (cache.v_packed, vp), (cache.v_scales, vs)):
         slab_write(buf, slab, off, flush)
-    cache.length = advance(L, active)
+    L.copy_(advance(L, active))
     return cache
 
 
 def advance(length: torch.Tensor, active: "torch.Tensor | None"
             ) -> torch.Tensor:
     """Per-row lengths after one append: +1 where ``active`` (all rows
-    when None)."""
+    when None).  A new tensor: the updates copy it into the length."""
     if active is None:
         return length + 1
     return length + active.to(length.dtype)
@@ -293,5 +300,5 @@ def bf16_decode_update_ragged(cache: BF16KVCache, k: torch.Tensor,
     rows = _rows(L)
     cache.k[rows, :, pos] = k[:, :, 0].to(cache.k.dtype)
     cache.v[rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
-    cache.length = advance(L, active)
+    L.copy_(advance(L, active))
     return cache

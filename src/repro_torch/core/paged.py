@@ -24,7 +24,9 @@ Where the port departs from the reference's layout:
     table changes (admission, retirement).  Nothing here reads the device
     back.
   * Lengths stay on the device, and the decode updates (``append_token``,
-    ``int4_update_paged``) never read them on the host.
+    ``int4_update_paged``) never read them on the host.  Every device
+    buffer, the lengths and the page table included, keeps its address
+    for the life of the state: a captured decode step replays them.
   * Device buffers are updated in place; the allocator functions return
     a fresh ``PagePool`` (a copy of a vector of ``n_pages`` ints).
   * ``insert_row`` writes only the freshly allocated pages; the reference
@@ -248,7 +250,7 @@ def append_token(pd: PagedData, vals: tuple,
     page, off = _tail_page(pd, pd.length)
     for p, v in zip(pd.pools, vals):
         p[page, :, off.long(), :] = v[:, :, 0, :].to(p.dtype)
-    pd.length = kvcache.advance(pd.length, active)
+    pd.length.copy_(kvcache.advance(pd.length, active))
     return pd
 
 
@@ -323,8 +325,7 @@ def reset_rows(pd: PagedData, mask) -> PagedData:
     pd.pool = pool_free(pd.pool, pd.table_host, valid)
     pd.table_host[mask] = NULL_PAGE
     pd.upload_table()
-    pd.length = torch.where(mask.to(pd.length.device), 0, pd.length).to(
-        torch.int32)
+    pd.length.masked_fill_(mask.to(pd.length.device), 0)
     return pd
 
 
@@ -345,12 +346,12 @@ def int4_update_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
     g = k_res.shape[-1] // pd.pools[1].shape[-1]
     L = pd.length
     idx = L % W
-    kvcache.ring_write(k_res, rot_k.forward(k), idx)
-    kvcache.ring_write(v_res, rot_v.forward(v), idx)
+    kvcache.ring_write(k_res, rot_k.forward(k[:, :, 0]), idx)
+    kvcache.ring_write(v_res, rot_v.forward(v[:, :, 0]), idx)
     kp, ks = quantize_rotated(k_res, group=g)
     vp, vs = quantize_rotated(v_res, group=g)
     write_slab(pd, (kp, ks, vp, vs), (L + 1 - W).clamp(min=0), idx == W - 1)
-    pd.length = kvcache.advance(L, active)
+    L.copy_(kvcache.advance(L, active))
     return pd
 
 

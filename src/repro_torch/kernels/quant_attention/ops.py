@@ -229,10 +229,11 @@ def _fold_query(q, rot_k, n_kv_heads, scale):
 
 
 def _per_kv_row(x, n_kv_heads):
-    """A shared int passes through; per-row (B,) -> one entry per (b, h)."""
+    """A shared int passes through; per-row (B,) -> one entry per (b, h)
+    (a broadcast, so a captured decode step reads no size back)."""
     if isinstance(x, int):
         return x
-    return x.repeat_interleave(n_kv_heads)
+    return x[:, None].expand(-1, n_kv_heads).reshape(-1)
 
 
 def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,

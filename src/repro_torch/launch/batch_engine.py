@@ -13,11 +13,18 @@ recompute preemption (:826-878, :1409-1457) and the decode chunk
     row that shares the slot cache's rotations, then copied into a free
     slot (``policy.insert_row``); the first token is drawn from the
     prefill logits.
-  * **decode**: the whole batch advances ``chunk`` tokens.  The chunk is
-    a Python loop of decode steps that keeps the last token, the
-    ``active`` mask and the per-row budgets on the device; finished rows
-    are masked (their lengths stand still) and the (capacity, n_steps)
-    tokens are read back once per chunk.
+  * **decode**: the whole batch advances ``chunk`` tokens.  One decode
+    step (the model step, the sampler, the budget, alive and EOS masks)
+    reads and writes fixed device buffers: the last token, the
+    ``active`` mask and the per-row budgets.  On a card that step is
+    captured once in a CUDA graph (``launch/graphs.py``, the counterpart
+    of the reference's ``_chunk_fn`` scan) and a chunk is ``n_steps``
+    replays; ``graph=False``, and the CPU, call it eagerly instead.
+    Finished rows are masked (their lengths stand still), each step's
+    token and valid flag land in column i of a (capacity, chunk) buffer,
+    and that buffer is read back once per chunk.  Between chunks the
+    host writes the masks into their buffers; admission, COW sharing and
+    preemption rewrite the cache and the page table in place.
   * **retire**: finished slots get ``policy.reset_rows`` and return to
     the free list.
 
@@ -57,6 +64,7 @@ from repro_torch import resolve_device
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.core.paged import NULL_PAGE
 from repro_torch.launch.engine import GREEDY, Sampler
+from repro_torch.launch.graphs import StepGraph
 
 __all__ = ["Request", "Completion", "BatchEngine"]
 
@@ -83,12 +91,12 @@ class Completion:
 
 
 _LATER = {
-    "prefill_chunk": "ROADMAP A item 11: chunked prefill",
-    "prefill_budget": "ROADMAP A item 11: chunked prefill",
-    "spec_k": "ROADMAP A item f: speculative decoding",
-    "offload_bytes": "ROADMAP A item 11: the host prefix tier",
-    "trace": "ROADMAP A item 12: tracing with the server",
-    "mesh": "ROADMAP A item 15: multi-device serving",
+    "prefill_chunk": "ROADMAP A4: chunked prefill",
+    "prefill_budget": "ROADMAP A4: chunked prefill",
+    "spec_k": "ROADMAP A5: speculative decoding",
+    "offload_bytes": "ROADMAP A6: the host prefix tier",
+    "trace": "ROADMAP A9: tracing with the server",
+    "mesh": "ROADMAP A12: multi-device serving",
 }
 
 
@@ -97,7 +105,9 @@ class BatchEngine:
     sampler) configuration.  ``eos_id`` is an early-stop token (None =
     length only).  The decode chunk is the scheduling quantum.
     ``device`` must be the model's (``cuda`` unless ``"cpu"`` is asked
-    for)."""
+    for).  ``graph`` (default: on a card) replays a captured decode
+    step; ``graph=False`` runs it eagerly, and a CPU engine refuses
+    ``graph=True``."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -109,7 +119,8 @@ class BatchEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
                  spec_k: Optional[int] = None,
-                 offload_bytes: Optional[int] = None, trace=None, mesh=None):
+                 offload_bytes: Optional[int] = None, trace=None, mesh=None,
+                 graph: Optional[bool] = None):
         asked = dict(prefill_chunk=prefill_chunk,
                      prefill_budget=prefill_budget, spec_k=spec_k,
                      offload_bytes=offload_bytes, trace=trace, mesh=mesh)
@@ -126,6 +137,11 @@ class BatchEngine:
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
+        on_card = self.device.type == "cuda"
+        if graph and not on_card:
+            raise ValueError(f"graph=True needs a CUDA engine (got "
+                             f"{self.device}); the CPU steps eagerly")
+        self.graph = on_card if graph is None else graph
         self.model = model
         self.params = params
         self.capacity = capacity
@@ -163,8 +179,18 @@ class BatchEngine:
         first = self.cache["attn"][0].data
         self._rots = None if not hasattr(first, "rot_k") else [
             (st.data.rot_k, st.data.rot_v) for st in self.cache["attn"]]
-        self.tok = torch.zeros((capacity, 1), dtype=torch.long,
-                               device=self.device)  # last sampled
+        # the step's fixed device buffers: the last sampled token, the
+        # live mask, the decode steps left, and a chunk's tokens and valid
+        # flags by step; the host keeps its own copies of the masks
+        dev = self.device
+        self.tok = torch.zeros((capacity, 1), dtype=torch.long, device=dev)
+        self._active = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+        self._budget = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+        self._toks = torch.zeros((capacity, chunk), dtype=torch.long,
+                                 device=dev)
+        self._valid = torch.zeros((capacity, chunk), dtype=torch.bool,
+                                  device=dev)
+        self._step_graph: Optional[StepGraph] = None
         self.active = np.zeros((capacity,), bool)
         self.budget = np.zeros((capacity,), np.int32)  # decode steps left
         self._slot_req: list[Optional[Request]] = [None] * capacity
@@ -270,12 +296,12 @@ class BatchEngine:
             del self._prefix_pages[k]
 
     def _reset(self, mask: np.ndarray) -> None:
-        """Retire the masked rows in every layer; their positions go to 0."""
+        """Retire the masked rows in every layer; their positions go to 0
+        (in place, as every write between chunks)."""
         for st in self.cache["attn"]:
             self.policy.reset_rows(st, mask)
         pos = self.cache["pos"]
-        self.cache["pos"] = torch.where(
-            torch.as_tensor(mask, device=pos.device), 0, pos).to(pos.dtype)
+        pos.masked_fill_(torch.as_tensor(mask, device=pos.device), 0)
         if self.paged:
             self._sync_pool()
 
@@ -387,7 +413,7 @@ class BatchEngine:
 
     def admit_packed(self, reqs: list[Request]) -> None:
         raise NotImplementedError(
-            "BatchEngine.admit_packed is not ported yet (ROADMAP A item 12: "
+            "BatchEngine.admit_packed is not ported yet (ROADMAP A9: "
             "packed admission with the serving front-end)")
 
     # ---------------------------------------------------------- admission
@@ -537,33 +563,52 @@ class BatchEngine:
         return completions
 
     # -------------------------------------------------------------- decode
+    def _step(self) -> None:
+        """One decode step of the whole batch on the fixed buffers (the
+        body the graph captures): rows live when the token was drawn
+        spend one step of budget and stay live while budget is left and
+        the token is not ``eos_id``."""
+        active, budget = self._active, self._budget
+        logits, _ = self.model.decode_step(
+            self.params, self.tok, self.cache, kv_block=self.kv_block,
+            backend=self.backend, active=active)
+        nxt = self.sampler.sample(logits[:, -1], self.generator)
+        budget.sub_(active.to(budget.dtype))
+        alive = active & (budget > 0)
+        if self.eos_id is not None:
+            alive &= nxt != self.eos_id
+        self.tok.copy_(nxt[:, None])
+        active.copy_(alive)
+
+    def _stepper(self):
+        """The step to run: eager, or the captured graph's replay (the
+        first call captures it)."""
+        if not self.graph:
+            return self._step
+        if self._step_graph is None:
+            state = [self.tok, self._active, self._budget, self.cache["pos"],
+                     *(st.length for st in self.cache["attn"])]
+            self._step_graph = StepGraph(
+                self._step, state, generator=self.generator
+                if self.sampler.temperature else None)
+        return self._step_graph.replay
+
     def _decode_chunk(self, n_steps: int):
-        """``n_steps`` decode steps of the whole batch with ``tok``,
-        ``active`` and ``budget`` kept on the device; one readback at the
-        end.  Returns host (tokens (cap, n), valid (cap, n), budget (cap,),
-        still-active (cap,))."""
-        dev = self.device
-        active = torch.as_tensor(self.active, device=dev)
-        budget = torch.as_tensor(self.budget, device=dev)
-        tok = self.tok
-        toks, valid = [], []
-        for _ in range(n_steps):
-            logits, self.cache = self.model.decode_step(
-                self.params, tok, self.cache, kv_block=self.kv_block,
-                backend=self.backend, active=active)
-            nxt = self.sampler.sample(logits[:, -1], self.generator)[:, None]
-            valid.append(active)  # rows live when this token was drawn
-            budget = budget - active.to(budget.dtype)
-            alive = active & (budget > 0)
-            if self.eos_id is not None:
-                alive = alive & (nxt[:, 0] != self.eos_id)
-            toks.append(nxt[:, 0])
-            tok, active = nxt, alive
-        self.tok = tok
-        host = torch.cat([torch.stack(toks, 1), torch.stack(valid, 1).long(),
-                          budget[:, None].long(), active[:, None].long()],
-                         1).cpu().numpy()
+        """``n_steps`` decode steps of the whole batch; the host's masks
+        go into the device buffers first, and one readback ends the
+        chunk.  Returns host (tokens (cap, n), valid (cap, n), budget
+        (cap,), still-active (cap,))."""
+        self._active.copy_(torch.from_numpy(self.active))
+        self._budget.copy_(torch.from_numpy(self.budget))
+        step = self._stepper()
+        for i in range(n_steps):
+            self._valid[:, i].copy_(self._active)
+            step()
+            self._toks[:, i].copy_(self.tok[:, 0])
         n = n_steps
+        host = torch.cat([self._toks[:, :n], self._valid[:, :n].long(),
+                          self._budget[:, None].long(),
+                          self._active[:, None].long()], 1).cpu().numpy()
         return (host[:, :n], host[:, n:2 * n].astype(bool),
                 host[:, 2 * n].astype(np.int32), host[:, 2 * n + 1] != 0)
 

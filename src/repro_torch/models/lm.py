@@ -9,7 +9,9 @@ The reference's ``lax.scan`` over stacked layers becomes a Python loop
 over a list of per-layer parameter dicts and a list of per-layer cache
 states; caches are preallocated and updated in place.  ``pos`` is a
 Python int shared by every row or, in a ragged or paged slot cache
-(continuous batching), a per-row (B,) int32 tensor on the device.
+(continuous batching, and the single stream under a CUDA graph), a
+per-row (B,) int32 tensor on the device, which every step updates in
+place so that a captured step can be replayed.
 """
 from __future__ import annotations
 
@@ -223,7 +225,7 @@ class LM:
                                                    kv_block=kv_block)
         S = tokens.shape[1]
         pos = cache["pos"]
-        cache["pos"] = S if isinstance(pos, int) else torch.full_like(pos, S)
+        cache["pos"] = S if isinstance(pos, int) else pos.fill_(S)
         return self._unembed(params, x[:, -1:]), cache
 
     def decode_step(self, params, token: torch.Tensor, cache: dict, *,
@@ -243,8 +245,10 @@ class LM:
             x, cache["attn"][i] = self._block_decode(
                 p, x, cache["attn"][i], position=pos, kv_block=kv_block,
                 backend=backend, active=active)
-        cache["pos"] = pos + 1 if active is None \
-            else pos + active.to(pos.dtype)
+        if isinstance(pos, int):
+            cache["pos"] = pos + 1
+        else:
+            pos.add_(1 if active is None else active.to(pos.dtype))
         return self._unembed(params, x), cache
 
     def decode_body(self, params, *, kv_block: int = 512, backend=None):

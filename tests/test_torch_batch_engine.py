@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -30,6 +32,7 @@ from repro.launch.batch_engine import Request as JRequest  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.paged import PagePool  # noqa: E402
 from repro_torch.launch.batch_engine import BatchEngine, Request  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 
@@ -235,6 +238,55 @@ def test_preemption_requeue_stitches_streams(lm):
             model, params, "int4-srft", "gather", r.prompt, dense[i].tokens,
             eng._rots), f"preempted request {i}")
     assert eng.pool_stats()["pages_used"] == 0
+
+
+def _buffers(eng) -> dict:
+    """Every tensor a captured decode step replays: the cache's leaves
+    (lengths and page tables included), ``pos`` and the step's buffers.
+    The host allocator (``PagePool``) is host state and is left out."""
+    out = {"pos": eng.cache["pos"], "tok": eng.tok, "active": eng._active,
+           "budget": eng._budget}
+
+    def walk(name, x):
+        if isinstance(x, torch.Tensor):
+            out[name] = x
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                walk(f"{name}[{i}]", v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, PagePool):
+            for f in dataclasses.fields(x):
+                walk(f"{name}.{f.name}", getattr(x, f.name))
+
+    for i, st in enumerate(eng.cache["attn"]):
+        walk(f"attn[{i}]", st.data)
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("policy", ["int4-srft", "bf16"])
+def test_decode_keeps_every_buffer_in_place(lm, policy, paged):
+    """The counterpart of the reference's donation tests: across
+    admissions, decode chunks, retirements and (paged) a preemption,
+    every cache leaf, every length, ``pos`` and the step's buffers keep
+    their storage, which is what lets a CUDA graph replay the step."""
+    _, _, model, params, prompts = lm
+    reqs = _requests((prompts[0], prompts[3][:20], prompts[1]),
+                     new=(10, 8, 6))
+    eng = BatchEngine(model, params, capacity=2, s_max=48, policy=policy,
+                      backend="gather", kv_block=PS, chunk=CHUNK,
+                      paged=paged, page_size=PS, n_pages=4 if paged else None,
+                      device="cpu")
+    before = {k: t.data_ptr() for k, t in _buffers(eng).items()}
+    for r in reqs:
+        eng.submit(r)
+    n_chunks = 0
+    while eng.has_work:
+        eng.step()
+        n_chunks += 1
+        now = {k: t.data_ptr() for k, t in _buffers(eng).items()}
+        assert now == before, [k for k in now if now[k] != before.get(k)]
+    assert n_chunks > 2
+    assert not paged or eng.n_preemptions > 0
 
 
 def test_eos_cancel_and_temperature(lm):

@@ -59,8 +59,9 @@ def bridged(request):
 
 def _reference(jm, jp, toks, policy, backend):
     """Per-step loop of the reference: (tokens (B, NEW), logits (B, NEW, V),
-    the cache as prefilled, for its rotations)."""
-    cache = jm.init_cache(B, S_MAX, policy=policy, key=jax.random.PRNGKey(7))
+    the cache as prefilled, for its rotations); B is ``toks``'s."""
+    cache = jm.init_cache(toks.shape[0], S_MAX, policy=policy,
+                          key=jax.random.PRNGKey(7))
     logits, cache = jax.jit(jm.prefill)(jp, jnp.asarray(toks), cache)
     rots = cache["attn"].data
     tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
@@ -110,7 +111,14 @@ def test_generate_matches_reference(bridged, policy, backend):
     got_t, got_l, cache = eng.generate(params, prompt, cache, NEW,
                                        return_logits=True)
     assert cache["pos"] == PROMPT + NEW - 1
-    got_t = got_t.numpy()
+    _agree_with_reference(got_t.numpy(), got_l.numpy(), ref_t, ref_l, tol,
+                          f"{policy}/{backend}")
+
+
+def _agree_with_reference(got_t, got_l, ref_t, ref_l, tol, what):
+    """Greedy tokens equal the reference's, except from a first divergence
+    at a near-tie (top-2 gap below ``tol``); logits within ``tol`` up to
+    and including that step."""
     diverged = np.argwhere(got_t != ref_t)
     if len(diverged):
         b, i = diverged[np.argmin(diverged[:, 1])]
@@ -118,10 +126,75 @@ def test_generate_matches_reference(bridged, policy, backend):
         assert top2[1] - top2[0] < tol, (
             f"greedy tokens diverge at step {i} (row {b}) with a top-2 gap "
             f"of {top2[1] - top2[0]} >= {tol}")
-        print(f"{policy}/{backend}: near-tie divergence at step {i}")
+        print(f"{what}: near-tie divergence at step {i}")
     n_same = diverged[:, 1].min() + 1 if len(diverged) else NEW
-    err = np.abs(got_l.numpy()[:, :n_same] - ref_l[:, :n_same]).max()
+    err = np.abs(got_l[:, :n_same] - ref_l[:, :n_same]).max()
     assert err <= tol
+
+
+# within the port, the ragged single stream runs the same arithmetic as
+# the plain one but for per-row masks and the ring quantized every step;
+# relative to the largest logit
+RAGGED_TOL = 1e-5
+
+
+@pytest.mark.parametrize("policy,backend", CASES)
+def test_single_stream_on_a_ragged_cache(bridged, policy, backend):
+    """The single stream on a ragged batch-1 cache (device lengths: the
+    form a CUDA graph replays) equals the plain-length single stream
+    within the port (tokens equal, logits within RAGGED_TOL of the largest
+    logit) and agrees with the reference's per-step loop at LOGIT_TOL."""
+    jm, jp, model, params, toks = bridged
+    toks = toks[:1]
+    ref_t, ref_l, ref_state = _reference(jm, jp, toks, policy, backend)
+    rots = _rots(ref_state, policy)
+    prompt = torch.from_numpy(toks).long()
+    eng = Engine(model, backend=backend, kv_block=32)
+    out = {}
+    for ragged in (False, True):
+        cache = model.init_cache(1, S_MAX, policy=policy, rots=rots,
+                                 ragged=ragged)
+        out[ragged] = eng.generate(params, prompt, cache, NEW,
+                                   return_logits=True)
+    (plain_t, plain_l, _), (rag_t, rag_l, cache) = out[False], out[True]
+    assert torch.equal(cache["pos"], torch.tensor([PROMPT + NEW - 1],
+                                                  dtype=torch.int32))
+    assert all(torch.equal(st.lengths, cache["pos"]) for st in cache["attn"])
+    assert torch.equal(rag_t, plain_t)
+    err = (rag_l - plain_l).abs().max().item()
+    assert err <= RAGGED_TOL * plain_l.abs().max().item(), err
+    _agree_with_reference(rag_t.numpy(), rag_l.numpy(), ref_t, ref_l,
+                          LOGIT_TOL * np.abs(ref_l).max(),
+                          f"ragged {policy}/{backend}")
+
+
+def test_graph_mode_refuses_the_cpu_and_plain_caches():
+    """CUDA graphs are a card path: ``graph=True`` on a CPU model or engine
+    raises; on a CUDA model the graph path refuses a plain cache (its
+    length is a host int) and sampling without an explicit generator
+    before touching the card."""
+    from repro_torch.launch.batch_engine import BatchEngine
+    from repro_torch.launch.engine import Sampler
+
+    cfg = get_config("smol-d64")
+    cpu = LM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        Engine(cpu, graph=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        BatchEngine(cpu, {}, capacity=1, s_max=32, device="cpu", graph=True)
+    assert not Engine(cpu).graph
+    assert not BatchEngine(cpu, {}, capacity=1, s_max=32, device="cpu").graph
+
+    eng = Engine(LM(cfg, device="cuda"))  # the default mode on a card
+    assert eng.graph
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    plain = cpu.init_cache(1, 32, policy="bf16")
+    with pytest.raises(ValueError, match="ragged=True"):
+        eng.decode({}, tok, plain, 4)
+    ragged = cpu.init_cache(1, 32, policy="bf16", ragged=True)
+    hot = Engine(LM(cfg, device="cuda"), sampler=Sampler(temperature=1.0))
+    with pytest.raises(ValueError, match="Generator"):
+        hot.decode({}, tok, ragged, 4)
 
 
 def test_module_generate_and_backends_agree(bridged):
