@@ -11,9 +11,10 @@ Phases (any failure exits non-zero):
      4,096 rows, bf16, and without a matrix at the W-flush's 128 rows and
      the batch ring's 512, fp32, each beside its bound, with cuBLAS's fp32
      x @ M^T alone at 32,640 rows as context; B2 at page sizes 16 and 48;
-     B4, off the serving
-     path, at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
-     and at d 64 / 128 / 256, int4 and int8); B3 and B4 are then timed
+     B4 at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
+     and at d 64 / 128 / 256, int4 and int8, and at the raw view of a
+     reused 1,024-token prefix, 8,192 rows x d 128 int4, its serving
+     shape); B3 and B4 are then timed
      in alternation over B4_ROUNDS rounds and reported as the medians,
      the SM clock polled by nvidia-smi through the whole phase; B1 and
      B2 (``check_b1``, ``check_b2``, each callable alone) are also timed
@@ -33,10 +34,11 @@ Phases (any failure exits non-zero):
      and read just after, so they count replays;
   6. the same requests in ENGINE_ROUNDS interleaved rounds, eager loop
      and graph replay in alternating order, int4-srft KERNEL and bf16
-     GATHER (and int4-srft GATHER at 2055 tokens): ms per token by CUDA
-     events around the decode loop, capture time; the graph's tokens must
-     equal the eager loop's up to a near-tie and its logits agree within
-     GRAPH_TOL; GATHER is held against KERNEL; decode profiles of both
+     GATHER (and at 2055 tokens int4-srft GATHER and BLOCKWISE and bf16
+     BLOCKWISE): ms per token by CUDA events around the decode loop,
+     capture time; the graph's tokens must equal the eager loop's up to a
+     near-tie and its logits agree within GRAPH_TOL; GATHER is held
+     against KERNEL, and BLOCKWISE against GATHER; decode profiles of both
      modes (device busy ms per step, idle share, the port's kernels); and
      a replay loop inside ``torch.cuda.set_sync_debug_mode("error")``,
      which must raise nothing: the step makes no host sync;
@@ -55,7 +57,21 @@ Phases (any failure exits non-zero):
      CUDA events and the host clock around each chunk, capture time, and
      decode profiles of both modes.  The launch counters are zeroed just
      before each int4 graph run and read just after;
-  8. the quality path, on fp32 operands (``common.dot_mode(False)``, as
+  8. chunked admission (the graph decode): the same requests with
+     ``prefill_chunk`` 256 and ``prefill_budget`` 256, paged and dense,
+     int4-srft KERNEL and bf16 GATHER, and the preempting pool.  Every
+     stream of a request that reused nothing (and, under bf16, of the
+     one that did) equals the monolithic run's up to a near-tie; the
+     paged int4 run reuses the 1,024-token prefix once, launching B4 2 x
+     24 times for it, and the int4 reuser's agreement with a no-reuse run
+     is printed.  For each layout: the longest gap between two tokens of
+     a live stream while the 4093-token request is admitted, monolithic
+     against chunked, that request's time to first token, the chunks per
+     admission, and the reused tokens, hits and misses; the counters are
+     zeroed just before each int4 chunked run and read just after.  The
+     preempting pool runs chunked with a budget of PREEMPT_BUDGET tokens
+     a quantum, so that its pool runs dry as the monolithic one's does;
+  9. the quality path, on fp32 operands (``common.dot_mode(False)``, as
      the reference's benchmarks run): ``kernel_quality.run`` on the card
      -- B3 (folded) and B4 against their plain versions at d 64/128/256,
      int4 and int8, plain and scaled lambda (codes equal up to .5 ties);
@@ -103,6 +119,13 @@ B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
 PPL_RTOL = 1e-3  # hook PPL on the card vs the CPU plain path
 GRAPH_TOL = 1e-5  # graph vs eager logits, relative to the largest logit
 ENGINE_ROUNDS = 2  # interleaved eager / graph rounds of the Engine requests
+PREFILL_CHUNK = PREFILL_BUDGET = 256  # chunked admission (phase 8)
+# the preempting pool's budget: the 4093-token admission must end while the
+# 517-token stream still decodes (at 256 a quantum that stream retires
+# first, and the one-row pool never runs dry)
+PREEMPT_BUDGET = 4096
+RAW_VIEW_ROWS = 8 * SHARED_PREFIX  # B4 on a reused prefix: Hkv x tokens
+CARD = ""  # the card's name and power limit, set by main()
 
 
 def log(*a):
@@ -377,8 +400,43 @@ def kernel_phase(flush):
     b4, b3_rounds = check_b4(flush, g, n, group, b3_call)
     b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
     b3["ms_rounds"] = b3_rounds
+    b4["raw_view"] = check_b4_raw_view(flush, g, rot, group)
+    b4["max_abs_err"] = max(b4["max_abs_err"], b4["raw_view"]["max_abs_err"])
     out.append(b4)
     return out
+
+
+def check_b4_raw_view(flush, g, rot, group):
+    """B4 at its serving shape: the int4 raw view of a reused 1,024-token
+    prefix (8 KV heads x 1,024 rows of d 128 per leaf), on codes the cache
+    write (B3, unfolded matrix and lambda epilogue) made, against its plain
+    version on the same codes, within B4_RTOL x max(1, max |x|); timed."""
+    from repro_torch.benchmarks.kernel_quality import B4_RTOL
+    from repro_torch.kernels.srft_quant import ops as sq_ops
+    from repro_torch.kernels.srft_quant import ref as sq_ref
+
+    n, d = RAW_VIEW_ROWS, rot.d
+    x = torch.randn((n, d), generator=g, device="cuda").to(torch.bfloat16)
+    pk, sc = sq_ops.rotate_quantize(x, rot, group=group)
+    minv = sq_ref.fold_inverse_matrix(rot)
+    got = sq_ops.dequantize_rotate(pk, sc, rot, group=group)
+    want = sq_ref.srft_dequant_ref(pk, sc, minv, group=group)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = B4_RTOL * max(1.0, want.abs().max().item())
+    assert torch.isfinite(got).all() and err <= tol, f"B4 raw view {err}"
+    call = lambda: sq_ops.srft_dequant(pk, sc, minv, group=group)  # noqa
+    ms = device_ms(call, flush, label="B4 raw view")
+    plain = device_ms(lambda: sq_ref.srft_dequant_ref(pk, sc, minv,
+                                                      group=group), flush)
+    nbytes = pk.numel() + sc.numel() * 4 + d * d * 4 + n * d * 4
+    b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
+    log(f"[{CARD}] B4 at the raw view of a reused {SHARED_PREFIX}-token "
+        f"prefix ({n} rows x d {d}, int4): max abs err {err:.3e} (tol "
+        f"{tol:.3e}); {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} "
+        f"ms ({b_by})")
+    return dict(rows=n, d=d, bits=4, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_b1(flush, g, Hkv, G, d, group, W):
@@ -805,10 +863,13 @@ def main_path_phase():
                         continue  # the main path's run is round 0's
                     runs.setdefault(key, []).append(
                         serve(model, params, policy, backend, n, graph))
-    n_g = PROMPTS[1]  # the GATHER rerun
-    for graph in (True, False):
-        runs["int4-srft", "gather", n_g, graph] = [
-            serve(model, params, "int4-srft", "gather", n_g, graph)]
+    n_g = PROMPTS[1]  # the GATHER and BLOCKWISE reruns
+    for policy, backend in (("int4-srft", "gather"),
+                            ("int4-srft", "blockwise"),
+                            ("bf16", "blockwise")):
+        for graph in (True, False):
+            runs[policy, backend, n_g, graph] = [
+                serve(model, params, policy, backend, n_g, graph)]
     for key, rs in runs.items():
         for row, _, _ in rs:
             log("request " + json.dumps(row))
@@ -828,6 +889,7 @@ def main_path_phase():
     log(f"GATHER vs KERNEL at the {n_g}-token request (graph): max logit "
         f"diff {err:.3e} (tol {tol:.3e}), tokens agree for "
         f"{n_same}/{NEW_TOKENS} steps")
+    blockwise_vs_gather(runs, n_g)
     summary = {}
     for (policy, backend, n, graph), rs in runs.items():
         summary.setdefault(f"{policy}/{backend or 'gather'}/{n}", {})[
@@ -843,6 +905,36 @@ def main_path_phase():
                 model, params, policy, backend, n, graph)))
     no_sync_region(model, params)
     return launches, model, params
+
+
+def blockwise_vs_gather(runs, n):
+    """BLOCKWISE against GATHER at the ``n``-token request, both policies,
+    graph and eager: tokens equal up to a near-tie, logits within
+    LOGIT_TOL (tests/test_torch_engine.py's tolerance); then ms/token of
+    the four read paths side by side."""
+    for policy in ("int4-srft", "bf16"):
+        gather = None if policy == "bf16" else "gather"
+        for graph in (True, False):
+            _, t_g, l_g = runs[policy, gather, n, graph][0]
+            _, t_b, l_b = runs[policy, "blockwise", n, graph][0]
+            n_same = _agree_until(t_g, t_b, l_g)
+            err = (l_b[:, :n_same] - l_g[:, :n_same]).abs().max().item()
+            tol = LOGIT_TOL * l_g.abs().max().item()
+            assert err <= tol, f"{policy} BLOCKWISE vs GATHER {err} > {tol}"
+            log(f"  {policy} BLOCKWISE vs GATHER at {n} tokens "
+                f"({'graph' if graph else 'eager'}): max logit diff "
+                f"{err:.3e} (tol {tol:.3e}), tokens agree for "
+                f"{n_same}/{NEW_TOKENS} steps")
+    table = {}
+    for policy, backend in (("int4-srft", "kernel"), ("int4-srft", "gather"),
+                            ("int4-srft", "blockwise"), ("bf16", None),
+                            ("bf16", "blockwise")):
+        for graph in (True, False):
+            table[f"{policy}/{backend or 'gather'}/"
+                  f"{'graph' if graph else 'eager'}"] = round(
+                runs[policy, backend, n, graph][0][0]["decode_ms_per_tok"], 4)
+    log(f"[{CARD}] decode ms/token at the {n}-token request by read path "
+        f"(CUDA events, first round): " + json.dumps(table))
 
 
 def no_sync_region(model, params, n=16):
@@ -903,19 +995,33 @@ def batch_requests(vocab):
 
 def serve_batch(model, params, policy, backend, paged, reqs, *,
                 capacity=CAPACITY, n_pages=None, after_first_step=None,
-                graph=True):
+                graph=True, **chunking):
     """Run ``reqs`` through a BatchEngine (the captured step, or the eager
-    loop).  Returns (engine, completions by rid, report): decode ms per
-    step (CUDA events and the host clock around each decode chunk, which
-    ends in a readback; the chunk that captures the graph is left out),
-    capture time, per-request ms per token (first to last token), cache
-    or pool bytes."""
+    loop; ``chunking`` takes ``prefill_chunk``, ``prefill_budget`` and
+    ``prefix_reuse``).  Returns (engine, completions by rid, report):
+    decode ms per step (CUDA events and the host clock around each decode
+    chunk, which ends in a readback; the chunk that captures the graph is
+    left out), capture time, per-request ms per token (first to last
+    token), cache or pool bytes, and for the longest prompt what a user
+    of the other streams feels while it is admitted (``admission``: the
+    longest gap between two token events of a live stream, host clock,
+    and its time to first token from the start of its admission), plus
+    each request's reused tokens (``reused``)."""
     from repro_torch.launch.batch_engine import BatchEngine
 
     eng = BatchEngine(model, params, capacity=capacity, s_max=S_MAX,
                       policy=policy, backend=backend, chunk=CHUNK,
                       paged=paged, page_size=PAGE_SIZE, n_pages=n_pages,
-                      device=DEV, graph=graph)
+                      device=DEV, graph=graph, **chunking)
+    started, reused = {}, {}
+    for name in ("_admit", "_start_pending"):
+        def opening(req, *a, _fn=getattr(eng, name), **k):
+            started.setdefault(req.rid, time.perf_counter())
+            out = _fn(req, *a, **k)
+            if eng._pending is not None and eng._pending.req is req:
+                reused[req.rid] = eng._pending.reused_tokens
+            return out
+        setattr(eng, name, opening)
     chunks = []
     decode_chunk = eng._decode_chunk
 
@@ -933,7 +1039,7 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
     eng._decode_chunk = timed
     for r in reqs:
         eng.submit(r)
-    first, last, done = {}, {}, {}
+    first, last, done, arrivals = {}, {}, {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_steps = 0
@@ -944,6 +1050,9 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
             if toks:
                 first.setdefault(rid, now)
                 last[rid] = now
+                got = arrivals.setdefault(rid, [])
+                if not got or got[-1] != now:  # one arrival a step
+                    got.append(now)
         done.update({c.rid: c for c in comps})
         if n_steps == 0 and after_first_step is not None:
             after_first_step(eng)
@@ -966,14 +1075,32 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
         capture_s=eng._step_graph.capture_s if graph else None,
         ms_per_token={r.rid: (last[r.rid] - first[r.rid]) * 1e3
                       / max(r.max_new_tokens - 1, 1) for r in reqs},
-        cache_bytes=sum(st.nbytes() for st in eng.cache["attn"]))
+        cache_bytes=sum(st.nbytes() for st in eng.cache["attn"]),
+        admission=_admission_feel(reqs, started, first, arrivals),
+        reused=reused, prefill_chunks=eng.n_prefill_chunks,
+        reused_tokens=eng.n_reused_tokens)
     if paged:
         stats = eng.pool_stats()
         assert stats["pages_used"] == 0, "pages leaked"
         report.update(peak_pages=stats["peak_pages"],
                       preemptions=stats["preemptions"],
-                      page_bytes=stats["pool_bytes"] / (stats["n_pages"] + 1))
+                      page_bytes=stats["pool_bytes"] / (stats["n_pages"] + 1),
+                      reuse_hits=eng.n_reuse_hits_device,
+                      reuse_misses=eng.n_reuse_misses)
     return eng, done, report
+
+
+def _admission_feel(reqs, started, first, arrivals) -> dict:
+    """For the longest prompt: its time to first token from the start of
+    its admission, and the longest gap between two successive token
+    events of any other stream that overlaps that window (host ms)."""
+    big = max(reqs, key=lambda r: len(r.prompt)).rid
+    lo, hi = started[big], first[big]
+    gaps = [(b - a, rid) for rid, ts in arrivals.items() if rid != big
+             for a, b in zip(ts, ts[1:]) if b > lo and a < hi]
+    return dict(rid=big, ttft_ms=(hi - lo) * 1e3,
+                longest_live_gap_ms=max(gaps)[0] * 1e3 if gaps else None,
+                live_streams=len({rid for _, rid in gaps}))
 
 
 def profile_batch_decode(model, params, policy, backend, paged, graph):
@@ -1088,7 +1215,7 @@ def batch_phase(model, params):
                     f"{what} request {r.rid} graph vs eager")
         log(f"  {what}: graph == eager for every request up to a near-tie")
 
-    runs, launches = {}, {}
+    runs, launches, reports = {}, {}, {}
     for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
         for paged in (True, False):
             order = (True, False) if paged else (False, True)
@@ -1103,6 +1230,7 @@ def batch_phase(model, params):
                     launches["batch_paged" if paged else "batch_dense"] = \
                         _counters()
                 runs[policy, paged, graph] = (eng, done)
+                reports[policy, paged, graph] = rep
                 log("batch " + json.dumps(rep))
             graph_vs_eager(policy, backend, reqs, runs[policy, paged, False][1],
                            runs[policy, paged, True][1],
@@ -1156,13 +1284,217 @@ def batch_phase(model, params):
                    eng_d._rots, "preempting pool")
     log(f"  preemption: {eng.n_preemptions} preemptions, every request "
         f"complete, no page left in use")
+    mono = {(p, paged): (*runs[p, paged, True], reports[p, paged, True])
+            for p in ("int4-srft", "bf16") for paged in (True, False)}
     for policy, backend, paged in (("int4-srft", "kernel", True),
                                    ("int4-srft", "kernel", False),
                                    ("bf16", None, True)):
         for graph in (False, True):
             log("batch decode profile " + json.dumps(profile_batch_decode(
                 model, params, policy, backend, paged, graph)))
+    return launches, mono, pre[True]
+
+
+# ------------------------------------------------------ chunked admission
+
+def chunked_phase(model, params, mono, pre_mono):
+    """Phase 8: the batch requests through chunked admission (graph on),
+    held to the monolithic runs of the same configuration (``mono``:
+    (policy, paged) -> (engine, completions, report)) and the preempting
+    pool to its monolithic run (``pre_mono``).  Returns launches per
+    kernel on the paged and dense int4 chunked runs."""
+    reqs = batch_requests(model.cfg.vocab_size)
+    small = [r for r in reqs if len(r.prompt) in (BATCH_PROMPTS[0],
+                                                  BATCH_PROMPTS[-1])]
+    chunk_bytes_report(model, params)
+    chunking = dict(prefill_chunk=PREFILL_CHUNK,
+                    prefill_budget=PREFILL_BUDGET)
+    launches, feel = {}, {}
+    for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
+        for paged in (True, False):
+            int4 = policy == "int4-srft"
+            if int4:
+                _zero_counters()
+            eng, got, rep = serve_batch(model, params, policy, backend,
+                                        paged, reqs, **chunking)
+            name = f"batch_chunked_{'paged' if paged else 'dense'}"
+            if int4:
+                launches[name] = _counters()
+            log("batch chunked " + json.dumps(rep))
+            eng_m, done_m, rep_m = mono[policy, paged]
+            what = f"{policy} {'paged' if paged else 'dense'}"
+            hits = eng.n_reuse_hits_device if paged else 0
+            reusers = [rid for rid, n in rep["reused"].items() if n]
+            for r in reqs:
+                if r.rid in reusers and int4:
+                    continue  # reads the dequantized prefix: see below
+                _tie_check(done_m[r.rid].tokens, got[r.rid].tokens,
+                           forced_logits(model, params, policy, backend,
+                                         r.prompt, done_m[r.rid].tokens,
+                                         eng_m._rots),
+                           f"{what} request {r.rid} chunked vs monolithic")
+            if paged:
+                assert hits == 1 and eng.n_reused_tokens == SHARED_PREFIX, \
+                    (hits, eng.n_reused_tokens)
+                assert reusers == [1], rep["reused"]
+            else:
+                assert eng.n_reused_tokens == 0 and not reusers
+            if int4:
+                dq = launches[name]["srft_dequant"]
+                assert dq == 2 * model.cfg.n_layers * hits, (dq, hits)
+                assert launches[name]["srft_quant"] > 0
+                read = ("quant_decode_attention_paged" if paged
+                        else "quant_decode_attention")
+                assert launches[name][read] > 0, launches[name]
+            if int4 and paged:
+                _, off, _ = serve_batch(model, params, policy, backend,
+                                        paged, reqs, prefix_reuse=False,
+                                        **chunking)
+                for rid in reusers:
+                    a, b = off[rid].tokens, got[rid].tokens
+                    n_eq = int((a == b).sum())
+                    lead = int((a != b).argmax()) if (a != b).any() \
+                        else len(a)
+                    log(f"[{CARD}] int4 reuse: request {rid} (its "
+                        f"{SHARED_PREFIX}-token prefix read through B4) "
+                        f"agrees with the no-reuse chunked run in "
+                        f"{n_eq}/{len(a)} tokens, the first {lead} in a "
+                        f"row (cache-consistent, not bit-exact)")
+            feel[policy, paged] = (rep_m, rep)
+            adm = eng.n_prefill_chunks
+            n_adm = len(reqs)
+            which = "but the int4 reuser" if int4 and paged else "request"
+            log(f"[{CARD}] {what}: chunked == monolithic for every {which} "
+                f"up to a near-tie; {adm} chunks for {n_adm} admissions "
+                f"({adm / n_adm:.2f} per admission); reused tokens "
+                f"{eng.n_reused_tokens}, hits {hits}, misses "
+                f"{eng.n_reuse_misses if paged else 'n/a (dense)'}")
+    for (policy, paged), (rm, rc) in feel.items():
+        am, ac = rm["admission"], rc["admission"]
+        log(f"[{CARD}] {policy} {'paged' if paged else 'dense'}: while the "
+            f"{BATCH_PROMPTS[-1]}-token request is admitted, the longest gap "
+            f"between two tokens of a live stream is "
+            f"{_ms(am['longest_live_gap_ms'])} monolithic vs "
+            f"{_ms(ac['longest_live_gap_ms'])} chunked "
+            f"({am['live_streams']} / {ac['live_streams']} live streams); "
+            f"its time to first token "
+            f"{am['ttft_ms']:.1f} ms vs {ac['ttft_ms']:.1f} ms (host clock)")
+
+    # the preempting pool, chunked (a budget that lets the long admission
+    # end while the short stream decodes: PREEMPT_BUDGET)
+    eng_d = mono["int4-srft", False][0]
+    eng, got, rep = serve_batch(model, params, "int4-srft", "kernel", True,
+                                small, capacity=2,
+                                n_pages=S_MAX // PAGE_SIZE + 1,
+                                prefill_chunk=PREFILL_CHUNK,
+                                prefill_budget=PREEMPT_BUDGET)
+    log("batch chunked " + json.dumps(rep))
+    assert eng.n_preemptions > 0, "the undersized pool did not preempt"
+    assert eng.n_reused_tokens == 0
+    for r in small:
+        _tie_check(pre_mono[r.rid].tokens, got[r.rid].tokens, forced_logits(
+            model, params, "int4-srft", "kernel", r.prompt,
+            pre_mono[r.rid].tokens, eng_d._rots),
+            f"preempting pool request {r.rid} chunked vs monolithic")
+    log(f"[{CARD}] preempting pool, chunked: {eng.n_preemptions} "
+        f"preemptions, streams equal the monolithic pool's up to a "
+        f"near-tie, no page left in use")
     return launches
+
+
+def chunk_bytes_report(model, params):
+    """Chunked (PREFILL_CHUNK) against monolithic prefill on the card, for
+    each distinct prompt length of the batch requests, int4 KERNEL's
+    cache, the same rotations: the code and scale bytes that differ, the
+    first layer whose raw K differs, whether the last logits are equal,
+    and layer 0's K and FFN-down products at the chunks' row counts (the
+    last chunk's included) against the same rows of the whole prompt's
+    (which operation differs); the host ms of each chunk (synchronized)
+    against the monolithic prefill, at the longest prompt."""
+    seen = set()
+    for r in batch_requests(model.cfg.vocab_size):
+        if len(r.prompt) not in seen:
+            seen.add(len(r.prompt))
+            times = _chunk_bytes_one(model, params, r.prompt)
+    t_m, t_c = times
+    t_c_sorted = sorted(t_c)
+    log(f"[{CARD}] prefill host ms (synchronized) of the {max(seen)}-token "
+        f"prompt: monolithic {t_m[0]:.1f}; chunks of {PREFILL_CHUNK}: median "
+        f"{t_c_sorted[len(t_c) // 2]:.1f}, min {t_c_sorted[0]:.1f}, max "
+        f"{t_c_sorted[-1]:.1f}, sum {sum(t_c):.1f} over {len(t_c)} chunks")
+
+
+def _chunk_bytes_one(model, params, tokens):
+    from repro_torch.models import common
+
+    cfg = model.cfg
+    prompt = torch.as_tensor(tokens, device=DEV).long()[None]
+    n = prompt.shape[1]
+    runs = {}
+    for name, C in (("monolithic", n), ("chunked", PREFILL_CHUNK)):
+        row = model.init_cache(1, S_MAX, policy="int4-srft", ragged=True)
+        raw = [torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, n, cfg.head_dim),
+                           dtype=torch.bfloat16, device=DEV) for _ in "kv"]
+        times = []
+        for lo in range(0, n, C):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, row, *raw = model.prefill_chunk(
+                params, prompt[:, lo:lo + C], row, *raw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        runs[name] = (row, raw, times, logits)
+    mono = model.init_cache(1, S_MAX, policy="int4-srft", ragged=True)
+    mono_logits, _ = model.prefill(params, prompt, mono)
+    (row_m, raw_m, t_m, lg_m), (row_c, raw_c, t_c, lg_c) = (
+        runs["monolithic"], runs["chunked"])
+    plen = n - n % 16
+    diff = dict.fromkeys(("k_packed", "v_packed", "k_scales", "v_scales"), 0)
+    total = dict.fromkeys(diff, 0)
+    one_chunk_is_prefill = torch.equal(lg_m, mono_logits)
+    for st_m, st_c, st_p in zip(row_m["attn"], row_c["attn"], mono["attn"]):
+        for f in diff:
+            a = getattr(st_m.data.kv, f)[:, :, :plen]
+            diff[f] += int((a != getattr(st_c.data.kv, f)[:, :, :plen]).sum())
+            total[f] += a.numel()
+            one_chunk_is_prefill &= bool(torch.equal(
+                a, getattr(st_p.data.kv, f)[:, :, :plen]))
+    raw_diff = [int((raw_m[0][i] != raw_c[0][i]).sum())
+                for i in range(cfg.n_layers)]
+    first = next((i for i, d in enumerate(raw_diff) if d), None)
+    # layer 0's products at the chunks' row counts against the same rows
+    # at M = n: the K projection on the layer's real input, the FFN's down
+    # projection on a random input of its shape
+    p0 = params["blocks"][0]
+    x = common.rmsnorm(p0["ln_attn"], model._embed(params, prompt),
+                       eps=cfg.norm_eps)
+    h = torch.randn((1, n, cfg.d_ff), generator=torch.Generator(
+        device=DEV).manual_seed(SEED), device=DEV).to(torch.bfloat16)
+    gemm_diff = {}
+    for name, w, inp in (("K projection", p0["attn"]["wk"], x),
+                         ("FFN down projection", p0["ffn"]["w_down"], h)):
+        whole = common.dense(w, inp)
+        parts = torch.cat([common.dense(w, inp[:, lo:lo + PREFILL_CHUNK])
+                           for lo in range(0, n, PREFILL_CHUNK)], dim=1)
+        gemm_diff[name] = f"{int((whole != parts).sum())} of {whole.numel()}"
+    lg_diff = (lg_c - lg_m).abs().max().item()
+    log(f"[{CARD}] chunked ({PREFILL_CHUNK}, last chunk {n % PREFILL_CHUNK} "
+        f"tokens) vs monolithic prefill of a {n}-token prompt, int4 cache "
+        f"over {cfg.n_layers} layers: codes differ in {diff['k_packed']} of "
+        f"{total['k_packed']} K bytes and {diff['v_packed']} of "
+        f"{total['v_packed']} V bytes, scales in {diff['k_scales']} + "
+        f"{diff['v_scales']} of {total['k_scales']} + {total['v_scales']}; "
+        f"raw K first differs in layer {first} (elements differing by "
+        f"layer: {raw_diff}); last logits max diff {lg_diff:.3e}; layer 0's "
+        f"products at the chunks' row counts vs the same rows at M = {n}, "
+        f"elements differing: {gemm_diff}; one {n}-token chunk == "
+        f"LM.prefill (bytes and logits): {one_chunk_is_prefill}")
+    assert one_chunk_is_prefill, "a one-chunk prefill_chunk != LM.prefill"
+    return t_m, t_c
+
+
+def _ms(x) -> str:
+    return "n/a" if x is None else f"{x:.1f} ms"
 
 
 # ---------------------------------------------------------------- quality
@@ -1252,10 +1584,11 @@ def _leaves(tree):
 
 
 def main() -> int:
+    global CARD
     require_card()
     os.environ["REPRO_BF16_DOTS"] = "1"  # read when repro_torch.models loads
     sys.path.insert(0, str(ROOT / "src"))
-    card = card_line()
+    card = CARD = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1285,6 +1618,7 @@ def main() -> int:
     for k, label in zip(kernels, ("B3", "B1", "B2", None)):
         k["sm_mhz"] = mhz[label] if label else [
             mhz[f"B4 round {i}"] for i in range(B4_ROUNDS)]
+    kernels[-1]["raw_view"]["sm_mhz"] = mhz["B4 raw view"]
     small_reference_phase()
     from repro_torch.models import common
 
@@ -1296,11 +1630,14 @@ def main() -> int:
     log(f"quality phase {time.perf_counter() - t0:.1f}s")
     launches, model, params = main_path_phase()
     t0 = time.perf_counter()
-    batch = batch_phase(model, params)
+    batch, mono, pre_mono = batch_phase(model, params)
     log(f"batch phase {time.perf_counter() - t0:.1f}s")
-    by_path = {"engine": launches, **batch, "quality": quality}
+    t0 = time.perf_counter()
+    chunked = chunked_phase(model, params, mono, pre_mono)
+    log(f"chunked phase {time.perf_counter() - t0:.1f}s")
+    by_path = {"engine": launches, **batch, **chunked, "quality": quality}
     own_path = {"quant_decode_attention_paged": "batch_paged",
-                "srft_dequant": "quality"}
+                "srft_dequant": "batch_chunked_paged"}
     for k in kernels:
         k["launches_by_path"] = {p: c.get(k["name"], 0)
                                  for p, c in by_path.items()}

@@ -2,7 +2,7 @@
 ``repro/core/cache_api.py``: ``AttendBackend``, ``CacheState``, the
 registry, ``policy_from_config``, ``BF16Policy`` (:564-736) and
 ``Int4SRFTPolicy`` (:763-1100); the dense, ragged and paged lifecycles of
-monolithic admission and decode).
+admission, chunked prefill with token-level prefix reuse, and decode).
 
     pol   = get_policy("int4-srft", group=32, window=16)
     state = pol.init_state(B, Hkv, S_max, d, generator=g, device=dev)
@@ -15,17 +15,27 @@ Continuous batching: ``init_state(..., ragged=True)`` gives per-row
 ``insert_row`` copies a prefilled batch-1 row into a slot; ``reset_rows``
 retires slots), and ``init_paged(..., n_pages, page_size)`` a paged pool
 (``core/paged.py``) filled by ``insert_row_paged``.  The int4 KERNEL read
-of a paged state is kernel B2; GATHER reads the gathered per-row view.
+of a paged state is kernel B2; GATHER and BLOCKWISE read the gathered
+per-row view.
+
+Chunked prefill: ``prefill_chunk`` appends a prompt chunk at each row's
+length (ragged or paged; W-aligned boundaries give a monolithic
+prefill's bytes); ``adopt_prefix`` seeds a batch-1 row from a donor's
+resident pages; ``raw_kv_view`` reads a row back in raw space (bf16: its
+bytes; int4: dequantize + inverse rotation, kernel B4).
 
 The model code never branches on the scheme: a ``CacheState`` carries its
-policy.  ``attend`` raises for a backend a policy does not implement; it
-never switches paths silently.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+policy.  ``attend`` raises for a backend a policy does not implement; the
+one switch it makes is the reference's: an int4 KERNEL read with a
+``sliding_window``, which B1/B2 do not implement, is served by BLOCKWISE
+after a one-time warning.  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -36,9 +46,12 @@ from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
 from repro_torch.core.paged import PagedData
 from repro_torch.core.quant_attention_ref import (
     decode_attention_bf16,
+    decode_attention_bf16_blockwise,
     decode_attention_quant,
+    decode_attention_quant_blockwise,
 )
 from repro_torch.core.transforms import Rotation, make_rotation
+from repro_torch.kernels.srft_quant.ops import dequantize_rotate
 
 __all__ = [
     "AttendBackend",
@@ -56,7 +69,8 @@ class AttendBackend(enum.Enum):
     """Decode read path."""
 
     GATHER = "gather"  # one-shot dequant, plain PyTorch
-    KERNEL = "kernel"  # kernel B1 (plain version on CPU tensors)
+    BLOCKWISE = "blockwise"  # flash-decode tiles, plain PyTorch
+    KERNEL = "kernel"  # kernel B1 / B2 (plain versions on CPU tensors)
 
     @classmethod
     def parse(cls, value: "AttendBackend | str | None") -> "AttendBackend":
@@ -176,6 +190,18 @@ def _check_active(state, active) -> None:
                          "(init_state(..., ragged=True))")
 
 
+def _refuse_scalar_chunk(state) -> None:
+    if not state.is_ragged:
+        raise ValueError("chunked prefill is a ragged/paged lifecycle "
+                         "(init_state(..., ragged=True))")
+
+
+def _seed_leaf(buf: torch.Tensor, tiles: torch.Tensor) -> None:
+    """Positions [0, n) of a dense batch-1 leaf take a ``read_pages``
+    view (1, H, n, c), in place."""
+    buf[:, :, :tiles.shape[2]] = tiles.to(buf.dtype)
+
+
 def _refuse_paged_prefill(state) -> None:
     if state.is_paged:
         raise NotImplementedError(
@@ -191,17 +217,11 @@ class _LaterSlices:
         raise NotImplementedError(
             f"{self.name}.{what} is not ported yet (ROADMAP {item})")
 
-    def adopt_prefix(self, *a, **k):
-        self._later("adopt_prefix", "A4: token-level prefix reuse")
-
     def export_pages(self, *a, **k):
         self._later("export_pages", "A6: the host prefix tier")
 
     def import_pages(self, *a, **k):
         self._later("import_pages", "A6: the host prefix tier")
-
-    def raw_kv_view(self, *a, **k):
-        self._later("raw_kv_view", "A4: chunked prefill")
 
     def snapshot_rows(self, *a, **k):
         self._later("snapshot_rows", "A5: speculative decoding")
@@ -211,9 +231,6 @@ class _LaterSlices:
 
     def truncate_rows(self, *a, **k):
         self._later("truncate_rows", "A5: speculative decoding")
-
-    def prefill_chunk(self, *a, **k):
-        self._later("prefill_chunk", "A4: chunked prefill")
 
 
 def _unsupported(policy, backend: AttendBackend):
@@ -229,7 +246,7 @@ def _unsupported(policy, backend: AttendBackend):
 class BF16Policy(_LaterSlices):
     """Uncompressed bf16 cache (the paper's fp16 DynamicCache analogue)."""
 
-    supported_backends = (AttendBackend.GATHER,)
+    supported_backends = (AttendBackend.GATHER, AttendBackend.BLOCKWISE)
 
     def init_state(self, batch, n_kv_heads, s_max, head_dim, *,
                    generator: Optional[torch.Generator] = None,
@@ -264,6 +281,32 @@ class BF16Policy(_LaterSlices):
             kvcache.bf16_decode_update(state.data, k, v)
         return state
 
+    def prefill_chunk(self, state, k, v):
+        """Append a prompt chunk (B, Hkv, C, d) at each row's length."""
+        if state.is_paged:
+            paged.append_chunk(state.data, (k, v))
+        else:
+            _refuse_scalar_chunk(state)
+            kvcache.bf16_prefill_chunk_ragged(state.data, k, v)
+        return state
+
+    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from the donor pages
+        ``pages`` of ``paged_state`` and set its length to ``n_tokens``;
+        positions past them hold garbage that chunks overwrite."""
+        d = row.data
+        for buf, tiles in zip((d.k, d.v),
+                              paged.read_pages(paged_state.data, pages)):
+            _seed_leaf(buf, tiles)
+        d.length = kvcache.all_rows_at(d.length, n_tokens)
+        return row
+
+    def raw_kv_view(self, state, n_tokens: Optional[int] = None):
+        """Raw-space (B, Hkv, n, d) K/V of a dense state's first
+        ``n_tokens`` positions (all by default): its bytes."""
+        n = state.s_max if n_tokens is None else n_tokens
+        return state.data.k[:, :, :n], state.data.v[:, :, :n]
+
     def insert_row(self, state, row, slot):
         """Copy a prefilled batch-1 ragged row into ``slot`` (in place)."""
         if state.is_paged:
@@ -292,12 +335,16 @@ class BF16Policy(_LaterSlices):
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
                sliding_window=None):
         backend = AttendBackend.parse(backend)
-        if backend is not AttendBackend.GATHER:
+        if backend not in self.supported_backends:
             _unsupported(self, backend)
         data = state.data
         if state.is_paged:
             k, v = paged.gather_view(data)
             data = BF16KVCache(k, v, data.length)
+        if backend is AttendBackend.BLOCKWISE:
+            return decode_attention_bf16_blockwise(
+                q, data, scale=scale, sliding_window=sliding_window,
+                kv_block=kv_block)
         return decode_attention_bf16(q, data, scale=scale,
                                      sliding_window=sliding_window)
 
@@ -312,6 +359,22 @@ class BF16Policy(_LaterSlices):
 
     def compression_ratio(self, state) -> float:
         return 1.0
+
+
+_KERNEL_SLIDING_WINDOW_WARNED = False
+
+
+def _warn_kernel_sliding_window() -> None:
+    """Once per process, as the reference (``cache_api.py:968-977``): a
+    request must not die of a backend/feature mismatch, so the read goes
+    to BLOCKWISE, the kernel's tiling in plain PyTorch."""
+    global _KERNEL_SLIDING_WINDOW_WARNED
+    if not _KERNEL_SLIDING_WINDOW_WARNED:
+        _KERNEL_SLIDING_WINDOW_WARNED = True
+        warnings.warn(
+            "int4-srft: the B1/B2 kernels do not implement sliding_window; "
+            "falling back to the BLOCKWISE read path for this and "
+            "subsequent windowed reads", RuntimeWarning, stacklevel=3)
 
 
 @dataclasses.dataclass
@@ -335,7 +398,8 @@ class Int4SRFTPolicy(_LaterSlices):
     residual window (paper §7.1-7.2).  Writes go through kernel B3; the
     KERNEL read through kernel B1, or B2 on a paged state."""
 
-    supported_backends = (AttendBackend.GATHER, AttendBackend.KERNEL)
+    supported_backends = (AttendBackend.GATHER, AttendBackend.BLOCKWISE,
+                          AttendBackend.KERNEL)
 
     group: int = 32
     window: int = 16
@@ -403,6 +467,51 @@ class Int4SRFTPolicy(_LaterSlices):
             kvcache.decode_update(d.kv, d.rot_k, d.rot_v, k, v)
         return state
 
+    def prefill_chunk(self, state, k, v):
+        """Append a prompt chunk (B, Hkv, C, d) at each row's length: the
+        W-aligned bulk through B3, a final chunk's tail into the ring."""
+        d = state.data
+        if state.is_paged:
+            paged.int4_prefill_chunk_paged(d.kv, d.rot_k, d.rot_v, k, v)
+        else:
+            _refuse_scalar_chunk(state)
+            kvcache.prefill_chunk_ragged(d.kv, d.rot_k, d.rot_v, k, v)
+        return state
+
+    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from donor pages.
+        ``n_tokens`` must be W-aligned (the engine's contract): every
+        adopted byte then comes from packed storage and the residual ring
+        keeps its zeros, the state a monolithic prefill of those tokens
+        leaves at a flush boundary."""
+        kv = row.data.kv
+        leaves = (kv.k_packed, kv.k_scales, kv.v_packed, kv.v_scales)
+        for buf, tiles in zip(leaves,
+                              paged.read_pages(paged_state.data.kv, pages)):
+            _seed_leaf(buf, tiles)
+        kv.length = kvcache.all_rows_at(kv.length, n_tokens)
+        return row
+
+    def raw_kv_view(self, state, n_tokens: Optional[int] = None):
+        """Raw-space (B, Hkv, n, d) fp32 K/V of a dense state's first
+        ``n_tokens`` positions (all by default, valid below the packed
+        length): unpack, dequantize and inverse-rotate through kernel B4
+        with the folded inverse (its plain version on the CPU).  The
+        reference dequantizes and applies ``rot.inverse`` (lambda first),
+        so its fp32 sums run in another order: after the cast to bf16 an
+        element may differ by one ulp."""
+        if state.is_paged:
+            raise ValueError("raw_kv_view reads a dense state (a staging "
+                             "row), not a page pool")
+        d = state.data
+        kv = d.kv
+        n = kv.s_max if n_tokens is None else n_tokens
+        return tuple(
+            dequantize_rotate(p[:, :, :n], s[:, :, :n], rot,
+                              group=self.group)
+            for p, s, rot in ((kv.k_packed, kv.k_scales, d.rot_k),
+                              (kv.v_packed, kv.v_scales, d.rot_v)))
+
     def insert_row(self, state, row, slot):
         """Copy a prefilled batch-1 ragged row into ``slot`` (in place).
         The rotations are shared model constants and stay the batched
@@ -435,7 +544,7 @@ class Int4SRFTPolicy(_LaterSlices):
         return state
 
     def _dense_kv_view(self, pd: PagedData) -> QuantKVCache:
-        """Per-row dense view of a paged int4 state (the GATHER read)."""
+        """Per-row dense view of a paged int4 state (GATHER, BLOCKWISE)."""
         kp, ks, vp, vs = paged.gather_view(pd)
         return QuantKVCache(kp, ks, vp, vs, *pd.residual, pd.length)
 
@@ -443,12 +552,10 @@ class Int4SRFTPolicy(_LaterSlices):
                sliding_window=None):
         backend = AttendBackend.parse(backend)
         d = state.data
+        if backend is AttendBackend.KERNEL and sliding_window is not None:
+            _warn_kernel_sliding_window()
+            backend = AttendBackend.BLOCKWISE
         if backend is AttendBackend.KERNEL:
-            if sliding_window is not None:
-                raise NotImplementedError(
-                    "int4-srft: the B1/B2 kernels do not implement "
-                    "sliding_window; use AttendBackend.GATHER"
-                )
             from repro_torch.kernels.quant_attention import (
                 decode_attention_kernel,
                 decode_attention_kernel_paged,
@@ -459,9 +566,11 @@ class Int4SRFTPolicy(_LaterSlices):
                                                      d.rot_v, scale=scale)
             return decode_attention_kernel(q, d.kv, d.rot_k, d.rot_v,
                                            scale=scale, blk=kv_block)
-        if backend is not AttendBackend.GATHER:
-            _unsupported(self, backend)
         kv = self._dense_kv_view(d.kv) if state.is_paged else d.kv
+        if backend is AttendBackend.BLOCKWISE:
+            return decode_attention_quant_blockwise(
+                q, kv, d.rot_k, d.rot_v, scale=scale,
+                sliding_window=sliding_window, kv_block=kv_block)
         return decode_attention_quant(q, kv, d.rot_k, d.rot_v, scale=scale,
                                       sliding_window=sliding_window)
 

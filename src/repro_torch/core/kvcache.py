@@ -1,8 +1,9 @@
 """Quantized KV cache with residual window, dense path (port of
 ``repro/core/kvcache.py``: ``init_cache`` / ``init_bf16_cache`` with
 ``ragged`` (:106-142), ``prefill`` (:167-208), ``decode_update`` (:211),
-``decode_update_ragged`` (:272-330), ``packed_len`` (:474), the bf16
-updates (:502-542)).
+``decode_update_ragged`` (:272-330), ``prefill_chunk_ragged`` and
+``bf16_prefill_chunk_ragged`` (:333-415), ``packed_len`` (:474), the
+bf16 updates (:502-542)).
 
 Storage between decode steps: K/V rotated and lambda-rescaled, held as
 nibble-packed int4 codes + per-group fp32 scales, plus an fp32 residual
@@ -22,7 +23,8 @@ slab write stores it only where the window just filled, writing the
 current bytes back elsewhere -- the reference's semantics.  The
 prompt's bulk write and every W-flush go through kernel B3
 (``kernels.srft_quant``): that is the single-dispatch write the
-reference's docstring names for this path.
+reference's docstring names for this path, and so does each chunk of a
+chunked prefill.
 """
 from __future__ import annotations
 
@@ -42,7 +44,10 @@ __all__ = [
     "prefill",
     "decode_update",
     "decode_update_ragged",
+    "prefill_chunk_ragged",
+    "bf16_prefill_chunk_ragged",
     "packed_len",
+    "dequantize_rotated",
     "gather_rotated",
     "bf16_prefill",
     "bf16_decode_update",
@@ -131,7 +136,7 @@ def init_bf16_cache(batch: int, n_kv_heads: int, s_max: int, head_dim: int,
     )
 
 
-def _all_rows_at(length: Length, n: int) -> Length:
+def all_rows_at(length: Length, n: int) -> Length:
     """Every row at ``n`` tokens; a ragged length is filled in place."""
     return n if isinstance(length, int) else length.fill_(n)
 
@@ -159,7 +164,7 @@ def prefill(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
     if S - plen:
         cache.k_residual[:, :, :S - plen] = rot_k.forward(k[..., plen:, :])
         cache.v_residual[:, :, :S - plen] = rot_v.forward(v[..., plen:, :])
-    cache.length = _all_rows_at(cache.length, S)
+    cache.length = all_rows_at(cache.length, S)
     return cache
 
 
@@ -238,6 +243,47 @@ def decode_update_ragged(cache: QuantKVCache, rot_k: Rotation,
     return cache
 
 
+def chunk_write(buf: torch.Tensor, val: torch.Tensor, off: torch.Tensor
+                ) -> None:
+    """Row b writes its C tokens ``val[b]`` (H, C, c) at positions [off_b,
+    off_b + C) of ``buf`` (B, H, S, c), in place.  Like
+    ``dynamic_update_slice``, an offset is clamped so the span fits."""
+    C, S = val.shape[2], buf.shape[2]
+    pos = off.clamp(max=S - C)[:, None] + torch.arange(C, device=off.device)
+    buf[_rows(off)[:, None], :, pos] = val.transpose(1, 2).to(buf.dtype)
+
+
+def prefill_chunk_ragged(cache: QuantKVCache, rot_k: Rotation,
+                         rot_v: Rotation, k: torch.Tensor, v: torch.Tensor
+                         ) -> QuantKVCache:
+    """Append a C-token prompt chunk (B, Hkv, C, d) at each row's own
+    length, in place (chunked prefill).  Alignment contract (the batch
+    engine keeps it): every row's length is a multiple of W, and only an
+    admission's final chunk may have ``C % W != 0``.  Then the bytes are a
+    monolithic :func:`prefill`'s: the chunk's first ``(C // W) * W`` tokens
+    go through B3 into packed storage at [L_b, L_b + C // W * W), and a
+    final chunk's ``C % W`` tail lands in residual slots [0, C % W), where
+    the monolithic prefill puts it (quantization is per token, so a chunk
+    boundary moves no byte)."""
+    W, g = cache.window, cache.group
+    C = k.shape[-2]
+    L = cache.length
+    packed_c = (C // W) * W
+    if packed_c:
+        kp, ks = rotate_quantize(k[..., :packed_c, :], rot_k, group=g)
+        vp, vs = rotate_quantize(v[..., :packed_c, :], rot_v, group=g)
+        for buf, val in ((cache.k_packed, kp), (cache.k_scales, ks),
+                         (cache.v_packed, vp), (cache.v_scales, vs)):
+            chunk_write(buf, val, L)
+    if C - packed_c:
+        cache.k_residual[:, :, :C - packed_c] = rot_k.forward(
+            k[..., packed_c:, :])
+        cache.v_residual[:, :, :C - packed_c] = rot_v.forward(
+            v[..., packed_c:, :])
+    L.add_(C)
+    return cache
+
+
 def advance(length: torch.Tensor, active: "torch.Tensor | None"
             ) -> torch.Tensor:
     """Per-row lengths after one append: +1 where ``active`` (all rows
@@ -254,7 +300,7 @@ def packed_len(cache: QuantKVCache) -> Length:
     return cache.length - cache.length % cache.window
 
 
-def _dequantize_rotated(packed: torch.Tensor, scales: torch.Tensor,
+def dequantize_rotated(packed: torch.Tensor, scales: torch.Tensor,
                         group: int) -> torch.Tensor:
     q = quant.Quantized(packing.unpack_int4(packed), scales, 4)
     return quant.dequantize_per_group(q, group)
@@ -264,8 +310,8 @@ def gather_rotated(cache: QuantKVCache):
     """Dequantize to rotated space: ((B,H,S_max,d) k, v, packed_len).
     Values past ``packed_len`` are garbage and must be masked."""
     g = cache.group
-    return (_dequantize_rotated(cache.k_packed, cache.k_scales, g),
-            _dequantize_rotated(cache.v_packed, cache.v_scales, g),
+    return (dequantize_rotated(cache.k_packed, cache.k_scales, g),
+            dequantize_rotated(cache.v_packed, cache.v_scales, g),
             packed_len(cache))
 
 
@@ -275,7 +321,18 @@ def bf16_prefill(cache: BF16KVCache, k: torch.Tensor, v: torch.Tensor
     _check_room(cache, S)
     cache.k[:, :, :S] = k
     cache.v[:, :, :S] = v
-    cache.length = _all_rows_at(cache.length, S)
+    cache.length = all_rows_at(cache.length, S)
+    return cache
+
+
+def bf16_prefill_chunk_ragged(cache: BF16KVCache, k: torch.Tensor,
+                              v: torch.Tensor) -> BF16KVCache:
+    """Append a C-token prompt chunk at each row's own length, in place:
+    the ragged append widened from one token to C, so a chain of chunks
+    holds a monolithic :func:`bf16_prefill`'s bytes."""
+    chunk_write(cache.k, k, cache.length)
+    chunk_write(cache.v, v, cache.length)
+    cache.length.add_(k.shape[-2])
     return cache
 
 

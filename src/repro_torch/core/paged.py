@@ -1,10 +1,11 @@
 """Paged KV-cache pool: block allocator, page tables, copy-on-write prefix
 sharing (port of ``repro/core/paged.py``: ``NULL_PAGE`` (:77), the
 allocator (:84-157), ``PagedData`` / ``init_paged`` (:164-227),
-``gather_view`` / ``pages_to_dense`` (:234-283), ``_tail_page`` /
-``append_token`` / ``write_slab`` (:290-338), ``insert_row`` (:378-424),
-``reset_rows`` (:454-464), ``int4_update_paged`` (:471-504) and
-``meta_nbytes`` (:547); what monolithic admission and decode need).
+``gather_view`` / ``read_pages`` / ``pages_to_dense`` (:234-283),
+``_tail_page`` / ``append_token`` / ``write_slab`` / ``write_chunk`` /
+``append_chunk`` (:290-373), ``insert_row`` (:378-424), ``reset_rows``
+(:454-464), ``int4_update_paged`` (:471-504), ``int4_prefill_chunk_paged``
+(:507-540) and ``meta_nbytes`` (:547)).
 
 K/V live in pools of ``(n_pages, H, page_size, c)`` blocks on the device;
 row b maps its tokens ``[j*page_size, (j+1)*page_size)`` to physical
@@ -40,7 +41,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import kvcache
-from repro_torch.kernels.srft_quant.ops import quantize_rotated
+from repro_torch.kernels.srft_quant.ops import quantize_rotated, rotate_quantize
 
 __all__ = [
     "NULL_PAGE",
@@ -54,12 +55,16 @@ __all__ = [
     "pool_free",
     "init_paged",
     "gather_view",
+    "read_pages",
     "pages_to_dense",
     "append_token",
     "write_slab",
+    "write_chunk",
+    "append_chunk",
     "insert_row",
     "reset_rows",
     "int4_update_paged",
+    "int4_prefill_chunk_paged",
     "meta_nbytes",
 ]
 
@@ -221,6 +226,15 @@ def gather_view(pd: PagedData) -> tuple:
     return tuple(g(p) for p in pd.pools)
 
 
+def read_pages(pd: PagedData, pages) -> tuple:
+    """Dense ``(1, H, len(pages) * page_size, c_i)`` copies of the named
+    pages, one per pool leaf: the donor-side read of token-level prefix
+    reuse.  Null entries read the scratch page (garbage the caller
+    overwrites).  A copy: it never aliases pool storage."""
+    idx = torch.as_tensor(pages, dtype=torch.long).to(pd.pools[0].device)
+    return tuple(pages_to_dense(p[idx]) for p in pd.pools)
+
+
 def pages_to_dense(tiles: torch.Tensor) -> torch.Tensor:
     """``(NP, H, page_size, c)`` page tiles -> a dense batch-1
     ``(1, H, NP*page_size, c)`` leaf."""
@@ -272,6 +286,31 @@ def write_slab(pd: PagedData, slabs: tuple, starts: torch.Tensor,
         cur = leaf[pidx, :, off, :]  # (B, W, H, c)
         leaf[pidx, :, off, :] = torch.where(
             do[:, None, None, None], slab.transpose(1, 2).to(leaf.dtype), cur)
+    return pd
+
+
+def write_chunk(pd: PagedData, vals: tuple, starts: torch.Tensor
+                ) -> PagedData:
+    """Row b writes C tokens (``vals``: ``(B, H, C, c_i)`` per leaf) at
+    absolute positions [starts_b, starts_b + C), in place; the span may
+    cross pages, and each token finds its own page through the table (the
+    routing of :func:`append_token`, widened to C).  The caller maps the
+    pages first; unmapped entries route to the null page."""
+    C, ps = vals[0].shape[2], pd.page_size
+    pos = starts.long()[:, None] + torch.arange(C, device=starts.device)
+    page = pd.page_table.gather(
+        1, (pos // ps).clamp(max=pd.max_pages - 1)).long()
+    off = pos % ps
+    for p, v in zip(pd.pools, vals):
+        p[page, :, off, :] = v.transpose(1, 2).to(p.dtype)
+    return pd
+
+
+def append_chunk(pd: PagedData, vals: tuple) -> PagedData:
+    """Chunked prefill on a paged state: row b writes C tokens at [L_b,
+    L_b + C) of its mapped pages and its length advances by C."""
+    write_chunk(pd, vals, pd.length)
+    pd.length.add_(vals[0].shape[2])
     return pd
 
 
@@ -352,6 +391,29 @@ def int4_update_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
     vp, vs = quantize_rotated(v_res, group=g)
     write_slab(pd, (kp, ks, vp, vs), (L + 1 - W).clamp(min=0), idx == W - 1)
     L.copy_(kvcache.advance(L, active))
+    return pd
+
+
+def int4_prefill_chunk_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
+                             v: torch.Tensor) -> PagedData:
+    """Paged mirror of ``kvcache.prefill_chunk_ragged``: the chunk's
+    W-aligned bulk (kernel B3) goes into the row's mapped pages through
+    :func:`write_chunk` (``page_size % W == 0`` keeps every W-slab inside
+    one page), and a final chunk's tail into the per-row residual ring at
+    slots [0, C mod W).  The same alignment contract as the dense path."""
+    k_res, v_res = pd.residual
+    W = k_res.shape[-2]
+    g = k_res.shape[-1] // pd.pools[1].shape[-1]
+    C = k.shape[-2]
+    packed_c = (C // W) * W
+    if packed_c:
+        kp, ks = rotate_quantize(k[..., :packed_c, :], rot_k, group=g)
+        vp, vs = rotate_quantize(v[..., :packed_c, :], rot_v, group=g)
+        write_chunk(pd, (kp, ks, vp, vs), pd.length)
+    if C - packed_c:
+        k_res[:, :, :C - packed_c] = rot_k.forward(k[..., packed_c:, :])
+        v_res[:, :, :C - packed_c] = rot_v.forward(v[..., packed_c:, :])
+    pd.length.add_(C)
     return pd
 
 

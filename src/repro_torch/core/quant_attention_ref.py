@@ -1,8 +1,10 @@
 """Plain attention reads over the KV caches (port of
 ``repro/core/quant_attention_ref.py``: ``_per_row`` (:43-51),
 ``decode_attention_quant`` (:54-130) and ``decode_attention_bf16``
-(:232-269)), the GATHER backend.  Lengths are a shared int or, for a
-ragged cache, per-row ``(B,)``: every mask is then per row.
+(:232-269), the GATHER backend; ``decode_attention_quant_blockwise``
+(:133-229) and ``decode_attention_bf16_blockwise`` (:272-319), the
+BLOCKWISE backend).  Lengths are a shared int or, for a ragged cache,
+per-row ``(B,)``: every mask is then per row.
 
 Rotated-space read of the int4 cache:
 
@@ -15,6 +17,13 @@ combined, never concatenated -- the reference's order of operations.
 A row of length 0 (a retired slot riding in the batch) gives a finite
 output: the -1e30 sentinel and the 1e-30 floor here, zero weights in the
 bf16 read.
+
+BLOCKWISE is the flash-decode tiling of the B1 kernel in plain PyTorch:
+``ceil(s_max / kv_block)`` tiles, always all of them (the reference's
+``lax.scan``, with no exit that depends on the data, so a captured decode
+step replays it), the last tile's start clamped to ``s_max - kv_block``
+and the rows an earlier tile covered masked.  It never materializes the
+whole dequantized prefix or an ``s_max``-long logits row.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ from repro_torch.core import kvcache
 from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
 from repro_torch.core.transforms import Rotation
 
-__all__ = ["decode_attention_quant", "decode_attention_bf16"]
+__all__ = ["decode_attention_quant", "decode_attention_quant_blockwise",
+           "decode_attention_bf16", "decode_attention_bf16_blockwise"]
 
 NEG = -1e30
 
@@ -79,6 +89,77 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
 
 
+def _tiles(s_max: int, kv_block: int):
+    """(tile index, clamped start, tile length) of the flash-decode tiles."""
+    blk = min(kv_block, s_max)
+    for j in range(-(-s_max // blk)):
+        yield j, min(j * blk, s_max - blk), blk
+
+
+def _online_step(state, logits, vals, mask):
+    """One online-softmax step: fold a tile's masked logits (B, Hkv, G, 1,
+    n) and values (B, Hkv, n, d) into (m, l, acc)."""
+    m, l, acc = state
+    logits = torch.where(mask, logits, NEG)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    return (m_new, l * corr + p.sum(dim=-1),
+            acc * corr[..., None] + torch.einsum("bhgqs,bhsd->bhgqd", p,
+                                                 vals))
+
+
+def _online_init(B, Hkv, G, d, device):
+    return (torch.full((B, Hkv, G, 1), NEG, device=device),
+            torch.zeros((B, Hkv, G, 1), device=device),
+            torch.zeros((B, Hkv, G, 1, d), device=device))
+
+
+def decode_attention_quant_blockwise(q: torch.Tensor, cache: QuantKVCache,
+                                     rot_k: Rotation, rot_v: Rotation, *,
+                                     scale: Optional[float] = None,
+                                     sliding_window: Optional[int] = None,
+                                     kv_block: int = 512) -> torch.Tensor:
+    """Flash-decode over the packed cache, dequantizing tile by tile, then
+    the fp32 residual window as one more tile: q (B, Hq, 1, d) -> (B, Hq,
+    1, d) in the original basis."""
+    B, Hq, _, d = q.shape
+    Hkv = cache.k_packed.shape[1]
+    G = Hq // Hkv
+    g, W = cache.group, cache.window
+    sm = scale if scale is not None else d ** -0.5
+    dev = q.device
+    plen = _per_row(kvcache.packed_len(cache), 5)
+    length = _per_row(cache.length, 5)
+    qg = (q.float() @ rot_k.folded_query_matrix().T).reshape(
+        B, Hkv, G, 1, d) * sm
+
+    state = _online_init(B, Hkv, G, d, dev)
+    for j, start, blk in _tiles(cache.s_max, kv_block):
+        tile = slice(start, start + blk)
+        kj = kvcache.dequantize_rotated(cache.k_packed[:, :, tile],
+                                        cache.k_scales[:, :, tile], g)
+        vj = kvcache.dequantize_rotated(cache.v_packed[:, :, tile],
+                                        cache.v_scales[:, :, tile], g)
+        kv_pos = start + torch.arange(blk, device=dev)
+        mask = (kv_pos < plen) & (kv_pos >= j * blk)
+        if sliding_window is not None:
+            mask = mask & (kv_pos > length - 1 - sliding_window)
+        state = _online_step(state, torch.einsum("bhgqd,bhsd->bhgqs", qg, kj),
+                             vj, mask)
+
+    # the residual window: token i sits at plen + i
+    pos_r = plen + torch.arange(W, device=dev)
+    mask = pos_r < length
+    if sliding_window is not None:
+        mask = mask & (pos_r > length - 1 - sliding_window)
+    _, l, acc = _online_step(
+        state, torch.einsum("bhgqd,bhsd->bhgqs", qg, cache.k_residual),
+        cache.v_residual, mask)
+    out_rot = acc / l.clamp_min(1e-30)[..., None]
+    return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+
+
 def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
                           scale: Optional[float] = None,
                           sliding_window: Optional[int] = None
@@ -102,4 +183,43 @@ def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
     e = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, Hq, 1, d)
+    return out.to(q.dtype)
+
+
+def decode_attention_bf16_blockwise(q: torch.Tensor, cache: BF16KVCache, *,
+                                    scale: Optional[float] = None,
+                                    sliding_window: Optional[int] = None,
+                                    kv_block: int = 512) -> torch.Tensor:
+    """The bf16 read under the int4 read's tiling (BLOCKWISE), so that a
+    backend sweep measures both policies the same way.  A masked position
+    weighs exactly zero: a row of length 0 yields a zero output, as the
+    GATHER read's empty-row guard does, where the reference's tiles give
+    the mean of the masked values; every row with a valid position gets
+    the reference's result (a masked weight there is exp(-1e30 - m) = 0,
+    or is scaled away by the next valid tile's zero correction)."""
+    B, Hq, _, d = q.shape
+    Hkv = cache.k.shape[1]
+    G = Hq // Hkv
+    sm = scale if scale is not None else d ** -0.5
+    dev = q.device
+    length = _per_row(cache.length, 5)
+    qg = q.float().reshape(B, Hkv, G, 1, d) * sm
+
+    m, l, acc = _online_init(B, Hkv, G, d, dev)
+    for j, start, blk in _tiles(cache.s_max, kv_block):
+        kj = cache.k[:, :, start:start + blk].float()
+        vj = cache.v[:, :, start:start + blk].float()
+        kv_pos = start + torch.arange(blk, device=dev)
+        mask = (kv_pos < length) & (kv_pos >= j * blk)
+        if sliding_window is not None:
+            mask = mask & (kv_pos > length - 1 - sliding_window)
+        logits = torch.where(
+            mask, torch.einsum("bhgqd,bhsd->bhgqs", qg, kj), NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqs,bhsd->bhgqd", p, vj)
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(B, Hq, 1, d)
     return out.to(q.dtype)

@@ -1,10 +1,12 @@
 """Continuous batching: ragged multi-request serving over a slot cache
 (port of ``repro/launch/batch_engine.py``: ``Request``, ``Completion``
-and ``BatchEngine`` with monolithic admission (:1129-1236, :1497-1528),
-the paged page plan with its page-aligned copy-on-write prefix index
-(:687-770), slot release (:772-824, without the host-tier spill), LRU
-recompute preemption (:826-878, :1409-1457) and the decode chunk
-(:945-977, :1705-1777)).
+and ``BatchEngine`` with monolithic admission (:1129-1236, :1497-1528)
+and chunked admission with token-level prefix reuse (:138-160, :258-290,
+:564-600, :1252-1300, :1303-1400 without the host tier, :1635-1688), the
+paged page plan with its page-aligned copy-on-write prefix index and
+token-level donor index (:687-770), slot release (:772-824, without the
+host-tier spill), LRU recompute preemption (:826-878, :1409-1457) and the
+decode chunk (:945-977, :1705-1777)).
 
 ``BatchEngine`` keeps a fixed-capacity slot cache (one ragged
 ``CacheState`` per layer: per-row lengths) and a host-side scheduler:
@@ -28,6 +30,27 @@ recompute preemption (:826-878, :1409-1457) and the decode chunk
   * **retire**: finished slots get ``policy.reset_rows`` and return to
     the free list.
 
+Chunked admission (``prefill_chunk=C``) makes admission a pending state:
+each scheduler quantum spends at most ``prefill_budget`` prompt tokens,
+in C-token chunks through ``model.prefill_chunk`` on a batch-1 staging
+row, and then runs the decode chunk as usual, so live streams advance
+every quantum while a long prompt is admitted.  Chunk boundaries are
+W-aligned (and page-aligned when paged), so each policy's
+``prefill_chunk`` writes a monolithic prefill's bytes, and the chunk's
+queries attend raw bf16 side buffers: chunked and monolithic admission
+give the same tokens.  Paged chunked admissions also reuse prefixes at
+token level: the engine keeps resident prompts' tokens beside their
+pages, finds the longest shared prefix (aligned down to W, at least one
+page, at most the prompt less one token), seeds the staging row from the
+donor's pages (``policy.adopt_prefix``) and its raw buffers from
+``policy.raw_kv_view`` (for int4 kernel B4: dequantize + inverse
+rotation), and chunks only the rest.  bf16 reuse is bit-exact; int4 reuse
+reads the dequantized prefix, the bytes every decode step reads
+(cache-consistent, not bit-exact).  A preemption continuation never
+reuses.  The staging row and raw buffers live outside the captured
+decode step, and admission leaves every slot-cache buffer at its
+address.
+
 Paged mode (``paged=True``) swaps the dense slot stripes for a page pool
 (``core/paged.py``): admission allocates only the pages a request needs,
 requests whose prompts share a page-aligned prefix map the same physical
@@ -40,14 +63,13 @@ The allocator lives on the host, so the scheduler reads its page counts
 and tables without a device readback.
 
 Sampling is greedy, or by temperature from the explicit ``generator``.
-Not in this slice, each raising if asked for: chunked prefill
-(``prefill_chunk`` / ``prefill_budget``) and token-level reuse, packed
-admission (``admit_packed``), speculative decoding (``spec_k``), the host
-prefix tier (``offload_bytes``), tracing (``trace``) and meshes
-(``mesh``).
+Not in this slice, each raising if asked for: packed admission
+(``admit_packed``), speculative decoding (``spec_k``), the host prefix
+tier (``offload_bytes``), tracing (``trace``) and meshes (``mesh``).
 
     eng = BatchEngine(model, params, capacity=4, s_max=4608,
-                      policy="int4-srft", backend="kernel", paged=True)
+                      policy="int4-srft", backend="kernel", paged=True,
+                      prefill_chunk=256)  # None: monolithic admission
     for c in eng.run([Request(rid=0, prompt=toks, max_new_tokens=64)]):
         ...  # Completion(rid, prompt_len, tokens, finish_reason)
 """
@@ -90,9 +112,25 @@ class Completion:
     finish_reason: str  # "length" | "eos" | "cancelled"
 
 
+@dataclasses.dataclass
+class _PendingAdmission:
+    """One in-flight chunked admission: the batch-1 staging ``row``, the
+    raw bf16 K/V side buffers its chunks attend ((n_layers, 1, Hkv,
+    n_total, hd)), the prompt tokens already in the row (``n_done``,
+    reused ones included) and the last chunk's logits."""
+
+    req: Request
+    slot: int
+    row: Any
+    raw_k: torch.Tensor
+    raw_v: torch.Tensor
+    n_done: int
+    n_total: int
+    logits: Any = None
+    reused_tokens: int = 0
+
+
 _LATER = {
-    "prefill_chunk": "ROADMAP A4: chunked prefill",
-    "prefill_budget": "ROADMAP A4: chunked prefill",
     "spec_k": "ROADMAP A5: speculative decoding",
     "offload_bytes": "ROADMAP A6: the host prefix tier",
     "trace": "ROADMAP A9: tracing with the server",
@@ -107,7 +145,9 @@ class BatchEngine:
     ``device`` must be the model's (``cuda`` unless ``"cpu"`` is asked
     for).  ``graph`` (default: on a card) replays a captured decode
     step; ``graph=False`` runs it eagerly, and a CPU engine refuses
-    ``graph=True``."""
+    ``graph=True``.  ``prefill_chunk`` (None: monolithic admission) and
+    ``prefill_budget`` (default: one chunk per quantum) turn on chunked
+    admission, and ``prefix_reuse`` its token-level reuse when paged."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -118,12 +158,11 @@ class BatchEngine:
                  n_pages: Optional[int] = None, device=None,
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
-                 spec_k: Optional[int] = None,
+                 prefix_reuse: bool = True, spec_k: Optional[int] = None,
                  offload_bytes: Optional[int] = None, trace=None, mesh=None,
                  graph: Optional[bool] = None):
-        asked = dict(prefill_chunk=prefill_chunk,
-                     prefill_budget=prefill_budget, spec_k=spec_k,
-                     offload_bytes=offload_bytes, trace=trace, mesh=mesh)
+        asked = dict(spec_k=spec_k, offload_bytes=offload_bytes,
+                     trace=trace, mesh=mesh)
         for name, value in asked.items():
             if value is not None:
                 raise NotImplementedError(
@@ -169,6 +208,14 @@ class BatchEngine:
                     f"n_pages={self.n_pages} cannot hold even one full row "
                     f"({self.max_pages} pages + the null page)")
         self.s_max = s_max
+        self._check_chunking(prefill_chunk, prefill_budget)
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = (prefill_budget if prefill_budget is not None
+                               else prefill_chunk)
+        self.prefix_reuse = prefix_reuse
+        self._pending: Optional[_PendingAdmission] = None
+        self.n_prefill_chunks = 0
+        self.n_reused_tokens = 0
 
         self.cache = model.init_cache(
             capacity, s_max, policy=self.policy, rots=rots, ragged=True,
@@ -200,17 +247,51 @@ class BatchEngine:
         if paged:
             # host views of layer 0's allocator (every layer's pool makes
             # the same choices); the prefix index maps page-aligned prompt
-            # prefixes to resident pages; admission sequence numbers pick
-            # the LRU preemption victim; _carried/_orig stitch preempted
-            # streams back together
+            # prefixes to resident pages, and the token-level index
+            # resident prompts to their tokens and pages (reuse below a
+            # page boundary); admission sequence numbers pick the LRU
+            # preemption victim; _carried/_orig stitch preempted streams
+            # back together
             self._prefix_pages: dict[bytes, int] = {}
+            self._prefix_seqs: dict[bytes, tuple[np.ndarray, np.ndarray]] \
+                = {}
             self._slot_seq = [0] * capacity
             self._admit_seq = 0
             self._carried: dict[int, list[int]] = {}
             self._orig: dict[int, tuple[int, int]] = {}
             self.n_preemptions = 0
             self.peak_pages = 0
+            self.n_reuse_hits_device = 0
+            self.n_reuse_misses = 0
             self._sync_pool()
+
+    def _check_chunking(self, prefill_chunk, prefill_budget) -> None:
+        """Chunk boundaries are W-aligned (a chunk then writes monolithic
+        bytes) and, paged, page-aligned (``page_size % W == 0`` is
+        ``init_paged``'s check, so that implies the first)."""
+        self._align = max(int(getattr(self.policy, "window", 1) or 1), 1)
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            if self.paged and prefill_chunk % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be a multiple of "
+                    f"page_size={self.page_size} (chunk boundaries are page "
+                    f"boundaries, so flush slabs never straddle a page)")
+            if prefill_chunk % self._align:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be a multiple of "
+                    f"the policy flush window W={self._align} (chunked "
+                    f"admission writes monolithic bytes only at W-aligned "
+                    f"chunk boundaries)")
+        if prefill_budget is not None and prefill_chunk is None:
+            raise ValueError(
+                "prefill_budget only bounds CHUNKED admission; pass "
+                "prefill_chunk too")
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1, got {prefill_budget}")
 
     # ------------------------------------------------------- paged pool state
     def _pd(self):
@@ -229,6 +310,9 @@ class BatchEngine:
         for k in [k for k, p in self._prefix_pages.items()
                   if self._refcount_host[p] == 0]:
             del self._prefix_pages[k]
+        for k in [k for k, (_, pgs) in self._prefix_seqs.items()
+                  if (self._refcount_host[pgs] == 0).any()]:
+            del self._prefix_seqs[k]
 
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
         return -(-(prompt_len + max_new) // self.page_size)
@@ -268,15 +352,36 @@ class BatchEngine:
                 return True
         return False
 
+    def _donor_live(self, toks: np.ndarray, pages: np.ndarray,
+                    n_tokens: int) -> bool:
+        """Token-level ``_page_backed``: a live slot maps exactly these
+        pages for exactly these tokens."""
+        npg = -(-n_tokens // self.page_size)
+        for s in range(self.capacity):
+            req = self._slot_req[s]
+            if req is None or not np.array_equal(self._ptab_host[s, :npg],
+                                                 pages[:npg]):
+                continue
+            p = np.asarray(req.prompt, np.int32)
+            if p.shape[-1] >= n_tokens \
+                    and np.array_equal(p[:n_tokens], toks[:n_tokens]):
+                return True
+        return False
+
     def _register_prefix(self, req: Request, slot: int) -> None:
-        """Index this row's full prompt pages for later COW admissions.
-        Full prompt pages are immutable: decode appends and int4 flushes
-        land at or past the admission-time packed length."""
+        """Index this row's full prompt pages for later COW admissions, and
+        its prompt (tokens and every page it touches, a partial tail page
+        included) for token-level reuse.  Prompt bytes below the prompt's
+        flush boundary are immutable: decode appends and int4 flushes land
+        at or past the admission-time packed length."""
         prompt = np.asarray(req.prompt, np.int32)
         ps = self.page_size
         row = self._ptab_host[slot]
         for i in range(prompt.shape[-1] // ps):
             self._prefix_pages[prompt[:(i + 1) * ps].tobytes()] = int(row[i])
+        n_pp = -(-prompt.shape[-1] // ps)
+        self._prefix_seqs[prompt.tobytes()] = (prompt.copy(),
+                                               row[:n_pp].copy())
 
     def _release_slots(self, slots) -> None:
         """Called before the reset that drops these slots' page references:
@@ -294,6 +399,9 @@ class BatchEngine:
         dying[NULL_PAGE] = False
         for k in [k for k, p in self._prefix_pages.items() if dying[p]]:
             del self._prefix_pages[k]
+        for k in [k for k, (_, pgs) in self._prefix_seqs.items()
+                  if dying[pgs].any()]:
+            del self._prefix_seqs[k]
 
     def _reset(self, mask: np.ndarray) -> None:
         """Retire the masked rows in every layer; their positions go to 0
@@ -309,11 +417,13 @@ class BatchEngine:
         """Preempt the least recently admitted live slot to the front of
         the queue as a recompute continuation, freeing its pages.  Slots
         admitted in the current admission round (seq >= protect_from_seq)
-        are never victims: that would make no progress.  False when no
-        slot is eligible."""
+        are never victims: that would make no progress; nor is the slot an
+        in-flight chunked admission holds (it has no cache row yet).
+        False when no slot is eligible."""
+        pend = self._pending.slot if self._pending is not None else None
         live = [s for s in range(self.capacity)
                 if self._slot_req[s] is not None
-                and self._slot_seq[s] < protect_from_seq]
+                and self._slot_seq[s] < protect_from_seq and s != pend]
         if not live:
             return False
         slot = min(live, key=lambda s: self._slot_seq[s])
@@ -396,8 +506,9 @@ class BatchEngine:
 
     @property
     def pending(self) -> int:
-        """Requests not yet decoding."""
-        return len(self._queue)
+        """Requests not yet decoding: queued, plus an in-flight chunked
+        admission."""
+        return len(self._queue) + (self._pending is not None)
 
     @property
     def n_active(self) -> int:
@@ -504,13 +615,149 @@ class BatchEngine:
                         break  # pages return at the end-of-step reset
                     continue
             req = self._queue.popleft()
-            done = self._admit(req, slot, plan)
-            if done is not None:  # finished at admission (eos / n=1)
-                events.append((req.rid, [int(done.tokens[-1])]))
-                completions.append(done)
-                self._reset_slot_now(slot)
-            elif req.resume_tok is None:  # resumes already streamed theirs
-                events.append((req.rid, [self._slot_toks[slot][0]]))
+            self._admitted(req, slot, self._admit(req, slot, plan), events,
+                           completions)
+
+    def _admitted(self, req: Request, slot: int, done, events: list,
+                  completions: list) -> None:
+        """Stream an admission's first token, or retire a request that
+        finished at admission (eos / n=1)."""
+        if done is not None:
+            events.append((req.rid, [int(done.tokens[-1])]))
+            completions.append(done)
+            self._reset_slot_now(slot)
+        elif req.resume_tok is None:  # resumes already streamed theirs
+            events.append((req.rid, [self._slot_toks[slot][0]]))
+
+    # ------------------------------------------------- chunked admission
+    def _find_donor(self, prompt: np.ndarray
+                    ) -> tuple[int, Optional[np.ndarray]]:
+        """The longest token-level prefix ``prompt`` shares with a resident
+        prompt, aligned down to W and capped at ``len(prompt) - 1`` (the
+        last token is computed: its logits draw the first token).  Then
+        every shared token lies below the donor's flush boundary, where
+        its bytes are resident and immutable.  (n_shared, donor pages), or
+        (0, None) below one page."""
+        best_t, best_pages = 0, None
+        cap = int(prompt.shape[-1]) - 1
+        for toks, pages in self._prefix_seqs.values():
+            n = min(int(toks.shape[-1]), cap)
+            if n <= best_t:
+                continue
+            neq = np.nonzero(toks[:n] != prompt[:n])[0]
+            t = int(neq[0]) if neq.size else n
+            t = (t // self._align) * self._align
+            if t > best_t and t >= self.page_size \
+                    and self._donor_live(toks, pages, t):
+                best_t, best_pages = t, pages
+        if best_t < self.page_size:
+            return 0, None
+        return best_t, best_pages
+
+    def _seed(self, row: dict, pages: np.ndarray, n_tok: int) -> None:
+        """Adopt the donor pages' bytes into the staging row, every layer,
+        and set its length and position to ``n_tok``."""
+        for r, st in zip(row["attn"], self.cache["attn"]):
+            self.policy.adopt_prefix(r, st, pages, n_tok)
+        row["pos"].fill_(n_tok)
+
+    def _raw_view(self, row: dict, n_shared: int, raw_k: torch.Tensor,
+                  raw_v: torch.Tensor) -> None:
+        """Fill positions [0, n_shared) of the raw side buffers from the
+        seeded row: bf16 reads back its bytes, int4 dequantizes and
+        inverse-rotates (B4), so the prompt's suffix attends the prefix
+        every decode step reads."""
+        for i, st in enumerate(row["attn"]):
+            k, v = self.policy.raw_kv_view(st, n_shared)
+            raw_k[i, :, :, :n_shared] = k.to(raw_k.dtype)
+            raw_v[i, :, :, :n_shared] = v.to(raw_v.dtype)
+
+    def _start_pending(self, req: Request, slot: int) -> None:
+        """Open a chunked admission: the staging row and raw buffers, the
+        slot reserved and, paged with reuse, the row seeded from a donor
+        so that chunking starts after the shared tokens.  A preemption
+        continuation never reuses: its recompute must rebuild the bytes
+        its first admission wrote."""
+        prompt = np.asarray(req.prompt, np.int32)
+        n_total = int(prompt.shape[-1])
+        row = self.model.init_cache(1, self.s_max, policy=self.policy,
+                                    rots=self._rots, ragged=True)
+        shared_t = 0
+        if self.paged and self.prefix_reuse and req.resume_tok is None:
+            shared_t, donor_pages = self._find_donor(prompt)
+            if shared_t:
+                self._seed(row, donor_pages[:-(-shared_t // self.page_size)],
+                           shared_t)
+                self.n_reuse_hits_device += 1
+            else:
+                self.n_reuse_misses += 1
+        cfg = self.model.cfg
+        shape = (cfg.n_layers, 1, cfg.n_kv_heads, n_total, cfg.head_dim)
+        raw_k = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+        raw_v = torch.zeros_like(raw_k)
+        if shared_t:
+            self._raw_view(row, shared_t, raw_k, raw_v)
+        self._slot_req[slot] = req  # reserved; inactive until the insert
+        self._pending = _PendingAdmission(
+            req=req, slot=slot, row=row, raw_k=raw_k, raw_v=raw_v,
+            n_done=shared_t, n_total=n_total, reused_tokens=shared_t)
+        self.n_reused_tokens += shared_t
+
+    def _finalize_pending(self, round_start: int, events: list,
+                          completions: list) -> bool:
+        """Insert a fully prefilled pending admission into its slot.  False
+        when the paged pool cannot fit it yet and no slot can be
+        preempted: it stays pending until retirements return pages."""
+        pend = self._pending
+        req, slot = pend.req, pend.slot
+        plan = None
+        if self.paged:
+            while (plan := self._plan_pages(req)) is None:
+                if not self._preempt_one(round_start):
+                    return False
+        # drawn once the insert is certain: a retry draws nothing
+        tok0 = self._draw_tok0(req, pend.logits)
+        self._insert_row(req, slot, pend.row, tok0, pend.n_total, plan)
+        self._pending = None  # the staging buffers go here
+        self._admitted(req, slot, self._post_insert(req, slot, tok0), events,
+                       completions)
+        return True
+
+    def _admit_chunked(self, round_start: int, events: list,
+                       completions: list) -> None:
+        """Spend at most ``prefill_budget`` prompt tokens (at least one
+        chunk) on the in-flight admission, opening one from the queue head
+        when none is; a finished one is inserted and, budget left, the
+        next one begins in the same quantum.  Reused tokens cost no
+        budget.  One admission is in flight at a time (FIFO)."""
+        spent = 0
+        while True:
+            if self._pending is None:
+                free = [s for s in range(self.capacity)
+                        if self._slot_req[s] is None]
+                if not self._queue or not free:
+                    return
+                self._start_pending(self._queue.popleft(), free[0])
+            pend = self._pending
+            prompt = np.asarray(pend.req.prompt, np.int64)
+            while pend.n_done < pend.n_total and (
+                    spent == 0 or spent < self.prefill_budget):
+                C = min(self.prefill_chunk, pend.n_total - pend.n_done)
+                toks = torch.as_tensor(
+                    prompt[None, pend.n_done:pend.n_done + C],
+                    device=self.device)
+                pend.logits, pend.row, pend.raw_k, pend.raw_v = \
+                    self.model.prefill_chunk(self.params, toks, pend.row,
+                                             pend.raw_k, pend.raw_v)
+                pend.n_done += C
+                spent += C
+                self.n_prefill_chunks += 1
+            if pend.n_done < pend.n_total:
+                return  # budget spent: decode now
+            if not self._finalize_pending(round_start, events, completions):
+                return  # pool dry: retried after this quantum's retirements
+            if spent >= self.prefill_budget:
+                return
 
     # ---------------------------------------------------------- retirement
     def _retire(self, slot: int, reason: Optional[str] = None) -> Completion:
@@ -548,10 +795,15 @@ class BatchEngine:
                           finish_reason="cancelled")
 
     def cancel_all(self) -> list[Completion]:
-        """Cancel every live and queued request, returning partial
+        """Cancel every live, pending and queued request, returning partial
         ``Completion``s.  Afterwards every slot is free, every length zero
         and, paged, every refcount zero but the null page's."""
-        completions = [self._retire(s, reason="cancelled")
+        completions = []
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            self._slot_req[pend.slot] = None  # the reservation
+            completions.append(self._cancelled(pend.req))
+        completions += [self._retire(s, reason="cancelled")
                        for s in range(self.capacity)
                        if self._slot_req[s] is not None]
         while self._queue:
@@ -619,7 +871,10 @@ class BatchEngine:
         events: list[tuple[int, list[int]]] = []
         completions: list[Completion] = []
         round_start = self._admit_seq if self.paged else 0
-        self._admit_monolithic(round_start, events, completions)
+        if self.prefill_chunk is not None:
+            self._admit_chunked(round_start, events, completions)
+        else:
+            self._admit_monolithic(round_start, events, completions)
         if not self.active.any():  # admission retires were reset in-loop
             return events, completions
 
@@ -650,6 +905,6 @@ class BatchEngine:
         they finish."""
         for r in requests or ():
             self.submit(r)
-        while self._queue or self.active.any():
+        while self.has_work:
             _, completions = self.step()
             yield from completions

@@ -6,6 +6,9 @@ serving paths behind the cache-policy protocol (port of
                     (training and eval, optionally through the KV
                     round-trip hook); a prefill also writes K/V into the
                     cache through its policy;
+  * prompt chunk  : one C-token slice of a prompt (chunked prefill): its
+                    K/V go into raw bf16 side buffers, which its queries
+                    attend, and into the cache through the policy;
   * decode        : one token -- append first, then attend, so the new
                     token is read back from the residual window.
 """
@@ -19,7 +22,8 @@ from repro_torch.core.cache_api import AttendBackend, CacheState
 from repro_torch.models import common
 from repro_torch.models.flash import flash_attention
 
-__all__ = ["attention_init", "attention_forward", "attention_decode"]
+__all__ = ["attention_init", "attention_forward", "attention_prefill_chunk",
+           "attention_decode"]
 
 
 def attention_init(generator: torch.Generator, cfg, device="cpu"):
@@ -83,6 +87,30 @@ def attention_forward(p, x: torch.Tensor, cfg, *, q_offset: int = 0,
                         scale=cfg.head_dim ** -0.5)
     if return_kv:
         return _merge_heads(p, o), cache, (k, v)
+    return _merge_heads(p, o), cache
+
+
+def attention_prefill_chunk(p, x: torch.Tensor, cfg, cache: CacheState,
+                            raw_k: torch.Tensor, raw_v: torch.Tensor, *,
+                            offset: "int | torch.Tensor",
+                            kv_block: int = 1024):
+    """Chunked-prefill attention (ref ``attention.py:128-173``): x (B, C,
+    d) at absolute positions [offset, offset + C); ``offset`` may be a
+    device scalar.  The chunk's K/V are written twice, in place: into the
+    raw bf16 side buffers ``raw_k`` / ``raw_v`` (B, Hkv, S_prompt, hd) and
+    into the cache through ``policy.prefill_chunk``.  The queries attend
+    the raw buffers, so they see the K/V a monolithic prefill uses, and
+    chunking moves neither a hidden state nor a cache byte; positions at
+    or past offset + C are excluded by the causal mask.  Returns (y,
+    cache)."""
+    C = x.shape[1]
+    positions = offset + torch.arange(C, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    raw_k.index_copy_(2, positions, k.to(raw_k.dtype))
+    raw_v.index_copy_(2, positions, v.to(raw_v.dtype))
+    cache = cache.policy.prefill_chunk(cache, k, v)
+    o = flash_attention(q, raw_k, raw_v, q_offset=offset, kv_block=kv_block,
+                        scale=cfg.head_dim ** -0.5)
     return _merge_heads(p, o), cache
 
 

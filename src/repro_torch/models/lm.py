@@ -2,7 +2,8 @@
 ``repro/models/lm.py``): ``init``, ``init_rotations`` (:132),
 ``init_cache`` (:155-217), the teacher-forced ``forward`` (:352-402),
 ``collect_kv`` (:404) and ``loss`` (:501) for training and the quality
-measurements, and ``prefill``, ``decode_step`` (:731-768) and
+measurements, and ``prefill``, ``prefill_chunk`` (:560-599, with
+``_block_prefill_chunk``, :301), ``decode_step`` (:731-768) and
 ``decode_body`` for serving.
 
 The reference's ``lax.scan`` over stacked layers becomes a Python loop
@@ -161,6 +162,13 @@ class LM:
             kv_roundtrip=kv_roundtrip, return_kv=return_kv)
         return (self._ffn(p, x + out[0]), *out[1:])
 
+    def _block_prefill_chunk(self, p, x, cache, raw_k, raw_v, *, offset,
+                             kv_block=1024):
+        h, cache = attention.attention_prefill_chunk(
+            p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
+            self.cfg, cache, raw_k, raw_v, offset=offset, kv_block=kv_block)
+        return self._ffn(p, x + h), cache
+
     def _block_decode(self, p, x, cache, *, position, kv_block=512,
                       backend=None, active=None):
         h, cache = attention.attention_decode(
@@ -227,6 +235,29 @@ class LM:
         pos = cache["pos"]
         cache["pos"] = S if isinstance(pos, int) else pos.fill_(S)
         return self._unembed(params, x[:, -1:]), cache
+
+    def prefill_chunk(self, params, tokens: torch.Tensor, cache: dict,
+                      raw_k: torch.Tensor, raw_v: torch.Tensor, *,
+                      kv_block: int = 1024):
+        """One C-token slice (B, C) of a prompt (chunked prefill): appended
+        at ``cache["pos"]``, the tokens a ragged (batch-1) cache already
+        holds.  ``raw_k`` / ``raw_v`` are (n_layers, B, Hkv, S_prompt, hd)
+        bf16 side buffers of the raw K/V so far, written in place; the
+        chunk's queries attend them, so a chain of chunks gives a
+        monolithic :meth:`prefill`'s logits and cache bytes.  Returns (the
+        chunk's last-token logits (B, 1, V) fp32, cache, raw_k, raw_v)."""
+        pos = cache["pos"]
+        if isinstance(pos, int):
+            raise ValueError("chunked prefill needs a ragged cache "
+                             "(init_cache(..., ragged=True))")
+        offset = pos[0].clone()  # rows advance in lockstep
+        x = self._embed(params, tokens)
+        for i, p in enumerate(params["blocks"]):
+            x, cache["attn"][i] = self._block_prefill_chunk(
+                p, x, cache["attn"][i], raw_k[i], raw_v[i], offset=offset,
+                kv_block=kv_block)
+        pos.add_(tokens.shape[1])
+        return self._unembed(params, x[:, -1:]), cache, raw_k, raw_v
 
     def decode_step(self, params, token: torch.Tensor, cache: dict, *,
                     kv_block: int = 512, backend=None, active=None):

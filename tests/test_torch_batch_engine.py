@@ -339,8 +339,8 @@ def test_engine_validates_and_refuses_what_is_not_ported(lm):
     with pytest.raises(ValueError, match="exceeds s_max"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32),
                            max_new_tokens=8))
-    for kw in (dict(prefill_chunk=16), dict(spec_k=2),
-               dict(offload_bytes=1 << 20), dict(mesh=object())):
+    for kw in (dict(spec_k=2), dict(offload_bytes=1 << 20),
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
                         **kw)

@@ -1,8 +1,11 @@
 """The port's hand-written kernels on the card, each against its plain
 PyTorch version on the same CUDA tensors, B4 on codes B3 wrote, and B2
-(paged) against B1 (dense) on the gathered view, bitwise.  Marked ``cuda``: skips where no
-card is visible (the CPU tests hold the plain versions against the JAX
-reference).  On the card: ``python -m pytest -q tests/test_torch_cuda.py``.
+(paged) against B1 (dense) on the gathered view, bitwise; the int4
+``raw_kv_view`` through B4 against the CPU's, chunked admission against
+monolithic admission, and a BLOCKWISE read replayed from a CUDA graph.
+Marked ``cuda``: skips where no card is visible (the CPU tests hold the
+plain versions against the JAX reference).  On the card: ``python -m
+pytest -q tests/test_torch_cuda.py``.
 """
 import pytest
 
@@ -140,6 +143,7 @@ def test_b3_scales_at_d256_within_the_fp32_sum_bound(dev):
     (256, 32, 4, 70), (256, 32, 8, 513), (112, 28, 4, 65),
     (128, 32, 4, 1), (128, 32, 4, 63), (128, 32, 8, 64), (128, 32, 4, 65),
     (128, 32, 4, 4096), (64, 16, 4, 129), (112, 28, 8, 33),
+    (128, 32, 4, 8192),  # the raw view of a reused 1,024-token prefix
 ])
 def test_b4_kernel_matches_plain(dev, d, group, bits, n):
     """B4 on the codes of the folded B3 write: max abs error within 1e-5
@@ -419,3 +423,133 @@ assert torch.equal(got, want)
                          text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": env_path})
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_int4_raw_kv_view_on_card_matches_cpu(dev):
+    """The int4 raw view of a reused 1,024-token prefix at internlm2's
+    heads (8 x 1,024 = 8,192 rows of d 128 per leaf): B4 on the card, one
+    launch per leaf, against the plain version on the CPU on the same
+    bytes (fp32 sums in another order: within 1e-5 of max |x|)."""
+    pol = get_policy("int4-srft")
+    g = torch.Generator().manual_seed(11)
+    cpu = pol.init_state(1, 8, 1040, 128, generator=g, device="cpu",
+                         ragged=True)
+    lam = torch.exp(0.3 * torch.randn(128, generator=g))
+    rk, rv = cpu.data.rot_k, cpu.data.rot_v
+    rk.lam, rv.lam = lam, lam.flip(0)
+    k, v = (torch.randn((1, 8, 1031, 128), generator=g).bfloat16()
+            for _ in "kv")
+    pol.prefill(cpu, k, v)
+    card = pol.init_state(1, 8, 1040, 128, device=dev, ragged=True)
+    card = pol.with_rotations(card, *(
+        type(r)(r.matrix.to(dev), r.lam.to(dev), r.signs.to(dev), r.kind)
+        for r in (rk, rv)))
+    for f in ("k_packed", "k_scales", "v_packed", "v_scales", "length"):
+        getattr(card.data.kv, f).copy_(getattr(cpu.data.kv, f))
+    before = sq_ops.dequant_launches
+    got = pol.raw_kv_view(card, 1024)
+    torch.cuda.synchronize()
+    assert sq_ops.dequant_launches == before + 2
+    for g_, w in zip(got, pol.raw_kv_view(cpu, 1024)):
+        assert g_.shape == w.shape == (1, 8, 1024, 128)
+        tol = 1e-5 * max(1.0, w.abs().max().item())
+        assert (g_.cpu() - w).abs().max().item() <= tol
+
+
+def _forced_logits(model, params, prompt, toks, rots, backend):
+    """One request alone, teacher-forced on ``toks`` (eager): its logits
+    at every step, for the near-tie rule."""
+    cache = model.init_cache(1, 128, policy="int4-srft", rots=rots)
+    lg, cache = model.prefill(
+        params, torch.as_tensor(prompt, device=model.device)[None].long(),
+        cache)
+    out = [lg[0, -1].float()]
+    for t in toks[:-1]:
+        lg, cache = model.decode_step(
+            params, torch.tensor([[int(t)]], device=model.device), cache,
+            backend=backend)
+        out.append(lg[0, -1].float())
+    return torch.stack(out).cpu()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunked_engine_equals_monolithic_on_card(dev, paged):
+    """smol-d64 on the card, int4 KERNEL (B1 dense, B2 paged), the graph
+    decode: chunked admission (chunks of 16, several quanta per prompt)
+    gives the monolithic engine's streams, up to a near-tie (cuBLAS picks
+    its product by shape, so a chunk's projections may round otherwise
+    than the whole prompt's), and returns every page."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.batch_engine import BatchEngine, Request
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device=dev)
+    params = model.init(model.generator(0))
+    g = torch.Generator().manual_seed(2)
+    reqs = [Request(i, torch.randint(0, 256, (n,), generator=g).numpy(), m)
+            for i, (n, m) in enumerate([(9, 8), (70, 20), (40, 33), (23, 12)])]
+    out, engs = {}, {}
+    for pc in (None, 16):
+        eng = BatchEngine(model, params, capacity=3, s_max=128,
+                          policy="int4-srft", backend="kernel", chunk=4,
+                          paged=paged, page_size=16, prefill_chunk=pc,
+                          prefill_budget=pc)
+        out[pc] = {c.rid: c.tokens for c in eng.run(list(reqs))}
+        engs[pc] = eng
+    assert engs[16].n_prefill_chunks == 1 + 5 + 3 + 2
+    if paged:
+        assert engs[16].pool_stats()["pages_used"] == 0
+    for r in reqs:
+        mono, ch = out[None][r.rid], out[16][r.rid]
+        diff = (mono != ch).nonzero()[0]
+        if len(diff):
+            i = int(diff[0])
+            lg = _forced_logits(model, params, r.prompt, mono,
+                                engs[None]._rots, "kernel")
+            top2 = lg[i].topk(2).values
+            assert top2[0] - top2[1] < 0.05 * lg.abs().max(), (r.rid, i)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("policy", ["int4-srft", "bf16"])
+def test_blockwise_read_replayed_from_a_graph_equals_eager(dev, policy,
+                                                           paged):
+    """A BLOCKWISE read (a fixed number of tiles, no exit that depends on
+    the data) captured in a ``StepGraph`` and replayed gives the eager
+    read's bytes, on ragged lengths with an empty row; then the lengths
+    change in place and a replay follows them."""
+    from repro_torch.launch.graphs import StepGraph
+
+    B, H, Hq, S, d = 3, 2, 4, 256, 64
+    pol = get_policy(policy)
+    g = torch.Generator().manual_seed(4)
+    if paged:
+        state = pol.init_paged(B, H, S, d, n_pages=B * S // 16 + 1,
+                               page_size=16, device=dev)
+        row = pol.init_state(1, H, S, d, device=dev, ragged=True)
+        for slot in range(B):
+            pol.insert_row_paged(state, row, slot, [], 0, S // 16)
+    else:
+        state = pol.init_state(B, H, S, d, device=dev, ragged=True)
+    for lo, hi in ((0, 112), (112, 200)):
+        k, v = (torch.randn((B, H, hi - lo, d), generator=g).to(dev)
+                for _ in "kv")
+        pol.prefill_chunk(state, k, v)
+    length = state.length
+    length.copy_(torch.tensor([0, 77, 200], dtype=torch.int32))
+    q = torch.randn((B, Hq, 1, d), generator=g).to(dev)
+    out = torch.empty((B, Hq, 1, d), device=dev)
+
+    def step():
+        out.copy_(pol.attend(q, state, backend="blockwise", kv_block=48))
+
+    graph = StepGraph(step, [out])
+    graph.replay()
+    replayed = out.clone()
+    step()
+    assert torch.equal(replayed, out) and torch.isfinite(out).all()
+    length.copy_(torch.tensor([5, 150, 64], dtype=torch.int32))
+    graph.replay()
+    replayed = out.clone()
+    step()
+    assert torch.equal(replayed, out)

@@ -31,7 +31,8 @@ LOGIT_TOL = 0.05
 GRAPH_TOL = 1e-5
 S_MAX, NEW = 128, 24
 ENGINE_CASES = [("int4-srft", "kernel"), ("int4-srft", "gather"),
-                ("bf16", "gather")]
+                ("bf16", "gather"), ("int4-srft", "blockwise"),
+                ("bf16", "blockwise")]
 
 
 @pytest.fixture(scope="module")

@@ -272,12 +272,35 @@ def test_int4_attend_gather_and_kernel_match_reference(prompt, n_dec):
     np.testing.assert_allclose(got_k, got_g, atol=2e-5)
 
 
-def test_kernel_backend_refuses_sliding_window_and_bf16_refuses_kernel():
+def test_kernel_backend_refuses_sliding_window_and_bf16_refuses_kernel(
+        monkeypatch):
+    """B1/B2 do not implement ``sliding_window``: a KERNEL read with one
+    warns once per process and is served by BLOCKWISE (the reference's
+    fallback, ``repro/core/cache_api.py:968-983``), with BLOCKWISE's
+    result; bf16 still refuses KERNEL."""
+    import warnings
+
+    from repro_torch.core import cache_api
+
+    monkeypatch.setattr(cache_api, "_KERNEL_SLIDING_WINDOW_WARNED", False)
     pol = get_policy("int4-srft")
-    state = pol.init_state(1, 1, 32, 64, device="cpu")
-    q = torch.zeros(1, 2, 1, 64)
-    with pytest.raises(NotImplementedError):
-        pol.attend(q, state, backend="kernel", sliding_window=8)
+    state = pol.init_state(1, 1, 32, 64, device="cpu", ragged=True)
+    rng = np.random.default_rng(3)
+    k, v = (_t(rng.standard_normal((1, 1, 21, 64)).astype(np.float32))
+            for _ in "kv")
+    pol.prefill(state, k, v)
+    q = _t(rng.standard_normal((1, 2, 1, 64)).astype(np.float32))
+    with pytest.warns(RuntimeWarning, match="BLOCKWISE"):
+        got = pol.attend(q, state, backend="kernel", sliding_window=8,
+                         kv_block=16)
+    want = pol.attend(q, state, backend="blockwise", sliding_window=8,
+                      kv_block=16)
+    assert torch.equal(got, want)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # once: the second read is silent
+        again = pol.attend(q, state, backend=AttendBackend.KERNEL,
+                           sliding_window=8, kv_block=16)
+    assert torch.equal(again, want)
     bf = get_policy("bf16")
     with pytest.raises(NotImplementedError):
         bf.attend(q, bf.init_state(1, 1, 32, 64, device="cpu"),
