@@ -82,7 +82,31 @@ Phases (any failure exits non-zero):
      claims, which do not gate) -- with the counters zeroed just before
      and read just after; then, on a reduced smol model with the same
      params, rotations and tokens, hook PPL on the card against the CPU
-     plain path for every scheme, within 1e-3 relative.
+     plain path for every scheme, within 1e-3 relative;
+ 10. speculative decoding (``spec_k`` SPEC_K = 4, greedy, graph on).
+     ``Engine`` at batch 1 on the 2055-token request and on a repetitive
+     prompt of the same length (a 64-token random base, tiled, so that the
+     prompt-lookup drafter hits): 64 new tokens under int4-srft (the
+     verify reads with GATHER's numerics: B1/B2 are single-query) and
+     bf16, each held to the plain graph stream (int4: KERNEL and GATHER)
+     up to a near-tie, with the bit-equal prefix printed; the counters
+     zeroed just before the timed decode and read just after: B3 2 x 24 x
+     k launches a pass and no B1 / B2; ms per emitted token spec against
+     plain, acceptance, tokens and ms per verify pass, the pass graph's
+     capture time and, on the random prompt, its idle share (profiler
+     busy over events); graph spec == eager spec bit for bit over 16
+     tokens of the repetitive prompt; the captured pass replayed inside
+     ``set_sync_debug_mode("error")``; where spec and plain part: the
+     first recorded op (norms, projections, RoPE, attention reads,
+     unembedding) whose output differs, for a verify pass of the batch's
+     4 rows against 4 steps (``spec_op_report``) and along 32 tokens of
+     the single int4 stream, decoded eagerly both ways
+     (``spec_trace_report``).  ``BatchEngine`` on the batch
+     requests, paged and dense, int4 KERNEL and bf16 GATHER: every stream
+     and finish reason equal to phase 7's plain run up to a near-tie, no
+     page leaked, every row mapping its spec_k - 1 slack; and the
+     preempting pool, held to its plain run.  Lines with what users feel
+     carry the card's name and power limit.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -125,6 +149,15 @@ PREFILL_CHUNK = PREFILL_BUDGET = 256  # chunked admission (phase 8)
 # first, and the one-row pool never runs dry)
 PREEMPT_BUDGET = 4096
 RAW_VIEW_ROWS = 8 * SHARED_PREFIX  # B4 on a reused prefix: Hkv x tokens
+SPEC_K = 4  # speculative passes (phase 10)
+SPEC_PROMPT, SPEC_BASE = 2055, 64  # its prompts: random, and a tiled base
+SPEC_EAGER_NEW = 16  # graph == eager over this many tokens
+SPEC_PROFILE_TOKENS = 8
+SPEC_TRACE_TOKENS = 32  # spec_trace_report: past the int4 stream's split
+# (policy, backend, paged) of the speculative BatchEngine runs
+SPEC_BATCH_RUNS = (("int4-srft", "kernel", True),
+                   ("int4-srft", "kernel", False),
+                   ("bf16", None, True), ("bf16", None, False))
 CARD = ""  # the card's name and power limit, set by main()
 
 
@@ -1497,6 +1530,511 @@ def _ms(x) -> str:
     return "n/a" if x is None else f"{x:.1f} ms"
 
 
+# ------------------------------------------------- speculative decoding
+
+def spec_prompts(vocab):
+    """The 2055-token request of phase 5 (``serve``'s prompt) and a
+    repetitive one of the same length: a SPEC_BASE-token random base,
+    tiled, so that the prompt-lookup drafter hits."""
+    n = SPEC_PROMPT
+    g = torch.Generator(device="cuda").manual_seed(SEED + n)
+    rand = torch.randint(0, vocab, (1, n), generator=g, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    base = torch.randint(0, vocab, (1, SPEC_BASE), generator=g,
+                         device="cuda")
+    rep = base.repeat(1, -(-n // SPEC_BASE))[:, :n]
+    return {"random": rand, "repetitive": rep}
+
+
+def plain_stream(model, params, policy, backend, prompt, n_new):
+    """One greedy request through ``Engine``'s graph: (tokens (1, n_new),
+    logits (1, n_new, V), ms per token by CUDA events over the n_new - 2
+    steps after the one that captures)."""
+    from repro_torch.launch.engine import Engine
+
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    eng = Engine(model, backend=backend)
+    lg, cache = eng.prefill(params, prompt, cache)
+    tok0 = lg[:, -1].argmax(-1)[:, None]
+    tok1, l1, cache = eng.decode(params, tok0, cache, 1, return_logits=True)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    a.record()
+    rest, lr, cache = eng.decode(params, tok1, cache, n_new - 2,
+                                 return_logits=True)
+    b.record()
+    torch.cuda.synchronize()
+    toks = torch.cat([tok0, tok1, rest], 1).cpu()
+    logits = torch.cat([lg[:, -1:].float(), l1, lr], 1).cpu()
+    return toks, logits, a.elapsed_time(b) / (n_new - 2)
+
+
+def spec_stream(model, params, policy, backend, prompt, n_new, *,
+                graph=True, profile=False):
+    """One greedy request through ``Engine.generate_spec``'s pieces, k =
+    SPEC_K: prefill, a first ``decode_spec`` of one token (under a graph
+    it captures the pass), then the other n_new - 2 tokens timed by CUDA
+    events with the kernels' counters zeroed just before and read just
+    after.  Returns (tokens (1, n_new), report)."""
+    from repro_torch.launch.engine import SPEC_KEY, Engine
+
+    k = SPEC_K
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    eng = Engine(model, backend=backend, graph=graph)
+    lg, cache = eng.prefill(params, prompt, cache)
+    tok0 = lg[:, -1].argmax(-1)[:, None]
+    tok1, cache, st1 = eng.decode_spec(params, tok0, cache, 1,
+                                       prompt=prompt, spec_k=k)
+    hist = torch.cat([prompt, tok0], 1)
+    _zero_counters()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    t0 = time.perf_counter()
+    a.record()
+    rest, cache, st = eng.decode_spec(params, tok1, cache, n_new - 2,
+                                      prompt=hist, spec_k=k)
+    b.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    counts = _counters()
+    toks = torch.cat([tok0, tok1, rest], 1).cpu()
+    assert toks.shape == (1, n_new)
+    n = n_new - 2
+    L = model.cfg.n_layers
+    pos = int(cache["pos"][0])
+    assert pos == prompt.shape[1] + n_new - 1, pos
+    assert all(int(c.length[0]) == pos for c in cache["attn"])
+    drafted, accepted = st1["drafted"] + st["drafted"], \
+        st1["accepted"] + st["accepted"]
+    assert 0 <= accepted <= drafted, (accepted, drafted)
+    int4 = policy == "int4-srft"
+    passes = st["passes"]  # verify passes of the timed call, spent ones too
+    ms = a.elapsed_time(b)
+    rep = dict(policy=policy, backend=backend or "gather", graph=graph,
+               prompt=prompt.shape[1], new=n_new, spec_k=k,
+               ms_per_token=ms / n, host_ms_per_token=host_s * 1e3 / n,
+               passes=passes, ms_per_pass=ms / max(passes, 1),
+               tokens_per_pass=n / max(passes, 1),
+               drafted=drafted, accepted=accepted,
+               acceptance=accepted / max(drafted, 1), launches=counts)
+    if graph:
+        cap = cache[SPEC_KEY]
+        rep["capture_s"] = cap.step.capture_s
+        rep["per_pass_launches"] = cap.step.counts
+        if int4:
+            assert cap.step.counts == (0, 0, 2 * L * k, 0), cap.step.counts
+    # B3 quantizes the ring at each of a pass's k appends, K and V, every
+    # layer; the verify read launches no B1 / B2
+    if int4:
+        assert counts["srft_quant"] == passes * 2 * L * k, (counts, passes)
+    assert counts["quant_decode_attention"] == 0, counts
+    assert counts["quant_decode_attention_paged"] == 0, counts
+    if profile:
+        rep.update(profile_spec(eng, params, cache, toks, prompt))
+    return toks, rep, (eng, cache)
+
+
+def profile_spec(eng, params, cache, toks, prompt, n=SPEC_PROFILE_TOKENS):
+    """``n`` more tokens of a captured speculative request under
+    torch.profiler (device-busy ms a pass, the kernels that take the
+    most), then ``n`` again timed by CUDA events: the idle share of the
+    card, per verify pass (the two calls may run different numbers of
+    passes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = SPEC_K
+    hist = torch.cat([prompt, toks[:, :-1].cuda()], 1)
+    tok = toks[:, -1:].cuda()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, cache, st = eng.decode_spec(params, tok, cache, n, prompt=hist,
+                                         spec_k=k)
+        torch.cuda.synchronize()
+    hist = torch.cat([hist, tok, out[:, :-1]], 1)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    a.record()
+    _, _, st2 = eng.decode_spec(params, out[:, -1:], cache, n, prompt=hist,
+                                spec_k=k)
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / st2["passes"]
+    us = _kernel_us(prof)
+    busy = sum(us.values()) / 1e3 / st["passes"]
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+    return dict(profile_busy_ms_per_pass=busy, events_ms_per_pass=ev,
+                idle_share=1 - busy / ev,
+                top_kernels_ms_per_pass=[(name[:60], t / 1e3 / st["passes"])
+                                         for name, t in top])
+
+
+def spec_no_sync(model, params, prompt, n=16):
+    """The captured pass replayed ceil(n / k) times inside
+    ``set_sync_debug_mode("error")``, its buffers seeded before: the
+    replay loop between two readbacks makes no host sync."""
+    from repro_torch.launch.engine import SPEC_KEY, Engine
+
+    k = SPEC_K
+    cache = model.init_cache(1, S_MAX, policy="int4-srft", ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    eng = Engine(model, backend="kernel")
+    lg, cache = eng.prefill(params, prompt, cache)
+    tok0 = lg[:, -1].argmax(-1)[:, None]
+    tok1, cache, _ = eng.decode_spec(params, tok0, cache, 1, prompt=prompt,
+                                     spec_k=k)
+    cap = cache[SPEC_KEY]
+    cap.buf.seed(torch.cat([prompt, tok0], 1), tok1, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(-(-n // k)):
+            cap.step.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    done = n - int(cap.buf.budget)
+    assert 0 < done <= n, done
+    log(f"no host sync: {-(-n // k)} replays of the captured speculative "
+        f"pass under set_sync_debug_mode('error') ({done} tokens)")
+
+
+# the recorded outputs of one block, in call order (_Taps)
+BLOCK_OPS = ("ln_attn", "wq", "wk", "wv", "rope q", "rope k", "attention read",
+             "wo", "ln_ffn", "w_gate", "w_up", "w_down")
+
+
+class _Taps:
+    """While the block runs, record in call order the output of every
+    norm, projection, RoPE, attention read (decode's and verify's) and
+    the unembedding: ``len(BLOCK_OPS)`` a layer, then the final norm and
+    the unembedding.  ``out`` holds (axis of the tokens, output)."""
+
+    def __init__(self, model, policy):
+        from repro_torch.models import common
+        from repro_torch.models.lm import LM
+
+        pol = type(model.cache_policy(policy))
+        self.hooks = [(common, "rmsnorm", 1), (common, "dense", 1),
+                      (common, "apply_rope", 2), (pol, "attend", 2),
+                      (pol, "verify_attend", 2), (LM, "_unembed", 1)]
+        self.n_layers = model.cfg.n_layers
+        self.out = []
+
+    def __enter__(self):
+        self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.hooks]
+        for (owner, name, axis), (_, _, fn) in zip(self.hooks, self.saved):
+            def wrapped(*a, _fn=fn, _axis=axis, **kw):
+                y = _fn(*a, **kw)
+                self.out.append((_axis, y.detach().clone()))
+                return y
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+    def first_diff(self, rows, steps) -> list:
+        """(layer, op, elements) of each recorded output of ``rows`` (one
+        call over several tokens: (outputs, token index) per position)
+        that differs from ``steps`` (one call per position), in order."""
+        per = len(BLOCK_OPS)
+        diffs = []
+        for n in range(len(steps[0])):
+            bad = sum(int((outs[n][1].narrow(outs[n][0], j, 1)
+                           != st[n][1]).sum())
+                      for (outs, j), st in zip(rows, steps))
+            if bad:
+                if n < per * self.n_layers:
+                    where = (n // per, BLOCK_OPS[n % per])
+                else:
+                    where = ("final", "ln_final" if n == per * self.n_layers
+                             else "unembed")
+                diffs.append((*where, bad))
+        return diffs
+
+
+def _prefilled(model, params, prompt, policy, rows=1, s_max=S_MAX):
+    cache = model.init_cache(rows, s_max, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    lg, cache = model.prefill(params, prompt, cache)
+    return cache, lg[:, -1].argmax(-1)[:, None]
+
+
+def spec_op_report(model, params, prompt, toks, policy) -> None:
+    """The first operation of a ``BatchEngine`` verify pass whose output
+    differs from the sequential steps', on the card: the same prefilled
+    ragged cache of CAPACITY rows twice (the prompt's tokens shifted by
+    the row), one ``LM.decode_verify`` of the block ``toks[:, :k]`` (the
+    plain stream's own tokens) against k ``decode_step`` calls, every
+    recorded output (``_Taps``) compared token by token (layer, op,
+    elements that differ).  ``spec_trace_report`` does this for the
+    single stream over a whole request."""
+    k, rows = SPEC_K, CAPACITY
+    shift = torch.arange(rows, device=prompt.device)[:, None]
+    prompt = (prompt + shift) % model.cfg.vocab_size
+    block = (toks[:, :k].to(prompt.device) + shift) % model.cfg.vocab_size
+    s_max = prompt.shape[1] + 2 * k
+    with _Taps(model, policy) as taps:
+        cache, _ = _prefilled(model, params, prompt, policy, rows, s_max)
+        taps.out.clear()
+        model.decode_verify(params, block, cache)
+        ver = list(taps.out)
+        cache, _ = _prefilled(model, params, prompt, policy, rows, s_max)
+        steps = []
+        for j in range(k):
+            taps.out.clear()
+            model.decode_step(params, block[:, j:j + 1], cache)
+            steps.append(list(taps.out))
+    diffs = taps.first_diff([(ver, j) for j in range(k)], steps)
+    log(f"[{CARD}] {policy}, {rows} row(s): verify pass vs {k} sequential "
+        f"steps on the {prompt.shape[1]}-token random prompt's cache, op by "
+        f"op ({len(ver)} recorded outputs): "
+        + (f"first differing op: layer {diffs[0][0]} {diffs[0][1]} "
+           f"({diffs[0][2]} elements); {len(diffs)} ops differ"
+           if diffs else "every output equal bit for bit"))
+
+
+def spec_trace_report(model, params, prompt, policy, n_new) -> None:
+    """Where a speculative stream first computes something else than the
+    plain one: both decoded eagerly (GATHER) from the same prefilled
+    cache, every output recorded (``_Taps``); each position's kept verify
+    row (the last pass that covered it) against the plain step at that
+    position, in order: the first position and op that differ; and the
+    first position whose cache bytes (int4 codes and scales, or bf16 K/V)
+    differ in any layer, below the first differing token."""
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.lm import LM
+
+    S = prompt.shape[1]
+    with _Taps(model, policy) as taps:
+        cache_p, tok = _prefilled(model, params, prompt, policy)
+        plain, toks_p = {}, []
+        for t in range(n_new):
+            taps.out.clear()
+            lg, cache_p = model.decode_step(params, tok, cache_p)
+            plain[S + t] = list(taps.out)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            toks_p.append(int(tok))
+        cache_s, tok0 = _prefilled(model, params, prompt, policy)
+        kept, verify = {}, LM.decode_verify
+
+        def noted(self_, params_, tokens, cache, **kw):
+            L0 = int(cache["pos"][0])
+            taps.out.clear()
+            out = verify(self_, params_, tokens, cache, **kw)
+            outs = list(taps.out)
+            for j in range(tokens.shape[1]):
+                kept[L0 + j] = (outs, j)  # a later pass recomputes it
+            return out
+
+        LM.decode_verify = noted
+        try:
+            toks_s, _, _ = Engine(model, graph=False).decode_spec(
+                params, tok0, cache_s, n_new, prompt=prompt, spec_k=SPEC_K)
+        finally:
+            LM.decode_verify = verify
+    toks_s = toks_s[0].tolist()
+    t_div = _first_diff(torch.tensor(toks_p), torch.tensor(toks_s))
+    first = None
+    for p in range(S, S + n_new):
+        diffs = taps.first_diff([kept[p]], [plain[p]])
+        if diffs:
+            first = (p - S, *diffs[0])
+            break
+    byte_pos = None
+    for st_p, st_s in zip(cache_p["attn"], cache_s["attn"]):
+        a = getattr(st_p.data, "kv", st_p.data)
+        b = getattr(st_s.data, "kv", st_s.data)
+        n = S + t_div  # positions written before the streams part
+        leaves = (("k_packed", "k_scales", "v_packed", "v_scales")
+                  if hasattr(a, "k_packed") else ("k", "v"))
+        if hasattr(a, "k_packed"):
+            n -= n % a.window
+        for f in leaves:
+            d = (getattr(a, f)[0, :, :n] != getattr(b, f)[0, :, :n])
+            hit = d.reshape(d.shape[0], n, -1).any(-1).any(0).nonzero()
+            if len(hit):
+                q = int(hit[0])
+                byte_pos = q if byte_pos is None else min(byte_pos, q)
+    log(f"[{CARD}] {policy}, {n_new} tokens of the {S}-token random prompt, "
+        f"eager: speculative vs plain tokens first differ at token "
+        f"{t_div}; first differing recorded output: "
+        + ("none" if first is None else
+           f"token {first[0]}, layer {first[1]} {first[2]} ({first[3]} "
+           f"elements)")
+        + "; first cache position whose bytes differ below that token: "
+        + ("none" if byte_pos is None else f"{byte_pos - S} past the prompt"))
+
+
+def _first_diff(a, b) -> int:
+    d = (a != b).nonzero()
+    return int(d[0]) if len(d) else len(a)
+
+
+def spec_phase(model, params, mono, pre_mono):
+    """Speculative decoding on the card (ROADMAP A5): ``Engine`` at batch 1
+    and ``BatchEngine`` (see the module doc, phase 10).  Returns launches
+    per kernel on its paths."""
+    from repro_torch.core import cache_api
+
+    vocab = model.cfg.vocab_size
+    L = model.cfg.n_layers
+    prompts = spec_prompts(vocab)
+    launches, rows = {}, []
+    streams = []  # (what, first differing step or None)
+    cache_api._KERNEL_VERIFY_WARNED = False
+    for name, prompt in prompts.items():
+        plain = {}
+        for policy, backend in (("int4-srft", "kernel"),
+                                ("int4-srft", "gather"), ("bf16", None)):
+            plain[policy, backend] = plain_stream(model, params, policy,
+                                                  backend, prompt,
+                                                  NEW_TOKENS)
+        if name == "random":
+            spec_op_report(model, params, prompt,
+                           plain["int4-srft", "gather"][0], "int4-srft")
+            spec_trace_report(model, params, prompt, "int4-srft",
+                              SPEC_TRACE_TOKENS)
+        for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
+            toks, rep, _ = spec_stream(model, params, policy, backend,
+                                       prompt, NEW_TOKENS,
+                                       profile=name == "random")
+            if policy == "int4-srft":
+                launches[f"spec_engine_{name}"] = rep["launches"]
+            refs = ((("int4-srft", "gather"), ("int4-srft", "kernel"))
+                    if policy == "int4-srft" else (("bf16", None),))
+            for ref in refs:
+                t_p, l_p, ms_p = plain[ref]
+                what = (f"{name} prompt, {policy} spec (GATHER verify) vs "
+                        f"plain {(ref[1] or 'gather').upper()}")
+                n_eq = _first_diff(t_p[0], toks[0])
+                _tie_check(t_p[0], toks[0], l_p, what)
+                streams.append((what, n_eq if n_eq < NEW_TOKENS else None))
+                log(f"[{CARD}] {what}: {n_eq} of {NEW_TOKENS} tokens "
+                    f"bit-equal before the first difference")
+                rep[f"plain_{(ref[1] or 'gather')}_ms_per_token"] = ms_p
+                rep[f"bit_equal_prefix_vs_{ref[1] or 'gather'}"] = n_eq
+            rep["prompt_kind"] = name
+            rows.append(rep)
+            log("spec " + json.dumps(rep))
+
+    # graph == eager, bit for bit, on the repetitive prompt
+    for policy, backend in (("int4-srft", "kernel"), ("bf16", None)):
+        t_g, rep_g, _ = spec_stream(model, params, policy, backend,
+                                    prompts["repetitive"], SPEC_EAGER_NEW)
+        t_e, rep_e, _ = spec_stream(model, params, policy, backend,
+                                    prompts["repetitive"], SPEC_EAGER_NEW,
+                                    graph=False)
+        assert torch.equal(t_g, t_e), f"{policy}: graph spec != eager spec"
+        assert (rep_g["drafted"], rep_g["accepted"]) == \
+            (rep_e["drafted"], rep_e["accepted"]), (rep_g, rep_e)
+        log(f"[{CARD}] {policy} spec, repetitive prompt: graph == eager for "
+            f"{SPEC_EAGER_NEW}/{SPEC_EAGER_NEW} tokens; ms per verify pass "
+            f"{rep_g['ms_per_pass']:.2f} graph vs {rep_e['ms_per_pass']:.2f} "
+            f"eager; ms per token {rep_g['ms_per_token']:.2f} vs "
+            f"{rep_e['ms_per_token']:.2f}")
+    spec_no_sync(model, params, prompts["repetitive"])
+
+    # BatchEngine: the batch requests and the preempting pool, spec_k 4
+    reqs = batch_requests(vocab)
+    small = [r for r in reqs if len(r.prompt) in (BATCH_PROMPTS[0],
+                                                  BATCH_PROMPTS[-1])]
+
+    def check_slack(eng):
+        for s, r in enumerate(eng._slot_req):
+            if r is None or eng._pending is not None \
+                    and eng._pending.slot == s:
+                continue
+            want = -(-(len(r.prompt) + r.max_new_tokens + SPEC_K - 1)
+                     // PAGE_SIZE)
+            mapped = int((eng._ptab_host[s] != 0).sum())
+            assert mapped == want, (r.rid, mapped, want)
+
+    forced = {}  # the plain run's teacher-forced logits, by request
+
+    for policy, backend, paged in SPEC_BATCH_RUNS:
+        int4 = policy == "int4-srft"
+        _zero_counters()
+        eng, got, rep = serve_batch(
+            model, params, policy, backend, paged, reqs, spec_k=SPEC_K,
+            after_first_step=check_slack if paged else None)
+        layout = "paged" if paged else "dense"
+        if int4:
+            launches[f"spec_batch_{layout}"] = _counters()
+            assert _counters()["quant_decode_attention"] == 0
+            assert _counters()["quant_decode_attention_paged"] == 0
+            assert eng._step_graph.counts == (0, 0, 2 * L * SPEC_K, 0)
+        eng_m, done_m, rep_m = mono[policy, paged]
+        eq = []
+        for r in reqs:
+            a, b = done_m[r.rid].tokens, got[r.rid].tokens
+            assert got[r.rid].finish_reason == done_m[r.rid].finish_reason
+            eq.append(_first_diff(torch.as_tensor(a), torch.as_tensor(b)))
+            streams.append((f"batch {policy} {layout} request {r.rid}",
+                            eq[-1] if eq[-1] < len(a) else None))
+            if not (a == b).all():
+                key = (policy, r.rid, a.tobytes())
+                if key not in forced:
+                    forced[key] = forced_logits(model, params, policy,
+                                                backend, r.prompt, a,
+                                                eng_m._rots)
+                _tie_check(a, b, forced[key],
+                           f"{policy} {layout} request {r.rid} spec vs plain")
+        rep.update(n_drafted=eng.n_drafted, n_accepted=eng.n_accepted,
+                   acceptance=eng.n_accepted / max(eng.n_drafted, 1),
+                   plain_decode_ms_per_step=rep_m["decode_ms_per_step"],
+                   bit_equal_prefix=eq, spec_k=SPEC_K)
+        log("batch spec " + json.dumps(rep, default=str))
+        log(f"[{CARD}] BatchEngine {policy} {layout} spec_k {SPEC_K}: every "
+            f"stream and finish reason equals the plain run's up to a "
+            f"near-tie (bit-equal prefixes {eq} of "
+            f"{[r.max_new_tokens for r in reqs]}); acceptance "
+            f"{rep['acceptance']:.3f}; ms per verify pass "
+            f"{rep['decode_ms_per_step']:.2f} vs plain ms per step "
+            f"{rep_m['decode_ms_per_step']:.2f}"
+            + ("; no page leaked, every row mapped its spec_k-1 slack"
+               if paged else ""))
+    eng_d = mono["int4-srft", False][0]
+    eng, got, rep = serve_batch(model, params, "int4-srft", "kernel", True,
+                                small, capacity=2,
+                                n_pages=S_MAX // PAGE_SIZE + 1,
+                                spec_k=SPEC_K)
+    log("batch spec " + json.dumps(rep, default=str))
+    assert eng.n_preemptions > 0, "the undersized pool did not preempt"
+    for r in small:
+        _tie_check(pre_mono[r.rid].tokens, got[r.rid].tokens, forced_logits(
+            model, params, "int4-srft", "kernel", r.prompt,
+            pre_mono[r.rid].tokens, eng_d._rots),
+            f"preempting pool request {r.rid} spec vs plain")
+    for r in small:
+        n_eq = _first_diff(torch.as_tensor(pre_mono[r.rid].tokens),
+                           torch.as_tensor(got[r.rid].tokens))
+        streams.append((f"preempting pool request {r.rid}",
+                        n_eq if n_eq < r.max_new_tokens else None))
+    div = [(w, i) for w, i in streams if i is not None]
+    log(f"[{CARD}] spec vs plain: {len(div)} of {len(streams)} streams "
+        f"diverge, each at a near-tie (first differing step): "
+        + json.dumps(dict(div)))
+    log(f"[{CARD}] preempting pool, spec_k {SPEC_K}: {eng.n_preemptions} "
+        f"preemptions, streams equal the plain pool's up to a near-tie, no "
+        f"page left in use")
+    summary = {f"{r['prompt_kind']}/{r['policy']}": dict(
+        spec_ms_per_token=round(r["ms_per_token"], 3),
+        plain_ms_per_token={k.split("_")[1]: round(v, 3)
+                            for k, v in r.items()
+                            if k.startswith("plain_")},
+        acceptance=round(r["acceptance"], 3),
+        tokens_per_pass=round(r["tokens_per_pass"], 3),
+        ms_per_pass=round(r["ms_per_pass"], 3),
+        capture_s=round(r["capture_s"], 3),
+        idle_share=r.get("idle_share")) for r in rows}
+    log(f"[{CARD}] Engine spec_k {SPEC_K} at {SPEC_PROMPT} tokens, "
+        f"{NEW_TOKENS} new (ms by CUDA events, graph): "
+        + json.dumps(summary))
+    return launches
+
+
 # ---------------------------------------------------------------- quality
 
 def quality_phase():
@@ -1635,7 +2173,11 @@ def main() -> int:
     t0 = time.perf_counter()
     chunked = chunked_phase(model, params, mono, pre_mono)
     log(f"chunked phase {time.perf_counter() - t0:.1f}s")
-    by_path = {"engine": launches, **batch, **chunked, "quality": quality}
+    t0 = time.perf_counter()
+    spec = spec_phase(model, params, mono, pre_mono)
+    log(f"spec phase {time.perf_counter() - t0:.1f}s")
+    by_path = {"engine": launches, **batch, **chunked, **spec,
+               "quality": quality}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

@@ -24,6 +24,15 @@ prefill's bytes); ``adopt_prefix`` seeds a batch-1 row from a donor's
 resident pages; ``raw_kv_view`` reads a row back in raw space (bf16: its
 bytes; int4: dequantize + inverse rotation, kernel B4).
 
+Speculative decoding (ref :698-720, :1012-1065): ``snapshot_rows``
+copies what a verify pass's rollback needs (bf16: the entry lengths;
+int4: the residual rings and lengths) into fresh tensors or into
+caller-owned buffers (``into=``, the fixed addresses a captured pass
+writes); ``verify_attend`` scores k queries, each against its own prefix,
+with GATHER's numerics; ``truncate_rows`` rolls the live state back in
+place.  An int4 KERNEL verify warns once and reads with GATHER's
+numerics, as the reference does: B1/B2 are single-query kernels.
+
 The model code never branches on the scheme: a ``CacheState`` carries its
 policy.  ``attend`` raises for a backend a policy does not implement; the
 one switch it makes is the reference's: an int4 KERNEL read with a
@@ -49,6 +58,8 @@ from repro_torch.core.quant_attention_ref import (
     decode_attention_bf16_blockwise,
     decode_attention_quant,
     decode_attention_quant_blockwise,
+    verify_attention_bf16,
+    verify_attention_quant,
 )
 from repro_torch.core.transforms import Rotation, make_rotation
 from repro_torch.kernels.srft_quant.ops import dequantize_rotate
@@ -223,14 +234,13 @@ class _LaterSlices:
     def import_pages(self, *a, **k):
         self._later("import_pages", "A6: the host prefix tier")
 
-    def snapshot_rows(self, *a, **k):
-        self._later("snapshot_rows", "A5: speculative decoding")
 
-    def verify_attend(self, *a, **k):
-        self._later("verify_attend", "A5: speculative decoding")
-
-    def truncate_rows(self, *a, **k):
-        self._later("truncate_rows", "A5: speculative decoding")
+def _copy_into(src, into):
+    """A copy of ``src``: into ``into`` in place when given, else a fresh
+    clone; a host int (a plain cache's length) passes through."""
+    if not isinstance(src, torch.Tensor):
+        return src
+    return src.clone() if into is None else into.copy_(src)
 
 
 def _unsupported(policy, backend: AttendBackend):
@@ -348,6 +358,35 @@ class BF16Policy(_LaterSlices):
         return decode_attention_bf16(q, data, scale=scale,
                                      sliding_window=sliding_window)
 
+    def rollback_leaves(self, state) -> tuple:
+        """The live tensors a verify pass's rollback rewrites: the
+        lengths (position-addressed appends need nothing else)."""
+        return (state.data.length,)
+
+    def snapshot_rows(self, state, into=None):
+        """The entry lengths, copied (into ``into`` when given)."""
+        return _copy_into(state.data.length, into)
+
+    def verify_attend(self, q, state, snap, *, scale=None, backend=None,
+                      kv_block=512, sliding_window=None):
+        """k queries (B, Hq, k, d) against a state holding all k appended
+        tokens; ``snap`` is :meth:`snapshot_rows`'s.  Every backend reads
+        with GATHER's numerics, as the reference's."""
+        backend = AttendBackend.parse(backend)
+        if backend not in self.supported_backends:
+            _unsupported(self, backend)
+        data = state.data
+        if state.is_paged:
+            k, v = paged.gather_view(data)
+            data = BF16KVCache(k, v, data.length)
+        return verify_attention_bf16(q, data, base_len=snap, scale=scale,
+                                     sliding_window=sliding_window)
+
+    def truncate_rows(self, state, new_length, snap):
+        """Roll back to ``new_length`` in place: a length decrement."""
+        kvcache.set_length(state.data, new_length)
+        return state
+
     def nbytes(self, state, *, persistent_only: bool = True):
         """Cache bytes; for a paged state the whole pool (the allocation),
         plus the page table and refcounts unless ``persistent_only``."""
@@ -375,6 +414,23 @@ def _warn_kernel_sliding_window() -> None:
             "int4-srft: the B1/B2 kernels do not implement sliding_window; "
             "falling back to the BLOCKWISE read path for this and "
             "subsequent windowed reads", RuntimeWarning, stacklevel=3)
+
+
+_KERNEL_VERIFY_WARNED = False
+
+
+def _warn_kernel_verify() -> None:
+    """Once per process, as the reference (``cache_api.py:1024-1036``):
+    a verify read is multi-query and B1/B2 are single-query, so the pass
+    reads with GATHER's numerics."""
+    global _KERNEL_VERIFY_WARNED
+    if not _KERNEL_VERIFY_WARNED:
+        _KERNEL_VERIFY_WARNED = True
+        warnings.warn(
+            "int4-srft: the B1/B2 kernels do not implement multi-query "
+            "speculative verify; falling back to the GATHER read path for "
+            "this and subsequent verify passes", RuntimeWarning,
+            stacklevel=3)
 
 
 @dataclasses.dataclass
@@ -573,6 +629,48 @@ class Int4SRFTPolicy(_LaterSlices):
                 sliding_window=sliding_window, kv_block=kv_block)
         return decode_attention_quant(q, kv, d.rot_k, d.rot_v, scale=scale,
                                       sliding_window=sliding_window)
+
+    def rollback_leaves(self, state) -> tuple:
+        """The live tensors a verify pass's rollback rewrites: the K and V
+        residual rings (a mod-W overwrite structure) and the lengths."""
+        kv = state.data.kv
+        if state.is_paged:
+            return (*kv.residual, kv.length)
+        return (kv.k_residual, kv.v_residual, kv.length)
+
+    def snapshot_rows(self, state, into=None):
+        """(k ring, v ring, lengths) at pass entry, copied (into the three
+        buffers of ``into`` when given): the appends that follow write the
+        live rings in place."""
+        into = (None,) * 3 if into is None else into
+        return tuple(_copy_into(t, b)
+                     for t, b in zip(self.rollback_leaves(state), into))
+
+    def verify_attend(self, q, state, snap, *, scale=None, backend=None,
+                      kv_block=512, sliding_window=None):
+        """k queries (B, Hq, k, d) against a state holding all k appended
+        tokens, with GATHER's numerics; KERNEL warns once first."""
+        if AttendBackend.parse(backend) is AttendBackend.KERNEL:
+            _warn_kernel_verify()
+        d = state.data
+        snap_k, snap_v, base_len = snap
+        kv = self._dense_kv_view(d.kv) if state.is_paged else d.kv
+        return verify_attention_quant(
+            q, kv, d.rot_k, d.rot_v, snap_k_res=snap_k, snap_v_res=snap_v,
+            base_len=base_len, scale=scale, sliding_window=sliding_window)
+
+    def truncate_rows(self, state, new_length, snap):
+        """Roll back to ``new_length`` in place: the rings rewound, the
+        lengths set; packed storage untouched."""
+        kv = state.data.kv
+        snap_k, snap_v, base_len = snap
+        if state.is_paged:
+            for ring, saved in zip(kv.residual, (snap_k, snap_v)):
+                kvcache.rewind_residual(ring, saved, base_len, new_length)
+            kvcache.set_length(kv, new_length)
+        else:
+            kvcache.truncate_rows(kv, new_length, snap_k, snap_v, base_len)
+        return state
 
     def nbytes(self, state, *, persistent_only: bool = True):
         """Persistent bytes: packed codes + scales (for a paged state the

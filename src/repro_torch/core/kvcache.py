@@ -2,8 +2,9 @@
 ``repro/core/kvcache.py``: ``init_cache`` / ``init_bf16_cache`` with
 ``ragged`` (:106-142), ``prefill`` (:167-208), ``decode_update`` (:211),
 ``decode_update_ragged`` (:272-330), ``prefill_chunk_ragged`` and
-``bf16_prefill_chunk_ragged`` (:333-415), ``packed_len`` (:474), the
-bf16 updates (:502-542)).
+``bf16_prefill_chunk_ragged`` (:333-415), ``rewind_residual`` and
+``truncate_rows`` (:418-471), the speculative rollback, ``packed_len``
+(:474), the bf16 updates (:502-542)).
 
 Storage between decode steps: K/V rotated and lambda-rescaled, held as
 nibble-packed int4 codes + per-group fp32 scales, plus an fp32 residual
@@ -46,6 +47,9 @@ __all__ = [
     "decode_update_ragged",
     "prefill_chunk_ragged",
     "bf16_prefill_chunk_ragged",
+    "rewind_residual",
+    "truncate_rows",
+    "set_length",
     "packed_len",
     "dequantize_rotated",
     "gather_rotated",
@@ -291,6 +295,50 @@ def advance(length: torch.Tensor, active: "torch.Tensor | None"
     if active is None:
         return length + 1
     return length + active.to(length.dtype)
+
+
+def set_length(cache, new_len) -> None:
+    """Every row's length to ``new_len`` (a shared int, or () / (B,) for
+    a ragged cache), in place; a plain cache's int length is rebound."""
+    if isinstance(cache.length, torch.Tensor):
+        cache.length.copy_(torch.as_tensor(new_len).expand(
+            cache.length.shape))
+    else:
+        cache.length = int(new_len)
+
+
+def rewind_residual(final_res: torch.Tensor, snap_res: torch.Tensor,
+                    base_len, new_len) -> None:
+    """Rewind a mod-W residual ring (B, H, W, d), in place, to what a
+    sequential run stopped at ``new_len`` holds (ref ``kvcache.py:418``).
+    Slot s was written by this pass's append of position L0 + j(s), j(s)
+    = (s - L0) mod W, at most once (a verify pass appends k <= W
+    tokens): it keeps its final value exactly when that position survives
+    (L0 + j(s) < L'), and takes the entry snapshot otherwise, rows that
+    appended nothing included.  ``base_len`` (L0) and ``new_len`` (L')
+    are shared ints or per-row (B,) tensors.  Packed storage is never
+    rewound: a rolled-back flush's slab sits at W-aligned offsets at or
+    past L' - L' mod W, every read masks it, and the next flush that
+    becomes readable rewrites it whole."""
+    W = final_res.shape[-2]
+    dev = final_res.device
+    s = torch.arange(W, device=dev)
+    base = torch.as_tensor(base_len, device=dev).reshape(-1, 1)
+    new = torch.as_tensor(new_len, device=dev).reshape(-1, 1)
+    keep = (base + (s - base) % W) < new  # (B or 1, W)
+    final_res.copy_(torch.where(keep[:, None, :, None], final_res,
+                                snap_res))
+
+
+def truncate_rows(cache: QuantKVCache, new_len, snap_k_res: torch.Tensor,
+                  snap_v_res: torch.Tensor, base_len) -> QuantKVCache:
+    """Roll a quantized cache back to ``new_len`` after a verify pass, in
+    place (ref ``kvcache.py:449``): both rings rewound
+    (:func:`rewind_residual`), the lengths set; packed storage untouched."""
+    rewind_residual(cache.k_residual, snap_k_res, base_len, new_len)
+    rewind_residual(cache.v_residual, snap_v_res, base_len, new_len)
+    set_length(cache, new_len)
+    return cache
 
 
 def packed_len(cache: QuantKVCache) -> Length:

@@ -3,8 +3,9 @@ sharing (port of ``repro/core/paged.py``: ``NULL_PAGE`` (:77), the
 allocator (:84-157), ``PagedData`` / ``init_paged`` (:164-227),
 ``gather_view`` / ``read_pages`` / ``pages_to_dense`` (:234-283),
 ``_tail_page`` / ``append_token`` / ``write_slab`` / ``write_chunk`` /
-``append_chunk`` (:290-373), ``insert_row`` (:378-424), ``reset_rows``
-(:454-464), ``int4_update_paged`` (:471-504), ``int4_prefill_chunk_paged``
+``append_chunk`` (:290-373), ``insert_row`` (:378-424),
+``truncate_pages`` (:427-451), ``reset_rows`` (:454-464),
+``int4_update_paged`` (:471-504), ``int4_prefill_chunk_paged``
 (:507-540) and ``meta_nbytes`` (:547)).
 
 K/V live in pools of ``(n_pages, H, page_size, c)`` blocks on the device;
@@ -62,6 +63,7 @@ __all__ = [
     "write_chunk",
     "append_chunk",
     "insert_row",
+    "truncate_pages",
     "reset_rows",
     "int4_update_paged",
     "int4_prefill_chunk_paged",
@@ -351,6 +353,27 @@ def insert_row(pd: PagedData, dense_leaves: tuple, residual_rows: tuple,
     pd.upload_table()
     pd.length[slot] = torch.as_tensor(row_length, device=dev).reshape(())
     pd.pool = pool
+    return pd
+
+
+def truncate_pages(pd: PagedData, new_lengths) -> PagedData:
+    """Roll per-row lengths back to ``new_lengths`` (B,) and release the
+    fully vacated tail pages: table entry j of row b survives iff j <
+    ceil(L'_b / page_size); each released entry drops one reference (a
+    COW sibling that still maps the page keeps it alive) and is nulled,
+    and the table is uploaded.  Lengths only shrink.  The host-side
+    structural API (ref ``paged.py:427``): the decode path never calls
+    it, since a speculative rewind inside a pass is a length decrement
+    and the slack pages are allocated at admission."""
+    ps, MP = pd.page_size, pd.max_pages
+    new = _host(new_lengths, torch.int64).reshape(-1)
+    keep = -(-new // ps)
+    drop = torch.arange(MP)[None, :] >= keep[:, None]
+    pd.pool = pool_free(pd.pool, pd.table_host, drop)
+    pd.table_host[drop] = NULL_PAGE
+    pd.upload_table()
+    pd.length.copy_(torch.minimum(
+        pd.length, new.to(pd.length.device, pd.length.dtype)))
     return pd
 
 

@@ -3,8 +3,10 @@
 ``decode_attention_quant`` (:54-130) and ``decode_attention_bf16``
 (:232-269), the GATHER backend; ``decode_attention_quant_blockwise``
 (:133-229) and ``decode_attention_bf16_blockwise`` (:272-319), the
-BLOCKWISE backend).  Lengths are a shared int or, for a ragged cache,
-per-row ``(B,)``: every mask is then per row.
+BLOCKWISE backend; ``_per_query_lengths``, ``verify_attention_quant`` and
+``verify_attention_bf16`` (:357-478), the k-query reads of a speculative
+verify pass, served with GATHER's numerics).  Lengths are a shared int
+or, for a ragged cache, per-row ``(B,)``: every mask is then per row.
 
 Rotated-space read of the int4 cache:
 
@@ -36,7 +38,8 @@ from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
 from repro_torch.core.transforms import Rotation
 
 __all__ = ["decode_attention_quant", "decode_attention_quant_blockwise",
-           "decode_attention_bf16", "decode_attention_bf16_blockwise"]
+           "decode_attention_bf16", "decode_attention_bf16_blockwise",
+           "verify_attention_quant", "verify_attention_bf16"]
 
 NEG = -1e30
 
@@ -49,22 +52,24 @@ def _per_row(x, rank: int):
     return x.reshape((-1,) + (1,) * (rank - 1))
 
 
-def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
-                           rot_k: Rotation, rot_v: Rotation, *,
-                           scale: Optional[float] = None,
-                           sliding_window: Optional[int] = None
-                           ) -> torch.Tensor:
-    """q (B, Hq, 1, d) -> (B, Hq, 1, d) in the original basis."""
+def _fold_query(q: torch.Tensor, rot_k: Rotation, Hkv: int) -> torch.Tensor:
+    """q (B, Hq, 1, d) -> q_eff (B, Hkv, G, d) = diag(1/lam_k) B q, fp32."""
     B, Hq, _, d = q.shape
-    Hkv = cache.k_packed.shape[1]
-    G = Hq // Hkv
-    sm = scale if scale is not None else d ** -0.5
-    dev = q.device
-    qg = (q.float() @ rot_k.folded_query_matrix().T).reshape(B, Hkv, G, d)
+    return (q.float() @ rot_k.folded_query_matrix().T).reshape(
+        B, Hkv, Hq // Hkv, d)
 
-    yk, yv, plen = kvcache.gather_rotated(cache)
-    plen, length = _per_row(plen, 4), _per_row(cache.length, 4)
-    W = cache.window
+
+def _quant_read(qg, yk, yv, ring_k, ring_v, plen, length, sm,
+                sliding_window) -> torch.Tensor:
+    """One query's two-part read: the packed part (positions < ``plen``
+    of the dequantized ``yk`` / ``yv``) and the residual ring (token i at
+    ``plen + i``, valid below ``length``), combined.  ``qg`` (B, Hkv, G,
+    d); returns out_rot (B, Hkv, G, d).  Decode and verify both read
+    through here, so a verify query runs a decode step's operations in
+    the same order."""
+    dev = qg.device
+    plen, length = _per_row(plen, 4), _per_row(length, 4)
+    W = ring_k.shape[-2]
 
     def part(keys, vals, pos, valid):
         logits = torch.einsum("bhgd,bhsd->bhgs", qg, keys) * sm
@@ -77,16 +82,82 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
         return m, e.sum(dim=-1), torch.einsum("bhgs,bhsd->bhgd", e, vals)
 
     # packed part: positions < plen; residual token i sits at plen + i
-    m_p, l_p, acc_p = part(yk, yv, torch.arange(cache.s_max, device=dev),
+    m_p, l_p, acc_p = part(yk, yv, torch.arange(yk.shape[-2], device=dev),
                            plen)
-    m_r, l_r, acc_r = part(cache.k_residual, cache.v_residual,
+    m_r, l_r, acc_r = part(ring_k, ring_v,
                            plen + torch.arange(W, device=dev), length)
     m = torch.maximum(m_p, m_r)
     w_p, w_r = torch.exp(m_p - m), torch.exp(m_r - m)
     denom = (w_p * l_p + w_r * l_r).clamp_min(1e-30)
-    out_rot = (w_p[..., None] * acc_p + w_r[..., None] * acc_r) \
+    return (w_p[..., None] * acc_p + w_r[..., None] * acc_r) \
         / denom[..., None]
+
+
+def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
+                           rot_k: Rotation, rot_v: Rotation, *,
+                           scale: Optional[float] = None,
+                           sliding_window: Optional[int] = None
+                           ) -> torch.Tensor:
+    """q (B, Hq, 1, d) -> (B, Hq, 1, d) in the original basis."""
+    B, Hq, _, d = q.shape
+    sm = scale if scale is not None else d ** -0.5
+    qg = _fold_query(q, rot_k, cache.k_packed.shape[1])
+    yk, yv, plen = kvcache.gather_rotated(cache)
+    out_rot = _quant_read(qg, yk, yv, cache.k_residual, cache.v_residual,
+                          plen, cache.length, sm, sliding_window)
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+
+
+def _per_query_lengths(base_len, kq: int) -> torch.Tensor:
+    """(B, kq) view lengths L_i = L0 + i + 1 of the i-th verify query, or
+    (1, kq) for a shared length (ref ``quant_attention_ref.py:357``)."""
+    if isinstance(base_len, torch.Tensor):
+        i = torch.arange(kq, device=base_len.device, dtype=base_len.dtype)
+        return base_len.reshape(-1, 1) + i[None, :] + 1
+    return (base_len + torch.arange(kq) + 1)[None, :]
+
+
+def verify_attention_quant(q: torch.Tensor, cache: QuantKVCache,
+                           rot_k: Rotation, rot_v: Rotation, *,
+                           snap_k_res: torch.Tensor,
+                           snap_v_res: torch.Tensor, base_len,
+                           scale: Optional[float] = None,
+                           sliding_window: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Score kq <= W verify queries (B, Hq, kq, d) against a cache that
+    holds all kq appended tokens, each against its own historical prefix
+    L_i = L0 + i + 1 (ref ``quant_attention_ref.py:364``).  Returns (B,
+    Hq, kq, d) in the original basis.
+
+    Packed storage is append-only within a pass, so the final arrays
+    restricted to [0, plen_i) are what step i saw.  The ring is a mod-W
+    overwrite structure: query i takes slot s from the final ring when
+    this pass wrote it at a position the query may see (plen_i + s >=
+    L0) and from the entry snapshot otherwise (with kq <= W each slot is
+    written at most once a pass).  Each query then runs
+    :func:`decode_attention_quant`'s operations, in its order and at its
+    shapes (the fold, ``_quant_read``, the inverse, one query at a
+    time), so it equals the decode step's read bit for bit; the
+    dequantized packed arrays are shared by the kq queries."""
+    B, Hq, kq, d = q.shape
+    Hkv, W = cache.k_packed.shape[1], cache.window
+    sm = scale if scale is not None else d ** -0.5
+    yk, yv, _ = kvcache.gather_rotated(cache)
+    lengths = _per_query_lengths(base_len, kq)
+    base = _per_row(base_len, 2)
+    slots = torch.arange(W, device=q.device)
+    outs = []
+    for i in range(kq):
+        L_i = lengths[:, i].to(q.device)
+        plen_i = L_i - L_i % W
+        sel = (plen_i.reshape(-1, 1) + slots >= base)[:, None, :, None]
+        ring_k = torch.where(sel, cache.k_residual, snap_k_res)
+        ring_v = torch.where(sel, cache.v_residual, snap_v_res)
+        qg = _fold_query(q[:, :, i:i + 1], rot_k, Hkv)
+        out_rot = _quant_read(qg, yk, yv, ring_k, ring_v, plen_i, L_i, sm,
+                              sliding_window)
+        outs.append(rot_v.inverse(out_rot.reshape(B, Hq, 1, d)))
+    return torch.cat(outs, dim=2).to(q.dtype)
 
 
 def _tiles(s_max: int, kv_block: int):
@@ -160,18 +231,14 @@ def decode_attention_quant_blockwise(q: torch.Tensor, cache: QuantKVCache,
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
 
 
-def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
-                          scale: Optional[float] = None,
-                          sliding_window: Optional[int] = None
-                          ) -> torch.Tensor:
-    """bf16 baseline decode read (grouped GQA, empty-row-safe softmax)."""
+def _bf16_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
+               sm: float, sliding_window) -> torch.Tensor:
+    """One query (B, Hq, 1, d) over fp32 K/V (B, Hkv, S, d) valid below
+    ``length``: (B, Hq, 1, d) fp32.  Decode and verify read through here."""
     B, Hq, _, d = q.shape
-    Hkv = cache.k.shape[1]
-    G = Hq // Hkv
-    sm = scale if scale is not None else d ** -0.5
-    k, v = cache.k.float(), cache.v.float()
-    length = _per_row(cache.length, 4)
-    qg = q.float().reshape(B, Hkv, G, d)
+    Hkv = k.shape[1]
+    length = _per_row(length, 4)
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, d)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, k) * sm
     pos = torch.arange(k.shape[-2], device=q.device)
     mask = pos < length
@@ -182,8 +249,35 @@ def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, Hq, 1, d)
-    return out.to(q.dtype)
+    return torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, Hq, 1, d)
+
+
+def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
+                          scale: Optional[float] = None,
+                          sliding_window: Optional[int] = None
+                          ) -> torch.Tensor:
+    """bf16 baseline decode read (grouped GQA, empty-row-safe softmax)."""
+    sm = scale if scale is not None else q.shape[-1] ** -0.5
+    return _bf16_read(q, cache.k.float(), cache.v.float(), cache.length, sm,
+                      sliding_window).to(q.dtype)
+
+
+def verify_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *, base_len,
+                          scale: Optional[float] = None,
+                          sliding_window: Optional[int] = None
+                          ) -> torch.Tensor:
+    """kq-query verify read over the bf16 cache (ref
+    ``quant_attention_ref.py:445``): appends write position t at index t,
+    so the final buffers below L_i = L0 + i + 1 are what step i saw.
+    Each query runs :func:`decode_attention_bf16`'s operations; the fp32
+    casts of K/V are shared."""
+    kq = q.shape[2]
+    sm = scale if scale is not None else q.shape[-1] ** -0.5
+    k, v = cache.k.float(), cache.v.float()
+    lengths = _per_query_lengths(base_len, kq)
+    return torch.cat([
+        _bf16_read(q[:, :, i:i + 1], k, v, lengths[:, i].to(q.device), sm,
+                   sliding_window) for i in range(kq)], dim=2).to(q.dtype)
 
 
 def decode_attention_bf16_blockwise(q: torch.Tensor, cache: BF16KVCache, *,

@@ -5,8 +5,9 @@ and chunked admission with token-level prefix reuse (:138-160, :258-290,
 :564-600, :1252-1300, :1303-1400 without the host tier, :1635-1688), the
 paged page plan with its page-aligned copy-on-write prefix index and
 token-level donor index (:687-770), slot release (:772-824, without the
-host-tier spill), LRU recompute preemption (:826-878, :1409-1457) and the
-decode chunk (:945-977, :1705-1777)).
+host-tier spill), LRU recompute preemption (:826-878, :1409-1457), the
+decode chunk (:945-977, :1705-1777) and the speculative decode chunk
+(:211-230, :350-364, :474-478, :686-692, :979-1063, :1074-1085, :1238)).
 
 ``BatchEngine`` keeps a fixed-capacity slot cache (one ragged
 ``CacheState`` per layer: per-row lengths) and a host-side scheduler:
@@ -62,14 +63,28 @@ the token buffer).  ``Completion`` stitches the carried tokens back on.
 The allocator lives on the host, so the scheduler reads its page counts
 and tables without a device readback.
 
+Self-speculative decoding (``spec_k=k``, greedy only): each step of a
+decode chunk becomes one draft-verify-accept-rollback pass that advances
+every live row by 1..k tokens.  Each slot keeps its drafter history
+(prompt + sampled tokens) on the device, seeded at admission; a pass
+drafts k - 1 tokens per row (``engine.draft_tokens``), verifies the k-token
+blocks in one ``LM.decode_verify``, keeps each row's confirmed prefix plus
+one (clamped to its budget, cut after an EOS) and rolls every row back to
+its own length (``LM.truncate_cache``).  On a card the pass is the
+captured step, and a chunk writes a (capacity, chunk x k) token/valid
+grid that the same extraction loop reads.  A request needs k - 1 tokens
+of slack under ``s_max`` (and in its pages): a pass appends before it
+rolls back.  ``n_drafted`` / ``n_accepted`` count draft positions.
+
 Sampling is greedy, or by temperature from the explicit ``generator``.
 Not in this slice, each raising if asked for: packed admission
-(``admit_packed``), speculative decoding (``spec_k``), the host prefix
-tier (``offload_bytes``), tracing (``trace``) and meshes (``mesh``).
+(``admit_packed``), the host prefix tier (``offload_bytes``), tracing
+(``trace``) and meshes (``mesh``).
 
     eng = BatchEngine(model, params, capacity=4, s_max=4608,
                       policy="int4-srft", backend="kernel", paged=True,
-                      prefill_chunk=256)  # None: monolithic admission
+                      prefill_chunk=256,  # None: monolithic admission
+                      spec_k=None)  # 4: speculative passes of 4 tokens
     for c in eng.run([Request(rid=0, prompt=toks, max_new_tokens=64)]):
         ...  # Completion(rid, prompt_len, tokens, finish_reason)
 """
@@ -85,7 +100,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.core.paged import NULL_PAGE
-from repro_torch.launch.engine import GREEDY, Sampler
+from repro_torch.launch.engine import GREEDY, Sampler, verify_pass
 from repro_torch.launch.graphs import StepGraph
 
 __all__ = ["Request", "Completion", "BatchEngine"]
@@ -131,7 +146,6 @@ class _PendingAdmission:
 
 
 _LATER = {
-    "spec_k": "ROADMAP A5: speculative decoding",
     "offload_bytes": "ROADMAP A6: the host prefix tier",
     "trace": "ROADMAP A9: tracing with the server",
     "mesh": "ROADMAP A12: multi-device serving",
@@ -147,7 +161,8 @@ class BatchEngine:
     step; ``graph=False`` runs it eagerly, and a CPU engine refuses
     ``graph=True``.  ``prefill_chunk`` (None: monolithic admission) and
     ``prefill_budget`` (default: one chunk per quantum) turn on chunked
-    admission, and ``prefix_reuse`` its token-level reuse when paged."""
+    admission, and ``prefix_reuse`` its token-level reuse when paged.
+    ``spec_k`` (None: plain decode) turns on speculative decoding."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -161,8 +176,7 @@ class BatchEngine:
                  prefix_reuse: bool = True, spec_k: Optional[int] = None,
                  offload_bytes: Optional[int] = None, trace=None, mesh=None,
                  graph: Optional[bool] = None):
-        asked = dict(spec_k=spec_k, offload_bytes=offload_bytes,
-                     trace=trace, mesh=mesh)
+        asked = dict(offload_bytes=offload_bytes, trace=trace, mesh=mesh)
         for name, value in asked.items():
             if value is not None:
                 raise NotImplementedError(
@@ -192,6 +206,9 @@ class BatchEngine:
         self.eos_id = eos_id
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
+        self.spec_k = spec_k
+        if spec_k is not None:
+            self._check_spec(spec_k)
 
         self.paged = paged
         if paged:
@@ -238,6 +255,8 @@ class BatchEngine:
         self._valid = torch.zeros((capacity, chunk), dtype=torch.bool,
                                   device=dev)
         self._step_graph: Optional[StepGraph] = None
+        if spec_k is not None:
+            self._init_spec(spec_k)
         self.active = np.zeros((capacity,), bool)
         self.budget = np.zeros((capacity,), np.int32)  # decode steps left
         self._slot_req: list[Optional[Request]] = [None] * capacity
@@ -264,6 +283,49 @@ class BatchEngine:
             self.n_reuse_hits_device = 0
             self.n_reuse_misses = 0
             self._sync_pool()
+
+    def _check_spec(self, spec_k: int) -> None:
+        """The reference's validation (``batch_engine.py:214-230``)."""
+        if self.sampler.temperature != 0.0:
+            raise ValueError(
+                "spec_k requires greedy sampling (temperature == 0): "
+                "exact-match acceptance against the verify argmax is what "
+                "keeps per-row output bit-identical")
+        if spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+        W = getattr(self.policy, "window", None)
+        if W is not None and spec_k > W:
+            raise ValueError(
+                f"spec_k={spec_k} must be <= the policy flush window W={W}: "
+                f"a verify pass appends at most one residual-ring wrap "
+                f"(DESIGN.md §13)")
+
+    def _init_spec(self, k: int) -> None:
+        """The speculative pass's fixed device buffers: per-slot drafter
+        history (capacity s_max + k: a row holds at most s_max - k + 1
+        tokens and a pass writes k wide at its length) and length, the
+        drafted / accepted counters of a chunk, the per-layer snapshots,
+        and a chunk's (capacity, chunk x k) token/valid grid."""
+        dev, cap = self.device, self.capacity
+        self._hist = torch.zeros((cap, self.s_max + k), dtype=torch.long,
+                                 device=dev)
+        self._hlen = torch.zeros((cap,), dtype=torch.long, device=dev)
+        self._spec_counts = torch.zeros((2,), dtype=torch.long, device=dev)
+        self._snaps = [self.policy.snapshot_rows(st)
+                       for st in self.cache["attn"]]
+        self._toks = torch.zeros((cap, self.chunk * k), dtype=torch.long,
+                                 device=dev)
+        self._valid = torch.zeros((cap, self.chunk * k), dtype=torch.bool,
+                                  device=dev)
+        self.n_drafted = 0  # draft positions scored (the bonus excluded)
+        self.n_accepted = 0  # draft positions kept
+
+    @property
+    def n_rejected(self) -> int:
+        """Speculative draft positions rolled back (drafted - accepted)."""
+        if self.spec_k is None:
+            return 0
+        return self.n_drafted - self.n_accepted
 
     def _check_chunking(self, prefill_chunk, prefill_budget) -> None:
         """Chunk boundaries are W-aligned (a chunk then writes monolithic
@@ -315,7 +377,15 @@ class BatchEngine:
             del self._prefix_seqs[k]
 
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.page_size)
+        # spec_k - 1 slack: a verify pass appends up to spec_k - 1 tokens
+        # past the last position it can keep, and on an unmapped page they
+        # would land in the null page, where the pass's own read misses
+        # them
+        return -(-(prompt_len + max_new + self._slack) // self.page_size)
+
+    @property
+    def _slack(self) -> int:
+        return 0 if self.spec_k is None else self.spec_k - 1
 
     def _plan_pages(self, req: Request):
         """Host-side admission plan: walk the prefix index page by page
@@ -491,10 +561,14 @@ class BatchEngine:
             raise ValueError(f"request {req.rid}: empty prompt")
         if req.max_new_tokens < 1:
             raise ValueError(f"request {req.rid}: max_new_tokens must be >= 1")
-        if n + req.max_new_tokens > self.s_max:
+        # a verify pass appends spec_k tokens before its rollback, and a
+        # clamped out-of-range write would land on resident bytes
+        slack = self._slack
+        if n + req.max_new_tokens + slack > self.s_max:
+            extra = f" + spec_k-1 ({slack})" if slack else ""
             raise ValueError(
                 f"request {req.rid}: prompt ({n}) + max_new_tokens "
-                f"({req.max_new_tokens}) exceeds s_max={self.s_max}")
+                f"({req.max_new_tokens}){extra} exceeds s_max={self.s_max}")
         return n
 
     def submit(self, req: Request) -> None:
@@ -580,8 +654,12 @@ class BatchEngine:
 
     def _post_insert(self, req: Request, slot: int, tok0
                      ) -> Optional[Completion]:
+        """The bookkeeping monolithic and chunked admission share, once
+        the row is in its slot and ``tok0`` is drawn."""
         t0 = int(tok0[0, 0])
         self._slot_req[slot] = req
+        if self.spec_k is not None:
+            self._seed_hist(slot, req, t0)
         if req.resume_tok is not None:
             # t0 was already counted and streamed before the preemption
             self._slot_toks[slot] = []
@@ -594,6 +672,18 @@ class BatchEngine:
             self.eos_id is not None and t0 == self.eos_id)
         self.active[slot] = not done
         return self._retire(slot) if done else None
+
+    def _seed_hist(self, slot: int, req: Request, t0: int) -> None:
+        """(Re)seed a slot's drafter history: the prompt, then the
+        admission token (a preemption continuation's prompt already holds
+        everything generated before it, and ``t0`` is its resumed token);
+        zeros past it.  In place, between chunks."""
+        prompt = np.asarray(req.prompt, np.int64).ravel()
+        row = np.zeros((self._hist.shape[1],), np.int64)
+        row[:prompt.shape[0]] = prompt
+        row[prompt.shape[0]] = t0
+        self._hist[slot].copy_(torch.from_numpy(row))
+        self._hlen[slot] = prompt.shape[0] + 1
 
     def _admit_monolithic(self, round_start: int, events: list,
                           completions: list) -> None:
@@ -832,35 +922,94 @@ class BatchEngine:
         self.tok.copy_(nxt[:, None])
         active.copy_(alive)
 
+    def _spec_step(self):
+        """One speculative pass of the whole batch on the fixed buffers
+        (ref ``_spec_chunk_fn``'s body, ``batch_engine.py:994-1043``; the
+        body the graph captures): ``engine.verify_pass`` with the live
+        mask, the budgets and ``eos_id``; rows that are not live keep
+        their token.  Returns the verified tokens (cap, k) and which of
+        them are emitted."""
+        k = self.spec_k
+        active, budget = self._active, self._budget
+        g, m, self._snaps = verify_pass(
+            self.model, self.params, self.cache, self.tok, self._hist,
+            self._hlen, budget, k, snaps=self._snaps, active=active,
+            eos_id=self.eos_id, kv_block=self.kv_block, backend=self.backend)
+        valid = torch.arange(k, device=g.device)[None, :] < m[:, None]
+        nxt = g.gather(1, (m - 1).clamp(0, k - 1)[:, None])
+        nxt = torch.where(active[:, None], nxt, self.tok)
+        budget.sub_(m.to(budget.dtype))
+        alive = active & (budget > 0)
+        if self.eos_id is not None:
+            alive &= nxt[:, 0] != self.eos_id
+        self._spec_counts.add_(torch.stack([
+            active.long().sum() * (k - 1),
+            torch.where(active, m - 1, 0).sum()]))
+        self.tok.copy_(nxt)
+        active.copy_(alive)
+        return g, valid
+
     def _stepper(self):
         """The step to run: eager, or the captured graph's replay (the
-        first call captures it)."""
+        first call captures it); a speculative step returns its (tokens,
+        valid) pair.  A speculative capture also puts back the residual
+        rings and the drafter's buffers after its warm-up pass: a pass
+        that keeps tokens past a flush boundary wraps the ring over slots
+        that are live again once the lengths are put back."""
+        spec = self.spec_k is not None
+        body = self._spec_step if spec else self._step
         if not self.graph:
-            return self._step
+            return body
         if self._step_graph is None:
             state = [self.tok, self._active, self._budget, self.cache["pos"],
                      *(st.length for st in self.cache["attn"])]
+            if spec:
+                state += [self._hist, self._hlen, self._spec_counts,
+                          *(t for st in self.cache["attn"]
+                            for t in st.policy.rollback_leaves(st))]
             self._step_graph = StepGraph(
-                self._step, state, generator=self.generator
+                body, state, generator=self.generator
                 if self.sampler.temperature else None)
-        return self._step_graph.replay
+        graph = self._step_graph
+
+        def replay():
+            graph.replay()
+            return graph.out
+
+        return replay
 
     def _decode_chunk(self, n_steps: int):
-        """``n_steps`` decode steps of the whole batch; the host's masks
-        go into the device buffers first, and one readback ends the
-        chunk.  Returns host (tokens (cap, n), valid (cap, n), budget
-        (cap,), still-active (cap,))."""
+        """``n_steps`` decode steps (speculative passes) of the whole
+        batch; the host's masks go into the device buffers first, and one
+        readback ends the chunk.  Returns host (tokens (cap, n), valid
+        (cap, n), budget (cap,), still-active (cap,)), n = n_steps, or
+        n_steps x spec_k with the pass counters added to ``n_drafted`` /
+        ``n_accepted``."""
         self._active.copy_(torch.from_numpy(self.active))
         self._budget.copy_(torch.from_numpy(self.budget))
         step = self._stepper()
-        for i in range(n_steps):
-            self._valid[:, i].copy_(self._active)
-            step()
-            self._toks[:, i].copy_(self.tok[:, 0])
-        n = n_steps
+        k = self.spec_k
+        if k is None:
+            for i in range(n_steps):
+                self._valid[:, i].copy_(self._active)
+                step()
+                self._toks[:, i].copy_(self.tok[:, 0])
+            n, extra = n_steps, []
+        else:
+            self._spec_counts.zero_()
+            for i in range(n_steps):
+                g, valid = step()
+                self._toks[:, i * k:(i + 1) * k].copy_(g)
+                self._valid[:, i * k:(i + 1) * k].copy_(valid)
+            n = n_steps * k
+            extra = [self._spec_counts[None, :].expand(self.capacity, 2)]
         host = torch.cat([self._toks[:, :n], self._valid[:, :n].long(),
                           self._budget[:, None].long(),
-                          self._active[:, None].long()], 1).cpu().numpy()
+                          self._active[:, None].long(), *extra],
+                         1).cpu().numpy()
+        if k is not None:
+            self.n_drafted += int(host[0, 2 * n + 2])
+            self.n_accepted += int(host[0, 2 * n + 3])
         return (host[:, :n], host[:, n:2 * n].astype(bool),
                 host[:, 2 * n].astype(np.int32), host[:, 2 * n + 1] != 0)
 

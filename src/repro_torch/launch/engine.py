@@ -1,6 +1,7 @@
 """Single-stream generation engine (port of ``repro/launch/engine.py``:
-``Sampler``, ``Engine.prefill`` / ``decode`` / ``generate`` and the
-module-level ``generate``).
+``Sampler``, ``draft_tokens`` (:129), ``Engine.prefill`` / ``decode`` /
+``generate``, the speculative ``_check_spec`` / ``decode_spec`` /
+``generate_spec`` (:325-460) and the module-level ``generate``).
 
 The reference runs the decode loop as one donated ``lax.scan``
 (``_decode_loop``, :261).  Here, on a CUDA model, ``decode`` captures
@@ -22,6 +23,7 @@ loop is for its scan.  Sampling draws from an explicit
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -29,9 +31,11 @@ import torch
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.launch.graphs import StepGraph
 
-__all__ = ["Sampler", "GREEDY", "Engine", "generate"]
+__all__ = ["Sampler", "GREEDY", "Engine", "generate", "draft_tokens",
+           "verify_pass"]
 
 GRAPH_KEY = "decode_graph"  # where a cache keeps its captured step
+SPEC_KEY = "spec_graph"  # where a cache keeps its captured verify pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +66,128 @@ class Sampler:
 
 
 GREEDY = Sampler()
+
+
+def draft_tokens(hist: torch.Tensor, hlen, k: int) -> torch.Tensor:
+    """n-gram / prompt-lookup drafter (ref ``engine.py:129``): propose k - 1
+    continuation tokens from each row's own history.  ``hist`` (B, H)
+    holds the prompt and every token sampled since, ``hist[:, hlen - 1]``
+    the current one; ``hlen`` is a shared int or 0-d tensor, or per-row
+    (B,).  The most recent earlier position whose (previous, current)
+    bigram matches the tail wins, a unigram match otherwise, and the
+    tokens that followed it are proposed; with no match, the current
+    token repeated.  Device ops only, no host sync; drafts only gate how
+    many verified tokens are kept, never what they are.  Returns (B,
+    k - 1) int64.  A shared length reads as every row at it: the
+    reference's scalar path clamps its slices as the per-row gathers
+    clip their indices, so the two agree row by row."""
+    B, H = hist.shape
+    dev = hist.device
+    pos = torch.arange(H, device=dev)[None, :]
+    hl = torch.as_tensor(hlen, device=dev).long().reshape(-1, 1).expand(B, 1)
+    t = hist.gather(1, (hl - 1).clamp(0, H - 1))
+    prev = hist.gather(1, (hl - 2).clamp(0, H - 1))
+    m1 = (pos < hl - 1) & (hist == t)  # a match with a successor in hist
+    shifted = torch.cat([hist[:, :1], hist[:, :-1]], dim=1)
+    m2 = m1 & (pos >= 1) & (shifted == prev)
+    p1 = torch.where(m1, pos, -1).amax(dim=1)  # the most recent match
+    p2 = torch.where(m2, pos, -1).amax(dim=1)
+    pstar = torch.where(p2 >= 0, p2, p1)  # a bigram beats a unigram
+    j = torch.arange(1, k, device=dev)[None, :]
+    drafts = hist.gather(1, (pstar[:, None] + j).clamp(0, H - 1))
+    return torch.where(pstar[:, None] >= 0, drafts, t)
+
+
+def verify_pass(model, params, cache: dict, tok: torch.Tensor,
+                hist: torch.Tensor, hlen: torch.Tensor, budget: torch.Tensor,
+                k: int, *, snaps=None, active=None, eos_id=None,
+                kv_block: int = 512, backend=None):
+    """One draft-verify-accept-rollback pass, greedy (ref ``engine.py:
+    354-384`` and ``batch_engine.py:994-1043``): each row drafts k - 1
+    tokens from its history, ``LM.decode_verify`` scores the k-token
+    block (``tok`` first), and the row keeps m = the longest draft prefix
+    the verified greedy tokens confirm + 1, clamped to its ``budget``,
+    cut after an ``eos_id``, and 0 where not ``active`` (such a row
+    appended at its length without advancing, and the rollback to L0 + 0
+    restores it).  The cache rolls back to L0 + m, every row to its own
+    length, and the kept tokens extend the history where active; all in
+    place.  On a plain cache m is read to the host (its length is a host
+    int).  Returns (g (B, k) the verified tokens, m (B,), snaps)."""
+    pos = cache["pos"]
+    ragged = isinstance(pos, torch.Tensor)
+    L0 = pos.clone() if ragged else pos
+    block = torch.cat([tok, draft_tokens(hist, hlen, k)], dim=1)
+    logits, _, snaps = model.decode_verify(
+        params, block, cache, kv_block=kv_block, backend=backend,
+        active=active, snaps=snaps)
+    g = logits.argmax(dim=-1)
+    match = (block[:, 1:] == g[:, :-1]).long()
+    m = torch.minimum(match.cumprod(dim=1).sum(dim=1) + 1, budget.long())
+    if eos_id is not None:
+        # tokens past an EOS were never sampled in the sequential run
+        is_eos = g == eos_id
+        m = torch.where(is_eos.any(dim=1),
+                        torch.minimum(m, is_eos.long().argmax(dim=1) + 1), m)
+    if active is not None:
+        m = torch.where(active, m, 0)
+    model.truncate_cache(cache, L0 + m if ragged else L0 + int(m), snaps)
+    idx = hlen.clamp(max=hist.shape[1] - k)[:, None] + torch.arange(
+        k, device=g.device)[None, :]
+    hist.scatter_(1, idx, g if active is None else
+                  torch.where(active[:, None], g, hist.gather(1, idx)))
+    hlen.add_(m)
+    return g, m, snaps
+
+
+@dataclasses.dataclass
+class _SpecBuffers:
+    """The fixed buffers one speculative pass reads and writes: the last
+    token (1, 1), the drafter's history (1, H) and its length, the tokens
+    still to emit, the drafted and accepted counters (all (1,) int64),
+    and the per-layer snapshots (None until the first pass)."""
+
+    tok: torch.Tensor
+    hist: torch.Tensor
+    hlen: torch.Tensor
+    budget: torch.Tensor
+    drafted: torch.Tensor
+    accepted: torch.Tensor
+    snaps: Optional[list] = None
+
+    @classmethod
+    def new(cls, H: int, device) -> "_SpecBuffers":
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.long, device=device)
+
+        return cls(z(1, 1), z(1, H), z(1), z(1), z(1), z(1))
+
+    def seed(self, prompt: torch.Tensor, tok: torch.Tensor,
+             n_tokens: int) -> None:
+        """History = prompt + tok (zeros past it), budget ``n_tokens``,
+        counters zero; in place."""
+        S = prompt.shape[1]
+        self.hist.zero_()
+        self.hist[:, :S] = prompt
+        self.hist[:, S:S + 1] = tok
+        self.hlen.fill_(S + 1)
+        self.tok.copy_(tok)
+        self.budget.fill_(n_tokens)
+        self.drafted.zero_()
+        self.accepted.zero_()
+
+    def leaves(self) -> list:
+        return [self.tok, self.hist, self.hlen, self.budget, self.drafted,
+                self.accepted]
+
+
+@dataclasses.dataclass
+class _SpecCaptured:
+    """A cache's captured speculative pass and the buffers it replays."""
+
+    key: tuple
+    refs: tuple
+    step: StepGraph
+    buf: _SpecBuffers
 
 
 @dataclasses.dataclass
@@ -142,22 +268,36 @@ class Engine:
             return out, stacked, cache
         return out, cache
 
-    def _decode_graph(self, params, tok, cache, n_tokens, generator,
-                      return_logits):
+    @staticmethod
+    def _require_ragged(cache: dict) -> None:
         if not isinstance(cache["pos"], torch.Tensor):
             raise ValueError(
                 "graph decode replays device lengths: build the cache with "
                 "model.init_cache(batch, s_max, ragged=True), or decode "
                 "with Engine(graph=False)")
+
+    @staticmethod
+    def _host_length(cache: dict) -> int:
+        """The cache's length on the host: a plain cache's int, or the
+        copy ``prefill`` and the graph paths keep, else one readback."""
+        pos = cache["pos"]
+        if isinstance(pos, int):
+            return pos
+        held = cache.get(GRAPH_KEY)
+        if held is not None and held.length is not None:
+            return held.length
+        return int(pos.max())
+
+    def _decode_graph(self, params, tok, cache, n_tokens, generator,
+                      return_logits):
+        self._require_ragged(cache)
         if self.sampler.temperature and generator is None:
             raise ValueError("sampling under a graph needs an explicit "
                              "torch.Generator on the card (generator=)")
         # the room check comes first: the capture's warm-up step writes
         # at the length, and a full cache's ragged write would clamp onto
         # its last token
-        held = cache.get(GRAPH_KEY)
-        length = (held.length if held is not None and held.length is not None
-                  else int(cache["pos"].max()))
+        length = self._host_length(cache)
         s_max = cache["attn"][0].s_max
         if length + n_tokens > s_max:
             raise ValueError(f"cache full: {length} + {n_tokens} tokens > "
@@ -230,6 +370,156 @@ class Engine:
         if rest[1] is not None:
             steps.append(rest[1])
         return toks, torch.cat(steps, dim=1), rest[2]
+
+
+    # ----------------------------------------------- speculative decoding
+    def _check_spec(self, cache: dict, spec_k: int, batch: int) -> None:
+        """The reference's validation (``engine.py:325-352``), made before
+        any prefill."""
+        if self.sampler.temperature != 0.0:
+            raise ValueError(
+                "speculative decoding requires greedy sampling "
+                "(temperature == 0): exact-match acceptance against the "
+                "verify argmax is what keeps output bit-identical")
+        if spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+        if batch != 1:
+            raise ValueError(
+                "Engine.decode_spec serves a single stream (batch 1): a "
+                "non-ragged cache has one shared length, so per-row "
+                "acceptance widths are impossible -- use BatchEngine "
+                "with spec_k for batched speculative decoding")
+        W = getattr(cache["attn"][0].policy, "window", None)
+        if W is not None and spec_k > W:
+            raise ValueError(
+                f"spec_k={spec_k} must be <= the policy flush window "
+                f"W={W}: a verify pass appends at most one residual-ring "
+                f"wrap (DESIGN.md §13)")
+
+    def _check_spec_room(self, cache: dict, length: int, n_tokens: int,
+                         spec_k: int) -> None:
+        s_max = cache["attn"][0].s_max
+        if length + n_tokens + spec_k - 1 > s_max:
+            raise ValueError(
+                f"cache full: {length} + {n_tokens} tokens + spec_k-1 "
+                f"({spec_k - 1}) > s_max={s_max}: a verify pass appends "
+                f"k tokens before its rollback")
+
+    def _spec_pass(self, params, cache: dict, buf: _SpecBuffers,
+                   k: int) -> None:
+        """One :func:`verify_pass` on ``buf``.  On a ragged cache a spent
+        budget makes the row inactive, so the pass is a no-op by data
+        (m = 0, ``tok`` kept: the index m - 1 is clipped); on a plain
+        cache the caller never runs a spent pass."""
+        ragged = isinstance(cache["pos"], torch.Tensor)
+        g, m, buf.snaps = verify_pass(
+            self.model, params, cache, buf.tok, buf.hist, buf.hlen,
+            buf.budget, k, snaps=buf.snaps,
+            active=buf.budget > 0 if ragged else None,
+            kv_block=self.kv_block, backend=self.backend)
+        nxt = g.gather(1, (m - 1).clamp(min=0)[:, None])
+        buf.tok.copy_(torch.where(m[:, None] > 0, nxt, buf.tok))
+        buf.budget.sub_(m)
+        buf.drafted.add_((m > 0).long() * (k - 1))
+        buf.accepted.add_((m - 1).clamp(min=0))
+
+    def decode_spec(self, params, tok: torch.Tensor, cache: dict,
+                    n_tokens: int, *, prompt: torch.Tensor, spec_k: int):
+        """Self-speculative decode of ``n_tokens`` tokens from ``tok`` (1,
+        1), the last sampled token (not yet in the cache); ``prompt`` (1,
+        S) seeds the drafter.  Greedy only.  Returns (tokens (1,
+        n_tokens), cache, stats) with ``tokens`` equal to
+        :meth:`decode`'s and ``stats`` ``{"drafted", "accepted"}``: draft
+        positions scored and kept, the always-emitted token excluded
+        (the reference's), and ``"passes"``, the verify passes run.  The
+        cache needs spec_k - 1 tokens of room past the last decoded
+        position (a verify pass appends before it rolls back).  Under a
+        graph the first call on a cache captures the pass."""
+        self._check_spec(cache, spec_k, tok.shape[0])
+        length = self._host_length(cache)
+        self._check_spec_room(cache, length, n_tokens, spec_k)
+        S = prompt.shape[1]
+        if S + n_tokens > cache["attn"][0].s_max:
+            raise ValueError(f"the drafter's history holds s_max tokens: "
+                             f"prompt {S} + {n_tokens} new is more")
+        ragged = isinstance(cache["pos"], torch.Tensor)
+        if self.graph:
+            self._require_ragged(cache)
+        if not n_tokens:
+            return (torch.zeros((1, 0), dtype=torch.long, device=tok.device),
+                    cache, {"drafted": 0, "accepted": 0, "passes": 0})
+        prompt = prompt.to(tok.device).long()
+        if self.graph:
+            cap = self._spec_captured(params, cache, spec_k, prompt, tok,
+                                      n_tokens)
+            buf, step = cap.buf, cap.step.replay
+        else:
+            buf = _SpecBuffers.new(cache["attn"][0].s_max + spec_k,
+                                   tok.device)
+            buf.seed(prompt, tok, n_tokens)
+
+            def step():
+                self._spec_pass(params, cache, buf, spec_k)
+        remaining, passes = n_tokens, 0
+        while remaining:
+            n_pass = math.ceil(remaining / spec_k) if ragged else 1
+            for _ in range(n_pass):
+                step()
+            passes += n_pass
+            remaining = int(buf.budget)
+        nd, na = torch.cat([buf.drafted, buf.accepted]).tolist()
+        out = buf.hist[:, S + 1:S + 1 + n_tokens].clone()
+        if GRAPH_KEY in cache:
+            cache[GRAPH_KEY].length = length + n_tokens
+        return out, cache, {"drafted": nd, "accepted": na, "passes": passes}
+
+    def _spec_captured(self, params, cache, spec_k, prompt, tok, n_tokens
+                       ) -> _SpecCaptured:
+        """The cache's captured pass for these params and spec_k (the one
+        kept in the cache, or a new capture), its buffers seeded.  The
+        capture's warm-up pass is undone by putting back every tensor a
+        pass advances, the residual rings included: a warm-up that
+        accepts past a flush boundary wraps the ring over slots that are
+        live again once the length is put back."""
+        key = (id(self), id(params), spec_k)
+        cap = cache.get(SPEC_KEY)
+        if cap is not None and cap.key == key:
+            cap.buf.seed(prompt, tok, n_tokens)
+            return cap
+        buf = _SpecBuffers.new(cache["attn"][0].s_max + spec_k, tok.device)
+        buf.seed(prompt, tok, n_tokens)
+        buf.snaps = [st.policy.snapshot_rows(st) for st in cache["attn"]]
+        view = {"pos": cache["pos"], "attn": cache["attn"]}
+        model_pass = self._spec_pass
+
+        def step():
+            model_pass(params, view, buf, spec_k)
+
+        state = [*buf.leaves(), cache["pos"],
+                 *(t for st in cache["attn"]
+                   for t in st.policy.rollback_leaves(st))]
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        cap = _SpecCaptured(key, (self, params),
+                            StepGraph(step, state, pool=self._pool), buf)
+        cache[SPEC_KEY] = cap
+        return cap
+
+    def generate_spec(self, params, prompt: torch.Tensor, cache: dict,
+                      n_tokens: int, *, spec_k: int):
+        """Prefill + speculative decode, equal to :meth:`generate`'s greedy
+        tokens: the first from the prefill logits, the other n_tokens - 1
+        from :meth:`decode_spec`.  Validated before the prefill touches
+        the cache.  Returns (tokens (1, n_tokens), cache, stats)."""
+        self._check_spec(cache, spec_k, prompt.shape[0])
+        self._check_spec_room(cache, prompt.shape[1], n_tokens - 1, spec_k)
+        logits, cache = self.prefill(params, prompt, cache)
+        tok0 = logits[:, -1].argmax(dim=-1)[:, None]
+        if n_tokens == 1:
+            return tok0, cache, {"drafted": 0, "accepted": 0, "passes": 0}
+        toks, cache, stats = self.decode_spec(
+            params, tok0, cache, n_tokens - 1, prompt=prompt, spec_k=spec_k)
+        return torch.cat([tok0, toks], dim=1), cache, stats
 
 
 def generate(params, prompt: torch.Tensor, cache: dict, n_tokens: int, *,

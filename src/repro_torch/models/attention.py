@@ -10,7 +10,9 @@ serving paths behind the cache-policy protocol (port of
                     K/V go into raw bf16 side buffers, which its queries
                     attend, and into the cache through the policy;
   * decode        : one token -- append first, then attend, so the new
-                    token is read back from the residual window.
+                    token is read back from the residual window;
+  * verify        : k tokens of a speculative pass -- the same k appends
+                    a sequential decode makes, then one k-query read.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.models import common
 from repro_torch.models.flash import flash_attention
 
 __all__ = ["attention_init", "attention_forward", "attention_prefill_chunk",
-           "attention_decode"]
+           "attention_decode", "attention_verify"]
 
 
 def attention_init(generator: torch.Generator, cfg, device="cpu"):
@@ -132,3 +134,32 @@ def attention_decode(p, x: torch.Tensor, cfg, cache: CacheState, *,
     o = cache.policy.attend(q, cache, scale=cfg.head_dim ** -0.5,
                             backend=backend, kv_block=kv_block)
     return _merge_heads(p, o), cache
+
+
+def attention_verify(p, x: torch.Tensor, cfg, cache: CacheState, *,
+                     position: "int | torch.Tensor", kv_block: int = 512,
+                     backend: "AttendBackend | str | None" = None,
+                     active: Optional[torch.Tensor] = None, snap=None):
+    """Speculative verify (ref ``repro/models/attention.py:215``): x (B, k,
+    d) is the current token and k - 1 drafts.  Token j RoPE-rotates at
+    ``position + j`` (per row when ``position`` is (B,)); the k appends
+    are the unrolled ``policy.update`` calls of a sequential decode, so
+    the cache holds its bytes, and ``policy.verify_attend`` reads each
+    query against its own prefix.  ``snap`` is a previous
+    ``snapshot_rows`` result whose buffers this pass's snapshot is copied
+    into (fixed addresses under a captured pass).  Returns (y, cache,
+    snap); the caller rolls rejected drafts back with
+    ``policy.truncate_rows(cache, new_length, snap)``."""
+    kq = x.shape[1]
+    j = torch.arange(kq, device=x.device)
+    pos = position + j if isinstance(position, int) \
+        else position[:, None] + j[None, :]
+    q, k, v = _project_qkv(p, x, cfg, pos)
+    snap = cache.policy.snapshot_rows(cache, into=snap)
+    for i in range(kq):
+        cache = cache.policy.update(cache, k[:, :, i:i + 1],
+                                    v[:, :, i:i + 1], active=active)
+    o = cache.policy.verify_attend(q, cache, snap,
+                                   scale=cfg.head_dim ** -0.5,
+                                   backend=backend, kv_block=kv_block)
+    return _merge_heads(p, o), cache, snap

@@ -3,8 +3,9 @@
 ``init_cache`` (:155-217), the teacher-forced ``forward`` (:352-402),
 ``collect_kv`` (:404) and ``loss`` (:501) for training and the quality
 measurements, and ``prefill``, ``prefill_chunk`` (:560-599, with
-``_block_prefill_chunk``, :301), ``decode_step`` (:731-768) and
-``decode_body`` for serving.
+``_block_prefill_chunk``, :301), ``decode_step`` (:731-768),
+``decode_body``, and the speculative ``decode_verify`` / ``truncate_cache``
+(:678-729, with ``_block_verify``, :334) for serving.
 
 The reference's ``lax.scan`` over stacked layers becomes a Python loop
 over a list of per-layer parameter dicts and a list of per-layer cache
@@ -177,6 +178,14 @@ class LM:
             backend=backend, active=active)
         return self._ffn(p, x + h), cache
 
+    def _block_verify(self, p, x, cache, *, position, kv_block=512,
+                      backend=None, active=None, snap=None):
+        h, cache, snap = attention.attention_verify(
+            p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
+            self.cfg, cache, position=position, kv_block=kv_block,
+            backend=backend, active=active, snap=snap)
+        return self._ffn(p, x + h), cache, snap
+
     # ------------------------------------------------------- full sequence
     def forward(self, params, tokens: torch.Tensor, *,
                 rots: Optional[list[tuple[Rotation, Rotation]]] = None,
@@ -281,6 +290,50 @@ class LM:
         else:
             pos.add_(1 if active is None else active.to(pos.dtype))
         return self._unembed(params, x), cache
+
+    def decode_verify(self, params, tokens: torch.Tensor, cache: dict, *,
+                      kv_block: int = 512, backend=None, active=None,
+                      snaps=None):
+        """Speculative verify pass: ``tokens`` (B, k) is the current token
+        and k - 1 drafts.  Appends all k to the cache (in place; ``pos``
+        advances by k, or by k where ``active``) and scores them in one
+        pass.  Returns (logits (B, k, V) fp32, cache, snaps), where
+        ``logits[:, j]`` are the logits a sequential :meth:`decode_step`
+        gives token j and ``snaps`` the per-layer ``snapshot_rows`` that
+        :meth:`truncate_cache` rolls back with; given ``snaps`` (a
+        previous pass's), this pass's snapshots are copied into them."""
+        pos = cache["pos"]
+        if active is not None and isinstance(pos, int):
+            raise ValueError("active masks need a ragged cache "
+                             "(init_cache(..., ragged=True))")
+        kq = tokens.shape[1]
+        x = self._embed(params, tokens)
+        out = []
+        for i, p in enumerate(params["blocks"]):
+            x, cache["attn"][i], snap = self._block_verify(
+                p, x, cache["attn"][i], position=pos, kv_block=kv_block,
+                backend=backend, active=active,
+                snap=None if snaps is None else snaps[i])
+            out.append(snap)
+        if isinstance(pos, int):
+            cache["pos"] = pos + kq
+        else:
+            pos.add_(kq if active is None else active.to(pos.dtype) * kq)
+        return self._unembed(params, x), cache, out
+
+    def truncate_cache(self, cache: dict, new_length, snaps) -> dict:
+        """Roll a :meth:`decode_verify` pass back to ``new_length`` (a
+        shared int, or per-row (B,): entry length + tokens kept), in
+        place: every layer's ``policy.truncate_rows``, ``pos`` set to the
+        same lengths."""
+        for st, snap in zip(cache["attn"], snaps):
+            st.policy.truncate_rows(st, new_length, snap)
+        pos = cache["pos"]
+        if isinstance(pos, int):
+            cache["pos"] = int(new_length)
+        else:
+            pos.copy_(torch.as_tensor(new_length).expand(pos.shape))
+        return cache
 
     def decode_body(self, params, *, kv_block: int = 512, backend=None):
         """``(cache, token) -> (cache, logits)`` with the knobs closed over

@@ -339,12 +339,12 @@ def test_engine_validates_and_refuses_what_is_not_ported(lm):
     with pytest.raises(ValueError, match="exceeds s_max"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32),
                            max_new_tokens=8))
-    for kw in (dict(spec_k=2), dict(offload_bytes=1 << 20),
+    for kw in (dict(offload_bytes=1 << 20), dict(trace=object()),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
                         **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.admit_packed([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.policy.truncate_rows(None, None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        eng.policy.export_pages(None)

@@ -2,7 +2,9 @@
 PyTorch version on the same CUDA tensors, B4 on codes B3 wrote, and B2
 (paged) against B1 (dense) on the gathered view, bitwise; the int4
 ``raw_kv_view`` through B4 against the CPU's, chunked admission against
-monolithic admission, and a BLOCKWISE read replayed from a CUDA graph.
+monolithic admission, a BLOCKWISE read replayed from a CUDA graph, and
+speculative decoding (a captured verify pass against the eager one, also
+across a flush boundary; spec == plain streams; the launches of a pass).
 Marked ``cuda``: skips where no card is visible (the CPU tests hold the
 plain versions against the JAX reference).  On the card: ``python -m
 pytest -q tests/test_torch_cuda.py``.
@@ -553,3 +555,139 @@ def test_blockwise_read_replayed_from_a_graph_equals_eager(dev, policy,
     replayed = out.clone()
     step()
     assert torch.equal(replayed, out)
+
+
+# ------------------------------------------------- speculative decoding
+
+SPEC_S_MAX = 128
+
+
+@pytest.fixture(scope="module")
+def smol_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device="cuda")
+    return model, model.init(model.generator(0))
+
+
+def _spec_run(model, params, policy, prompt, n, drafter, graph,
+              backend=None):
+    """prefill, then ``decode_spec`` of n tokens with ``drafter`` as the
+    drafter's history: (tokens, stats, cache)."""
+    from repro_torch.launch.engine import Engine
+
+    cache = model.init_cache(1, SPEC_S_MAX, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(3))
+    eng = Engine(model, backend=backend, graph=graph)
+    lg, cache = eng.prefill(params, prompt, cache)
+    tok0 = lg[:, -1].argmax(-1)[:, None]
+    out, cache, stats = eng.decode_spec(params, tok0, cache, n,
+                                        prompt=drafter, spec_k=4)
+    return torch.cat([tok0, out], 1), stats, cache
+
+
+def _valid_bytes(cache) -> list:
+    """Every byte a later read can see: packed storage below each layer's
+    packed length, the ring, the lengths (int4); the K/V below the length
+    (bf16)."""
+    out = []
+    for st in cache["attn"]:
+        d = st.data
+        kv = getattr(d, "kv", d)
+        L = int(kv.length[0])
+        if hasattr(kv, "k_packed"):
+            p = L - L % kv.window
+            out += [kv.k_packed[:, :, :p], kv.k_scales[:, :, :p],
+                    kv.v_packed[:, :, :p], kv.v_scales[:, :, :p],
+                    kv.k_residual, kv.v_residual, kv.length]
+        else:
+            out += [kv.k[:, :, :L], kv.v[:, :, :L], kv.length]
+    return out
+
+
+@pytest.mark.parametrize("policy", ["int4-srft", "bf16"])
+def test_spec_graph_pass_equals_eager_across_a_flush_boundary(smol_card,
+                                                              policy):
+    """The prompt ends one token before the flush boundary at 32 and the
+    drafter is fed the stream's own continuation, so the first pass (the
+    capture's warm-up pass too) keeps all 4 tokens, past the boundary.
+    The captured passes then give the eager passes' tokens, counters and
+    every readable cache byte: the warm-up's ring wrap was undone."""
+    model, params = smol_card
+    g = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 31),
+                           generator=g).cuda()
+    first, _, _ = _spec_run(model, params, policy, prompt, 6, prompt, False)
+    t = first[0].tolist()
+    other = (t[0] + 1) % model.cfg.vocab_size
+    drafter = torch.tensor([[other, t[0], t[1], t[2], t[3], other]]).cuda()
+    runs = {graph: _spec_run(model, params, policy, prompt, 6, drafter,
+                             graph) for graph in (True, False)}
+    (t_g, st_g, c_g), (t_e, st_e, c_e) = runs[True], runs[False]
+    assert torch.equal(t_g, t_e)
+    assert st_g == st_e and st_e["accepted"] >= 3, st_e
+    for a, b in zip(_valid_bytes(c_g), _valid_bytes(c_e)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["int4-srft", "bf16"])
+def test_engine_spec_equals_plain_under_gather_on_card(smol_card, policy):
+    """Graph spec against the plain graph decode, GATHER: tokens equal up
+    to a near-tie of the plain logits (cuBLAS may round a row of the
+    k-row verify products otherwise than the one-row step's)."""
+    from repro_torch.launch.engine import Engine
+
+    model, params = smol_card
+    g = torch.Generator().manual_seed(5)
+    base = torch.randint(0, model.cfg.vocab_size, (1, 8), generator=g)
+    prompt = base.repeat(1, 5).cuda()
+    cache = model.init_cache(1, SPEC_S_MAX, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(3))
+    ref, logits, _ = Engine(model).generate(params, prompt, cache, 24,
+                                            return_logits=True)
+    got, stats, _ = _spec_run(model, params, policy, prompt, 23, prompt,
+                              True)
+    diff = (ref[0] != got[0]).nonzero()
+    if len(diff):
+        i = int(diff[0])
+        top2 = logits[0, i].topk(2).values
+        assert top2[0] - top2[1] < 0.05 * logits.abs().max(), (i, top2)
+    assert 0 <= stats["accepted"] <= stats["drafted"]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_pass_launches_b3_per_append_and_no_b1_b2(smol_card, paged):
+    """An int4 KERNEL verify pass launches B3 2 x n_layers x k times (the
+    ring quantized at each append, K and V) and no B1 / B2, counted per
+    replay by the captured pass (Engine) and step (BatchEngine), and
+    over a decode by the counters."""
+    from repro_torch.launch import graphs
+    from repro_torch.launch.batch_engine import BatchEngine, Request
+    from repro_torch.launch.engine import SPEC_KEY
+
+    model, params = smol_card
+    L, k = model.cfg.n_layers, 4
+    per_pass = (0, 0, 2 * L * k, 0)
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 40),
+                           generator=g).cuda()
+    if not paged:
+        before = graphs.launch_counts()
+        _, stats, cache = _spec_run(model, params, "int4-srft", prompt, 12,
+                                    prompt, True, backend="kernel")
+        assert cache[SPEC_KEY].step.counts == per_pass
+        ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
+        assert ran[0] == ran[1] == ran[3] == 0, ran
+    eng = BatchEngine(model, params, capacity=2, s_max=SPEC_S_MAX,
+                      policy="int4-srft", backend="kernel", paged=paged,
+                      spec_k=k)
+    before = graphs.launch_counts()
+    done = list(eng.run([Request(i, prompt[0, :30 + 5 * i].cpu().numpy(),
+                                 10) for i in range(3)]))
+    assert len(done) == 3 and eng._step_graph.counts == per_pass
+    ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
+    assert ran[0] == ran[1] == 0, ran
