@@ -12,9 +12,10 @@ Phases (any failure exits non-zero):
      the batch ring's 512, fp32, each beside its bound, with cuBLAS's fp32
      x @ M^T alone at 32,640 rows as context; B2 at page sizes 16 and 48;
      B4 at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
-     and at d 64 / 128 / 256, int4 and int8, and at the raw view of a
-     reused 1,024-token prefix, 8,192 rows x d 128 int4, its serving
-     shape); B3 and B4 are then timed
+     and at d 64 / 128 / 256, int4 and int8, and at its serving shapes:
+     the raw view of a reused 1,024-token prefix, 8,192 rows x d 128
+     int4, and of the 2,048 tokens a host restore brings back, 16,384
+     rows); B3 and B4 are then timed
      in alternation over B4_ROUNDS rounds and reported as the medians,
      the SM clock polled by nvidia-smi through the whole phase; B1 and
      B2 (``check_b1``, ``check_b2``, each callable alone) are also timed
@@ -24,7 +25,7 @@ Phases (any failure exits non-zero):
      cache a graph decodes), which plan their splits from the prefix and
      from s_max;
   4. check the served model (a graph decode) against the port's plain
-     CPU path on a small input;
+     CPU path on a small input, under int4-srft KERNEL and int8-per-token;
   5. the main path: internlm2-1.8b at full width and depth, random weights
      from a seed, bf16-operand / fp32-accumulate dots, answering requests
      of 517, 2055 and 4093 prompt tokens (64 new tokens each) through
@@ -106,7 +107,35 @@ Phases (any failure exits non-zero):
      and finish reason equal to phase 7's plain run up to a near-tie, no
      page leaked, every row mapping its spec_k - 1 slack; and the
      preempting pool, held to its plain run.  Lines with what users feel
-     carry the card's name and power limit.
+     carry the card's name and power limit;
+ 11. the host prefix tier and the int8-per-token policy.  ``BatchEngine``
+     (capacity 4, pages of 16, ``prefill_chunk`` = ``prefill_budget`` =
+     256, graph) serves phase 5's 2055-token request (32 new tokens)
+     under int4-srft KERNEL (B2), bf16 GATHER and int8-per-token GATHER:
+     with a 256 MiB tier the request retires and spills its 128 prompt
+     pages (the store holds 128 x the pool's page bytes), and the same
+     prompt re-admitted restores 2048 tokens (one host hit); its stream
+     must equal, bit for bit, the one an engine serves where a donor that
+     shares those 128 pages stays resident (a device COW hit of the same
+     depth: the same bytes, the same 7-row last chunk).  Under bf16 and
+     int8 (W = 1) a resident donor with the same prompt shares 2054
+     tokens and computes a 1-row chunk; that stream is printed beside the
+     restore's with ``last_chunk_report`` and held to it up to a
+     near-tie.  The counters are zeroed just before the
+     int4 re-admission and read just after: B4 2 x 24 launches (the raw
+     view of the restored tokens), B2 and B3 for its decode.  No page
+     leaks.  Then: a 128 MiB tier keeps all 128 int4 and int8 pages and
+     the newest 85 bf16 ones (the first page evicted: nothing restores);
+     the int4 disk tier (RAM budget 0) restores the RAM restore's stream
+     bit for bit; in OFFLOAD_ROUNDS interleaved rounds, by the host clock,
+     the re-admitted request's time to first token after a host restore,
+     a device hit and a cold chunked admission without a tier, the
+     retire-time spill, the restore and its host-to-device copy alone;
+     ``Engine`` at 2055 tokens under int8-per-token, graph and eager (ms
+     per token beside phase 6's, graph == eager, cache bytes and
+     compression at s_max 4608, a replay loop without host syncs); and
+     ``repro_torch.examples.quickstart`` on the card (80 training steps,
+     fp32 operands).
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -116,6 +145,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -148,7 +178,6 @@ PREFILL_CHUNK = PREFILL_BUDGET = 256  # chunked admission (phase 8)
 # 517-token stream still decodes (at 256 a quantum that stream retires
 # first, and the one-row pool never runs dry)
 PREEMPT_BUDGET = 4096
-RAW_VIEW_ROWS = 8 * SHARED_PREFIX  # B4 on a reused prefix: Hkv x tokens
 SPEC_K = 4  # speculative passes (phase 10)
 SPEC_PROMPT, SPEC_BASE = 2055, 64  # its prompts: random, and a tiled base
 SPEC_EAGER_NEW = 16  # graph == eager over this many tokens
@@ -158,7 +187,16 @@ SPEC_TRACE_TOKENS = 32  # spec_trace_report: past the int4 stream's split
 SPEC_BATCH_RUNS = (("int4-srft", "kernel", True),
                    ("int4-srft", "kernel", False),
                    ("bf16", None, True), ("bf16", None, False))
+# the host prefix tier (phase 11): the 2055-token request, its new tokens,
+# the RAM budgets, the interleaved timing rounds and the policies
+OFFLOAD_PROMPT, OFFLOAD_NEW = 2055, 32
+OFFLOAD_BYTES = 256 * 2**20
+DEPTH_BYTES = 128 * 2**20
+OFFLOAD_ROUNDS = 2
+OFFLOAD_RUNS = (("int4-srft", "kernel"), ("bf16", None),
+                ("int8-per-token", None))
 CARD = ""  # the card's name and power limit, set by main()
+MAIN_SUMMARY: dict = {}  # phase 6's decode ms/token, for phase 11
 
 
 def log(*a):
@@ -434,21 +472,27 @@ def kernel_phase(flush):
     b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
     b3["ms_rounds"] = b3_rounds
     b4["raw_view"] = check_b4_raw_view(flush, g, rot, group)
-    b4["max_abs_err"] = max(b4["max_abs_err"], b4["raw_view"]["max_abs_err"])
+    b4["restore_view"] = check_b4_raw_view(
+        flush, g, rot, group, tokens=(OFFLOAD_PROMPT - 1) // PAGE_SIZE
+        * PAGE_SIZE, what="restored")
+    b4["max_abs_err"] = max(b4["max_abs_err"], b4["raw_view"]["max_abs_err"],
+                            b4["restore_view"]["max_abs_err"])
     out.append(b4)
     return out
 
 
-def check_b4_raw_view(flush, g, rot, group):
-    """B4 at its serving shape: the int4 raw view of a reused 1,024-token
-    prefix (8 KV heads x 1,024 rows of d 128 per leaf), on codes the cache
-    write (B3, unfolded matrix and lambda epilogue) made, against its plain
-    version on the same codes, within B4_RTOL x max(1, max |x|); timed."""
+def check_b4_raw_view(flush, g, rot, group, tokens=SHARED_PREFIX,
+                      what="reused"):
+    """B4 at its serving shapes: the int4 raw view of a reused 1,024-token
+    prefix, or of the 2,048 tokens a host restore brings back (8 KV heads
+    x ``tokens`` rows of d 128 per leaf), on codes the cache write (B3,
+    unfolded matrix and lambda epilogue) made, against its plain version
+    on the same codes, within B4_RTOL x max(1, max |x|); timed."""
     from repro_torch.benchmarks.kernel_quality import B4_RTOL
     from repro_torch.kernels.srft_quant import ops as sq_ops
     from repro_torch.kernels.srft_quant import ref as sq_ref
 
-    n, d = RAW_VIEW_ROWS, rot.d
+    n, d = 8 * tokens, rot.d
     x = torch.randn((n, d), generator=g, device="cuda").to(torch.bfloat16)
     pk, sc = sq_ops.rotate_quantize(x, rot, group=group)
     minv = sq_ref.fold_inverse_matrix(rot)
@@ -459,12 +503,13 @@ def check_b4_raw_view(flush, g, rot, group):
     tol = B4_RTOL * max(1.0, want.abs().max().item())
     assert torch.isfinite(got).all() and err <= tol, f"B4 raw view {err}"
     call = lambda: sq_ops.srft_dequant(pk, sc, minv, group=group)  # noqa
-    ms = device_ms(call, flush, label="B4 raw view")
+    label = "B4 raw view" + ("" if what == "reused" else f" ({what})")
+    ms = device_ms(call, flush, label=label)
     plain = device_ms(lambda: sq_ref.srft_dequant_ref(pk, sc, minv,
                                                       group=group), flush)
     nbytes = pk.numel() + sc.numel() * 4 + d * d * 4 + n * d * 4
     b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
-    log(f"[{CARD}] B4 at the raw view of a reused {SHARED_PREFIX}-token "
+    log(f"[{CARD}] B4 at the raw view of a {what} {tokens}-token "
         f"prefix ({n} rows x d {d}, int4): max abs err {err:.3e} (tol "
         f"{tol:.3e}); {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} "
         f"ms ({b_by})")
@@ -695,23 +740,27 @@ def small_reference_phase():
     params_gpu = _to(params, "cuda")
     prompt = torch.randint(0, cfg.vocab_size, (1, 37),
                            generator=torch.Generator().manual_seed(SEED))
-    res = {}
-    for name, model, p in (("cpu", cpu, params), ("cuda", gpu, params_gpu)):
-        cache = model.init_cache(1, 96, policy="int4-srft", ragged=True,
-                                 generator=torch.Generator().manual_seed(5))
-        res[name] = Engine(model, backend="kernel").generate(
-            p, prompt.to(model.device), cache, 24, return_logits=True)
-    lc, lg = res["cpu"][1], res["cuda"][1].cpu()
-    assert lg.shape == (1, 24, cfg.vocab_size) and torch.isfinite(lg).all()
-    tc, tg = res["cpu"][0], res["cuda"][0].cpu()
-    n_same = _agree_until(tc, tg, lc)
-    err = (lc[:, :n_same] - lg[:, :n_same]).abs().max().item()
-    tol = LOGIT_TOL * lc.abs().max().item()
-    assert err <= tol, f"small model: card vs CPU logits {err} > {tol}"
-    log(f"small model (reduced internlm2, 37+24 tokens): card (graph) vs "
-        f"CPU plain "
-        f"max logit err {err:.3e} (tol {tol:.3e}), tokens agree for "
-        f"{n_same}/24 steps")
+    for policy, backend in (("int4-srft", "kernel"),
+                            ("int8-per-token", None)):
+        res = {}
+        for name, model, p in (("cpu", cpu, params),
+                               ("cuda", gpu, params_gpu)):
+            cache = model.init_cache(
+                1, 96, policy=policy, ragged=True,
+                generator=torch.Generator().manual_seed(5))
+            res[name] = Engine(model, backend=backend).generate(
+                p, prompt.to(model.device), cache, 24, return_logits=True)
+        lc, lg = res["cpu"][1], res["cuda"][1].cpu()
+        assert lg.shape == (1, 24, cfg.vocab_size) and torch.isfinite(lg).all()
+        tc, tg = res["cpu"][0], res["cuda"][0].cpu()
+        n_same = _agree_until(tc, tg, lc)
+        err = (lc[:, :n_same] - lg[:, :n_same]).abs().max().item()
+        tol = LOGIT_TOL * lc.abs().max().item()
+        assert err <= tol, f"small model {policy}: card vs CPU {err} > {tol}"
+        log(f"small model (reduced internlm2, 37+24 tokens, {policy} "
+            f"{(backend or 'gather').upper()}): card (graph) vs CPU plain "
+            f"max logit err {err:.3e} (tol {tol:.3e}), tokens agree for "
+            f"{n_same}/24 steps")
 
 
 def _to(tree, device):
@@ -929,6 +978,7 @@ def main_path_phase():
             "graph" if graph else "eager"] = [
             round(row["decode_ms_per_tok"], 4) for row, _, _ in rs]
     log("decode ms/token by CUDA events, per round: " + json.dumps(summary))
+    MAIN_SUMMARY.update(summary)
 
     for policy, backend, n in (("int4-srft", "kernel", PROMPTS[-1]),
                                ("bf16", None, PROMPTS[-1]),
@@ -970,11 +1020,12 @@ def blockwise_vs_gather(runs, n):
         f"(CUDA events, first round): " + json.dumps(table))
 
 
-def no_sync_region(model, params, n=16):
+def no_sync_region(model, params, n=16, policy="int4-srft",
+                   backend="kernel"):
     """A captured Engine decode of ``n`` tokens inside
     ``set_sync_debug_mode("error")``: any host sync in the replay loop
     raises."""
-    _, toks, _, eng, cache = serve(model, params, "int4-srft", "kernel",
+    _, toks, _, eng, cache = serve(model, params, policy, backend,
                                    PROMPTS[0], keep=True)
     tok = toks[:, -1:].cuda()
     torch.cuda.synchronize()
@@ -985,8 +1036,8 @@ def no_sync_region(model, params, n=16):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert out.shape == (1, n)
-    log(f"no host sync: {n} graph replays of Engine.decode under "
-        f"set_sync_debug_mode('error')")
+    log(f"no host sync: {n} graph replays of Engine.decode ({policy}) "
+        f"under set_sync_debug_mode('error')")
 
 
 # ---------------------------------------------------------- batch serving
@@ -2035,6 +2086,364 @@ def spec_phase(model, params, mono, pre_mono):
     return launches
 
 
+# ---------------------------------------------------- host prefix tier
+
+def tier_engine(model, params, policy, backend, **kw):
+    """A paged chunked ``BatchEngine`` (graph on) that records when each
+    admission opens (``t_open``) and the host ms of each retire-time
+    spill (``t_spill``) and host restore (``t_restore``), the device
+    synchronized on both sides of each."""
+    from repro_torch.launch.batch_engine import BatchEngine
+
+    eng = BatchEngine(model, params, capacity=CAPACITY, s_max=S_MAX,
+                      policy=policy, backend=backend, chunk=CHUNK,
+                      paged=True, page_size=PAGE_SIZE, device=DEV,
+                      prefill_chunk=PREFILL_CHUNK,
+                      prefill_budget=PREFILL_BUDGET, **kw)
+    eng.t_open, eng.t_spill, eng.t_restore, eng.adm_logits = {}, [], [], {}
+    start, finalize = eng._start_pending, eng._finalize_pending
+
+    def opening(req, slot):
+        eng.t_open[req.rid] = time.perf_counter()
+        return start(req, slot)
+
+    def finalizing(*a):
+        pend = eng._pending
+        eng.adm_logits[pend.req.rid] = pend.logits.float().cpu()
+        return finalize(*a)
+
+    eng._start_pending, eng._finalize_pending = opening, finalizing
+    for name, out in (("_spill", eng.t_spill), ("_restore", eng.t_restore)):
+        def timed(*a, _fn=getattr(eng, name), _out=out):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = _fn(*a)
+            torch.cuda.synchronize()
+            _out.append((time.perf_counter() - t) * 1e3)
+            return r
+        setattr(eng, name, timed)
+    return eng
+
+
+def tier_serve(eng, reqs):
+    """Run ``reqs`` to the end: (completions by rid, time to first token
+    by rid, host ms from the admission's opening to the step that
+    streams its first token)."""
+    from repro_torch.launch.batch_engine import Request
+
+    for rid, prompt in reqs:
+        eng.submit(Request(rid, prompt, OFFLOAD_NEW))
+    first, done = {}, {}
+    while eng.has_work:
+        events, comps = eng.step()
+        now = time.perf_counter()
+        for rid, toks in events:
+            if toks:
+                first.setdefault(rid, now)
+        done.update({c.rid: c for c in comps})
+    for rid, _ in reqs:
+        assert len(done[rid].tokens) == OFFLOAD_NEW, rid
+        assert done[rid].finish_reason == "length", rid
+    assert eng.pool_stats()["pages_used"] == 0, "pages leaked"
+    for st in eng.cache["attn"]:
+        rc = getattr(st.data, "kv", st.data).pool.refcount
+        assert int(rc[0]) == 1 and not rc[1:].any(), "a refcount leaked"
+    return done, {rid: (first[rid] - eng.t_open[rid]) * 1e3
+                  for rid, _ in reqs}
+
+
+def tier_case(model, params, policy, backend, prompt, case, **kw):
+    """One re-admission of ``prompt`` (rid 1) after a donor (rid 0):
+    "host" (the donor retires and spills, rid 1 restores; ``kw`` sizes the
+    tier); "device" (a donor that shares exactly the pages a restore
+    brings back, the prompt's first 128 x 16 tokens, stays resident: a
+    COW hit of the same depth, so the admission computes what the
+    restore's computes); "same" (the donor is the same prompt, resident:
+    the reference's form, deeper where W = 1); "cold" (no tier: the donor
+    retires, rid 1 is chunked from nothing).  Returns (engine, rid 1's
+    completion, its time to first token ms, the B1-B4 counters of rid
+    1's run when ``count``)."""
+    count = kw.pop("count", False)
+    eng = tier_engine(model, params, policy, backend, **kw)
+    if case in ("device", "same"):
+        # a short request first: the step graph is captured before the
+        # donor and rid 1 are admitted together (its capture would fall
+        # in rid 1's first step, as it falls in the donor's in the other
+        # cases)
+        tier_serve(eng, [(2, (prompt[:2 * PAGE_SIZE + 1] + 7)
+                          % model.cfg.vocab_size)])
+        donor = prompt.copy()
+        n_tok = (len(prompt) - 1) // PAGE_SIZE * PAGE_SIZE
+        if case == "device":
+            donor[n_tok:] = (donor[n_tok:] + 1) % model.cfg.vocab_size
+        done, ttft = tier_serve(eng, [(0, donor), (1, prompt)])
+        assert eng.n_reuse_hits_device == 1, eng.n_reuse_hits_device
+        if case == "device":
+            assert eng.n_reused_tokens == n_tok, eng.n_reused_tokens
+        return eng, done[1], ttft[1], None
+    tier_serve(eng, [(0, prompt)])
+    if count:
+        _zero_counters()
+    done, ttft = tier_serve(eng, [(1, prompt)])
+    launches = _counters() if count else None
+    if case == "cold":
+        assert eng.n_reuse_misses == 2 and eng.n_reused_tokens == 0
+    return eng, done[1], ttft[1], launches
+
+
+def copy_ms(eng, prompt, n_pages):
+    """The spill's and the restore's copies alone, host clock,
+    synchronized: the export of ``n_pages`` pool pages from every layer
+    (a gather and one device-to-host copy per leaf and layer), the host
+    tier's payloads of ``prompt``'s first ``n_pages`` pages stacked per
+    leaf (the host's memcpy), and their copy to the card (one per leaf).
+    Returns (export ms, stack ms, host-to-device ms, bytes)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for st in eng.cache["attn"]:
+        eng.policy.export_pages(st, range(1, n_pages + 1))
+    export = (time.perf_counter() - t) * 1e3
+    payloads = [eng.prefix_store.get(prompt[:(i + 1) * PAGE_SIZE].tobytes())
+                for i in range(n_pages)]
+    t0 = time.perf_counter()
+    stacked = [torch.stack([pl[j] for pl in payloads], dim=1)
+               for j in range(len(payloads[0]))]
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    on_card = [t.to(DEV) for t in stacked]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nbytes = sum(t.numel() * t.element_size() for t in on_card)
+    return export, (t1 - t0) * 1e3, (t2 - t1) * 1e3, nbytes
+
+
+def last_chunk_report(model, params, prompt, eng_h, eng_s, policy):
+    """Where a restore and a device hit on the same prompt part under a
+    W = 1 policy (bf16, int8): the hit shares every prompt token but the
+    last and computes a 1-row chunk, the restore shares whole pages and
+    computes the rest as one chunk; under int8 the hit also reads the
+    tokens past the pages dequantized, where the restore's chunk reads
+    them raw.  Logs whether the two admissions' last logits are equal and
+    layer 0's products of the last token at the two row counts (the K
+    projection on the layer's real input, the FFN's down projection on a
+    random input of its shape)."""
+    from repro_torch.models import common
+
+    cfg = model.cfg
+    n_h = len(prompt) - eng_h.n_restored_tokens
+    toks = torch.as_tensor(prompt, device=DEV).long()[None, -n_h:]
+    p0 = params["blocks"][0]
+    x = common.rmsnorm(p0["ln_attn"], model._embed(params, toks),
+                       eps=cfg.norm_eps)
+    h = torch.randn((1, n_h, cfg.d_ff), generator=torch.Generator(
+        device=DEV).manual_seed(SEED), device=DEV).to(torch.bfloat16)
+    diff = {}
+    for name, w, inp in (("K projection", p0["attn"]["wk"], x),
+                         ("FFN down projection", p0["ffn"]["w_down"], h)):
+        diff[name] = int((common.dense(w, inp)[:, -1:]
+                          != common.dense(w, inp[:, -1:])).sum())
+    lg_h, lg_s = eng_h.adm_logits[1], eng_s.adm_logits[1]
+    log(f"[{CARD}] {policy}, the same prompt resident: the device hit "
+        f"reuses {eng_s.n_reused_tokens} tokens and computes a 1-row chunk, "
+        f"the restore {eng_h.n_restored_tokens} and a {n_h}-row chunk; the "
+        f"admissions' last logits equal: {torch.equal(lg_h, lg_s)} (max "
+        f"diff {(lg_h - lg_s).abs().max().item():.3e}); layer 0's products "
+        f"of the last token at {n_h} rows vs 1, elements differing: {diff}")
+
+
+def offload_phase(model, params):
+    """Phase 11: the host prefix tier and the int8-per-token policy (see
+    the module doc).  Returns launches per kernel on the int4 restore."""
+    from repro_torch.examples import quickstart
+    from repro_torch.models import common
+
+    prompt = offload_prompt(model.cfg.vocab_size)
+    n_pages = (OFFLOAD_PROMPT - 1) // PAGE_SIZE
+    n_tok = n_pages * PAGE_SIZE
+    L = model.cfg.n_layers
+    feel = {}  # (policy, case) -> [ttft ms per round]
+    spill, restore, copy = {}, {}, {}
+    launches = {}
+    ram_stream = {}
+    for r in range(OFFLOAD_ROUNDS):
+        order = OFFLOAD_RUNS if r % 2 == 0 else OFFLOAD_RUNS[::-1]
+        for i, (policy, backend) in enumerate(order):
+            cases = ("host", "device", "cold")
+            cases = cases[(r + i) % 3:] + cases[:(r + i) % 3]
+            got = {}
+            for case in cases:
+                kw = dict(offload_bytes=OFFLOAD_BYTES) if case == "host" \
+                    else {}
+                count = case == "host" and r == 0 and policy == "int4-srft"
+                eng, comp, ttft, cnt = tier_case(
+                    model, params, policy, backend, prompt, case,
+                    count=count, **kw)
+                feel.setdefault((policy, case), []).append(ttft)
+                got[case] = (eng, comp)
+                if case == "host":  # the donor's spill, rid 1's restore
+                    spill.setdefault(policy, []).append(eng.t_spill[0])
+                    restore.setdefault(policy, []).append(eng.t_restore[0])
+                    stats = eng.pool_stats()
+                    page_bytes = stats["pool_bytes"] // (stats["n_pages"] + 1)
+                    st = stats["offload"]["store"]
+                    assert eng.n_spilled_pages == n_pages, eng.n_spilled_pages
+                    assert st["ram_bytes"] == n_pages * page_bytes, st
+                    assert eng.n_reuse_hits_host == 1
+                    assert eng.n_restored_tokens == n_tok
+                    assert eng.tier_outcomes == {"miss": {"length": 1},
+                                                 "host": {"length": 1}}
+                    if r == 0:
+                        ram_stream[policy] = comp.tokens
+                        log(f"[{CARD}] {policy}: the {OFFLOAD_PROMPT}-token "
+                            f"request retired and spilled {n_pages} pages "
+                            f"({st['ram_bytes']} bytes, {page_bytes} a "
+                            f"page); re-admitted: {eng.n_reuse_hits_host} "
+                            f"host hit, {eng.n_restored_tokens} tokens "
+                            f"restored; offload stats "
+                            + json.dumps(stats["offload"]))
+                    copy.setdefault(policy, []).append(
+                        copy_ms(eng, prompt, n_pages))
+                if cnt is not None:
+                    launches["offload_restore"] = cnt
+                    assert cnt["srft_dequant"] == 2 * L, cnt
+                    assert cnt["srft_quant"] > 0, cnt
+                    assert cnt["quant_decode_attention_paged"] > 0, cnt
+                    assert cnt["quant_decode_attention"] == 0, cnt
+                    log(f"[{CARD}] int4 restore admission and its decode: "
+                        f"launches {cnt} (B4 {2 * L} = K and V x {L} "
+                        f"layers: the raw view of {n_tok} restored tokens)")
+            # restored == resident hit of the same depth, bit for bit
+            a = got["host"][1].tokens
+            n_eq = _first_diff(torch.as_tensor(a),
+                               torch.as_tensor(got["device"][1].tokens))
+            assert n_eq == OFFLOAD_NEW, \
+                f"{policy}: restored != resident from token {n_eq}"
+            log(f"[{CARD}] {policy} round {r}: restored stream == the "
+                f"resident hit's of the same depth for {n_eq}/{OFFLOAD_NEW} "
+                f"tokens; no page leaked on either engine")
+            if r == 0 and policy != "int4-srft":
+                # the reference's form: the same prompt resident (int4
+                # shares 2048 tokens either way, so that is the case above)
+                eng_s, comp_s, _, _ = tier_case(model, params, policy,
+                                                backend, prompt, "same")
+                b = comp_s.tokens
+                n_eq = _first_diff(torch.as_tensor(a), torch.as_tensor(b))
+                last_chunk_report(model, params, prompt, got["host"][0],
+                                  eng_s, policy)
+                if n_eq < OFFLOAD_NEW:
+                    _tie_check(b, a, forced_logits(
+                        model, params, policy, backend, prompt, b, None),
+                        f"{policy} restored vs the same prompt resident")
+                log(f"[{CARD}] {policy}: restored stream == the same "
+                    f"prompt's resident hit for {n_eq}/{OFFLOAD_NEW} tokens")
+                del eng_s
+            del got
+
+    # tier depth under one budget
+    depth = {}
+    for policy, backend in OFFLOAD_RUNS:
+        eng = tier_engine(model, params, policy, backend,
+                          offload_bytes=DEPTH_BYTES)
+        tier_serve(eng, [(0, prompt)])
+        st = eng.prefix_store.stats()
+        kept = [prompt[:(i + 1) * PAGE_SIZE].tobytes() in eng.prefix_store
+                for i in range(n_pages)]
+        tier_serve(eng, [(1, prompt)])
+        depth[policy] = dict(pages_kept=st["pages_ram"],
+                             evictions=st["evictions"],
+                             ram_bytes=st["ram_bytes"],
+                             restored_tokens=eng.n_restored_tokens,
+                             hits_host=eng.n_reuse_hits_host)
+        if policy == "bf16":
+            k = st["pages_ram"]
+            assert kept == [False] * (n_pages - k) + [True] * k, kept
+            assert eng.n_reuse_hits_host == 0 and k < n_pages
+            assert st["evictions"] == n_pages - k
+        else:
+            assert all(kept) and st["evictions"] == 0
+            assert eng.n_restored_tokens == n_tok
+    log(f"[{CARD}] host tier under one budget of {DEPTH_BYTES} bytes: "
+        + json.dumps(depth))
+
+    # the disk tier, int4
+    spill_dir = ROOT / "build" / "offload_spill"
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    try:
+        eng, comp, _, _ = tier_case(model, params, "int4-srft", "kernel",
+                                    prompt, "host", offload_bytes=0,
+                                    offload_dir=str(spill_dir))
+        st = eng.prefix_store.stats()
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    assert st["disk_spills"] >= n_pages and st["disk_loads"] >= n_pages, st
+    assert st["ram_bytes"] == 0 and eng.n_restored_tokens == n_tok
+    assert torch.equal(torch.as_tensor(comp.tokens),
+                       torch.as_tensor(ram_stream["int4-srft"])), \
+        "disk restore != RAM restore"
+    log(f"[{CARD}] int4 disk tier (RAM budget 0): {st['disk_spills']} disk "
+        f"spills, {st['disk_loads']} disk loads, the restored stream == the "
+        f"RAM restore's bit for bit; store " + json.dumps(st))
+
+    # what a user feels
+    summary = {}
+    for policy, _ in OFFLOAD_RUNS:
+        summary[policy] = dict(
+            ttft_ms={c: [round(t, 1) for t in feel[policy, c]]
+                     for c in ("host", "device", "cold")},
+            spill_ms=[round(t, 1) for t in spill[policy]],
+            export_ms=[round(c[0], 1) for c in copy[policy]],
+            restore_ms=[round(t, 1) for t in restore[policy]],
+            stack_ms=[round(c[1], 1) for c in copy[policy]],
+            h2d_copy_ms=[round(c[2], 2) for c in copy[policy]],
+            copy_bytes=copy[policy][0][3])
+    log(f"[{CARD}] re-admitted {OFFLOAD_PROMPT}-token request, host clock, "
+        f"{OFFLOAD_ROUNDS} interleaved rounds: time to first token by tier "
+        f"(host restore, device hit, cold chunked admission without a "
+        f"tier), the retire-time spill and its export alone (device to "
+        f"host), the restore (stack, copy, import, all layers), its host "
+        f"stack and its host-to-device copy alone: "
+        + json.dumps(summary))
+
+    # int8-per-token on Engine's main path
+    rows = {}
+    for graph in (True, False):
+        rows[graph] = serve(model, params, "int8-per-token", None,
+                            OFFLOAD_PROMPT, graph)
+    for graph in (True, False):
+        log("request " + json.dumps(rows[graph][0]))
+    _graph_agrees(rows[False][1:], rows[True][1:],
+                  f"int8-per-token/gather {OFFLOAD_PROMPT} tokens")
+    no_sync_region(model, params, policy="int8-per-token", backend=None)
+    r8 = rows[True][0]
+    key = f"/{OFFLOAD_PROMPT}"
+    log(f"[{CARD}] Engine at {OFFLOAD_PROMPT} tokens, {NEW_TOKENS} new, ms "
+        f"per token by CUDA events: int8-per-token GATHER graph "
+        f"{r8['decode_ms_per_tok']:.3f}, eager "
+        f"{rows[False][0]['decode_ms_per_tok']:.3f}; phase 6's graph runs: "
+        f"int4-srft KERNEL {MAIN_SUMMARY['int4-srft/kernel' + key]['graph']}"
+        f", bf16 GATHER {MAIN_SUMMARY['bf16/gather' + key]['graph']}; "
+        f"int8 cache {r8['cache_bytes']} bytes at s_max {S_MAX}, "
+        f"compression {r8['compression']:.4f}")
+
+    # the quickstart, on fp32 operands as the quality path
+    with common.dot_mode(False):
+        rec = quickstart.main(["--steps", "80"])
+    assert rec["losses"][-1] < rec["losses"][0], "quickstart did not learn"
+    ratios = {k: round(v["compression"], 4)
+              for k, v in rec["policies"].items()}
+    log(f"[{CARD}] quickstart on the card: loss {rec['losses'][0]:.3f} -> "
+        f"{rec['losses'][-1]:.3f}; B3 codes {rec['kernel']}; compression "
+        f"{ratios}")
+    return launches
+
+
+def offload_prompt(vocab):
+    """Phase 5's 2055-token request (``serve``'s prompt), as numpy."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + OFFLOAD_PROMPT)
+    return torch.randint(0, vocab, (1, OFFLOAD_PROMPT), generator=g,
+                         device="cuda")[0].cpu().numpy().astype("int32")
+
+
 # ---------------------------------------------------------------- quality
 
 def quality_phase():
@@ -2157,6 +2566,7 @@ def main() -> int:
         k["sm_mhz"] = mhz[label] if label else [
             mhz[f"B4 round {i}"] for i in range(B4_ROUNDS)]
     kernels[-1]["raw_view"]["sm_mhz"] = mhz["B4 raw view"]
+    kernels[-1]["restore_view"]["sm_mhz"] = mhz["B4 raw view (restored)"]
     small_reference_phase()
     from repro_torch.models import common
 
@@ -2176,7 +2586,10 @@ def main() -> int:
     t0 = time.perf_counter()
     spec = spec_phase(model, params, mono, pre_mono)
     log(f"spec phase {time.perf_counter() - t0:.1f}s")
-    by_path = {"engine": launches, **batch, **chunked, **spec,
+    t0 = time.perf_counter()
+    offload = offload_phase(model, params)
+    log(f"offload phase {time.perf_counter() - t0:.1f}s")
+    by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
                "quality": quality}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}

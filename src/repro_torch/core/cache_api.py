@@ -1,8 +1,10 @@
 """KV-cache policies behind one protocol (port of
 ``repro/core/cache_api.py``: ``AttendBackend``, ``CacheState``, the
-registry, ``policy_from_config``, ``BF16Policy`` (:564-736) and
-``Int4SRFTPolicy`` (:763-1100); the dense, ragged and paged lifecycles of
-admission, chunked prefill with token-level prefix reuse, and decode).
+registry, ``policy_from_config``, ``_export_pool_pages`` /
+``_seed_dense_leaf`` (:529-547), ``BF16Policy`` (:564-736),
+``Int4SRFTPolicy`` (:763-1100) and ``Int8PerTokenPolicy`` (:1107-1371);
+the dense, ragged and paged lifecycles of admission, chunked prefill with
+token-level prefix reuse, the host prefix tier, and decode).
 
     pol   = get_policy("int4-srft", group=32, window=16)
     state = pol.init_state(B, Hkv, S_max, d, generator=g, device=dev)
@@ -24,8 +26,16 @@ prefill's bytes); ``adopt_prefix`` seeds a batch-1 row from a donor's
 resident pages; ``raw_kv_view`` reads a row back in raw space (bf16: its
 bytes; int4: dequantize + inverse rotation, kernel B4).
 
+Host prefix tier: ``export_pages`` copies named pool pages to the host
+(CPU tensors, one device-to-host copy per leaf) and ``import_pages``
+writes such tiles into a dense batch-1 staging row, placing the bytes
+``adopt_prefix`` places from the same pages while resident.
+
+``int8-per-token`` keeps one int8 code per element and one fp32 scale per
+K/V vector (no rotation); its read is GATHER only.
+
 Speculative decoding (ref :698-720, :1012-1065): ``snapshot_rows``
-copies what a verify pass's rollback needs (bf16: the entry lengths;
+copies what a verify pass's rollback needs (bf16, int8: the entry lengths;
 int4: the residual rings and lengths) into fresh tensors or into
 caller-owned buffers (``into=``, the fixed addresses a captured pass
 writes); ``verify_attend`` scores k queries, each against its own prefix,
@@ -50,7 +60,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import kvcache, paged
+from repro_torch.core import kvcache, paged, quant
 from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
 from repro_torch.core.paged import PagedData
 from repro_torch.core.quant_attention_ref import (
@@ -70,7 +80,10 @@ __all__ = [
     "BF16Policy",
     "Int4SRFTPolicy",
     "Int4State",
+    "Int8PerTokenPolicy",
+    "Int8State",
     "register_policy",
+    "available_policies",
     "get_policy",
     "policy_from_config",
 ]
@@ -150,6 +163,10 @@ def register_policy(name: str):
     return deco
 
 
+def available_policies() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
 def get_policy(name: str, **hyperparams):
     """Instantiate a registered policy; hyperparameters the scheme does not
     take (e.g. ``window`` for bf16) are dropped."""
@@ -220,19 +237,21 @@ def _refuse_paged_prefill(state) -> None:
             "ragged state and admit it with insert_row_paged")
 
 
-class _LaterSlices:
-    """Protocol methods of the reference that later slices of the port
-    bring (ROADMAP A): each raises, none falls back."""
+def _export_pool_pages(pd: PagedData, pages) -> tuple:
+    """Host copies of the named pages of every pool leaf (the spill side
+    of the host prefix tier, ref ``cache_api.py:529``): a gather along the
+    page axis on the device, then one device-to-host copy per leaf.  CPU
+    tensors ``(NP, H, page_size, c)``, in the policy's leaf order."""
+    idx = torch.as_tensor(list(pages), dtype=torch.long).to(
+        pd.pools[0].device)
+    return tuple(p.index_select(0, idx).cpu() for p in pd.pools)
 
-    def _later(self, what: str, item: str):
-        raise NotImplementedError(
-            f"{self.name}.{what} is not ported yet (ROADMAP {item})")
 
-    def export_pages(self, *a, **k):
-        self._later("export_pages", "A6: the host prefix tier")
-
-    def import_pages(self, *a, **k):
-        self._later("import_pages", "A6: the host prefix tier")
+def _seed_dense_leaf(buf: torch.Tensor, tiles: torch.Tensor) -> None:
+    """Positions [0, NP * page_size) of a dense batch-1 leaf take ``(NP, H,
+    page_size, c)`` page tiles, in place (the restore side of the host
+    tier, ref ``cache_api.py:540``)."""
+    _seed_leaf(buf, paged.pages_to_dense(tiles.to(buf.device)))
 
 
 def _copy_into(src, into):
@@ -253,7 +272,7 @@ def _unsupported(policy, backend: AttendBackend):
 
 @register_policy("bf16")
 @dataclasses.dataclass(frozen=True)
-class BF16Policy(_LaterSlices):
+class BF16Policy:
     """Uncompressed bf16 cache (the paper's fp16 DynamicCache analogue)."""
 
     supported_backends = (AttendBackend.GATHER, AttendBackend.BLOCKWISE)
@@ -308,6 +327,22 @@ class BF16Policy(_LaterSlices):
         for buf, tiles in zip((d.k, d.v),
                               paged.read_pages(paged_state.data, pages)):
             _seed_leaf(buf, tiles)
+        d.length = kvcache.all_rows_at(d.length, n_tokens)
+        return row
+
+    def export_pages(self, state, pages) -> tuple:
+        """Host copies (k, v) of the named pool pages, ``(NP, Hkv, ps,
+        d)`` bf16 each."""
+        return _export_pool_pages(state.data, pages)
+
+    def import_pages(self, row, payload, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from exported page tiles
+        (``export_pages``'s, from either device) and set its length: the
+        bytes ``adopt_prefix`` places from the same pages while
+        resident."""
+        d = row.data
+        for buf, tiles in zip((d.k, d.v), payload):
+            _seed_dense_leaf(buf, tiles)
         d.length = kvcache.all_rows_at(d.length, n_tokens)
         return row
 
@@ -449,7 +484,7 @@ class Int4State:
 
 @register_policy("int4-srft")
 @dataclasses.dataclass(frozen=True)
-class Int4SRFTPolicy(_LaterSlices):
+class Int4SRFTPolicy:
     """SRFT rotation + per-channel lambda + int4 per-group codes + fp32
     residual window (paper §7.1-7.2).  Writes go through kernel B3; the
     KERNEL read through kernel B1, or B2 on a paged state."""
@@ -545,6 +580,23 @@ class Int4SRFTPolicy(_LaterSlices):
         for buf, tiles in zip(leaves,
                               paged.read_pages(paged_state.data.kv, pages)):
             _seed_leaf(buf, tiles)
+        kv.length = kvcache.all_rows_at(kv.length, n_tokens)
+        return row
+
+    def export_pages(self, state, pages) -> tuple:
+        """Host copies (k_packed, k_scales, v_packed, v_scales) of the
+        named pool pages, ``(NP, Hkv, ps, c)`` each."""
+        return _export_pool_pages(state.data.kv, pages)
+
+    def import_pages(self, row, payload, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from exported page tiles and
+        set its length.  ``n_tokens`` is page-aligned (the engine's
+        contract) and ``page_size % W == 0``, so the residual ring keeps
+        its zeros: the flush-boundary argument of :meth:`adopt_prefix`."""
+        kv = row.data.kv
+        for buf, tiles in zip((kv.k_packed, kv.k_scales, kv.v_packed,
+                               kv.v_scales), payload):
+            _seed_dense_leaf(buf, tiles)
         kv.length = kvcache.all_rows_at(kv.length, n_tokens)
         return row
 
@@ -695,3 +747,244 @@ class Int4SRFTPolicy(_LaterSlices):
         d = k_packed.shape[-1] * 2
         n_vectors = k_packed.numel() // (d // 2)
         return 2 * 2 * n_vectors * d / self.nbytes(state)
+
+
+# ---------------------------------------------------------------------------
+# int8 per token (the third scheme: the registry carries new policies)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Int8State:
+    """int8 policy state: one int8 code per element and one fp32 scale per
+    K/V vector."""
+
+    k_codes: torch.Tensor  # (B, Hkv, S_max, d) int8
+    k_scales: torch.Tensor  # (B, Hkv, S_max, 1) f32
+    v_codes: torch.Tensor
+    v_scales: torch.Tensor
+    length: Any = 0  # a shared int, or (B,) int32 when ragged
+
+    @property
+    def s_max(self) -> int:
+        return self.k_codes.shape[-2]
+
+    def leaves(self) -> tuple:
+        return (self.k_codes, self.k_scales, self.v_codes, self.v_scales)
+
+
+def _quant8(x: torch.Tensor) -> tuple:
+    q = quant.quantize_per_token(x, 8)
+    return q.codes, q.scales  # (..., d) int8, (..., 1) f32
+
+
+def _dequant8(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return quant.dequantize_per_token(quant.Quantized(codes, scales, 8))
+
+
+@register_policy("int8-per-token")
+@dataclasses.dataclass(frozen=True)
+class Int8PerTokenPolicy:
+    """Symmetric int8 with one fp32 scale per K/V vector (paper Table 5's
+    per_token row at 8 bits; no rotation), built on
+    ``quant.quantize_per_token``: ~1.94x smaller than bf16 at d = 128.
+    The read is GATHER only (dequantize, then the bf16 read); BLOCKWISE
+    and KERNEL raise, as the reference's (``cache_api.py:1299-1305``).
+    Every write is an index write at per-row offsets, in place, so a
+    captured decode step or verify pass takes the policy unchanged."""
+
+    supported_backends = (AttendBackend.GATHER,)
+
+    def init_state(self, batch, n_kv_heads, s_max, head_dim, *,
+                   generator: Optional[torch.Generator] = None,
+                   device=None, ragged: bool = False):
+        dev = resolve_device(device)
+        shape_c = (batch, n_kv_heads, s_max, head_dim)
+        shape_s = (batch, n_kv_heads, s_max, 1)
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        length = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                  if ragged else 0)
+        return CacheState(self, Int8State(
+            z(shape_c, torch.int8), z(shape_s, torch.float32),
+            z(shape_c, torch.int8), z(shape_s, torch.float32), length))
+
+    def init_paged(self, batch, n_kv_heads, s_max, head_dim, *, n_pages,
+                   page_size, generator: Optional[torch.Generator] = None,
+                   device=None):
+        return CacheState(self, paged.init_paged(
+            batch, s_max, page_size=page_size, n_pages=n_pages,
+            leaf_specs=((n_kv_heads, head_dim, torch.int8),
+                        (n_kv_heads, 1, torch.float32)) * 2,
+            device=resolve_device(device)))
+
+    def with_rotations(self, state, rot_k, rot_v):
+        return state  # rotation-free scheme
+
+    @staticmethod
+    def _codes(k, v) -> tuple:
+        return (*_quant8(k), *_quant8(v))
+
+    def prefill(self, state, k, v):
+        _refuse_paged_prefill(state)
+        d = state.data
+        S = k.shape[-2]
+        kvcache._check_room(d, S)
+        for buf, val in zip(d.leaves(), self._codes(k, v)):
+            buf[:, :, :S] = val
+        d.length = kvcache.all_rows_at(d.length, S)
+        return state
+
+    def update(self, state, k, v, *, active=None):
+        """Append one token (B, Hkv, 1, d) at each row's length: paged
+        through ``paged.append_token``, ragged by a per-row index write
+        (clamped into the buffer, as ``dynamic_update_slice``)."""
+        _check_active(state, active)
+        d = state.data
+        vals = self._codes(k, v)
+        if state.is_paged:
+            paged.append_token(d, vals, active)
+        elif state.is_ragged:
+            for buf, val in zip(d.leaves(), vals):
+                kvcache.chunk_write(buf, val, d.length)
+            d.length.copy_(kvcache.advance(d.length, active))
+        else:
+            kvcache._check_room(d, d.length + 1)
+            for buf, val in zip(d.leaves(), vals):
+                buf[:, :, d.length] = val[:, :, 0]
+            d.length += 1
+        return state
+
+    def prefill_chunk(self, state, k, v):
+        """Append a prompt chunk (B, Hkv, C, d) at each row's length;
+        quantization is per token, so chunk boundaries move no byte."""
+        d = state.data
+        vals = self._codes(k, v)
+        if state.is_paged:
+            paged.append_chunk(d, vals)
+        else:
+            _refuse_scalar_chunk(state)
+            for buf, val in zip(d.leaves(), vals):
+                kvcache.chunk_write(buf, val, d.length)
+            d.length.add_(k.shape[-2])
+        return state
+
+    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from donor pages and set
+        its length to ``n_tokens``."""
+        d = row.data
+        for buf, tiles in zip(d.leaves(),
+                              paged.read_pages(paged_state.data, pages)):
+            _seed_leaf(buf, tiles)
+        d.length = kvcache.all_rows_at(d.length, n_tokens)
+        return row
+
+    def export_pages(self, state, pages) -> tuple:
+        """Host copies (k_codes, k_scales, v_codes, v_scales) of the named
+        pool pages, ``(NP, Hkv, ps, c)`` each."""
+        return _export_pool_pages(state.data, pages)
+
+    def import_pages(self, row, payload, n_tokens: int):
+        """Seed a dense batch-1 ragged ``row`` from exported page tiles and
+        set its length."""
+        d = row.data
+        for buf, tiles in zip(d.leaves(), payload):
+            _seed_dense_leaf(buf, tiles)
+        d.length = kvcache.all_rows_at(d.length, n_tokens)
+        return row
+
+    def raw_kv_view(self, state, n_tokens: Optional[int] = None):
+        """Raw-space (B, Hkv, n, d) fp32 K/V of a dense state's first
+        ``n_tokens`` positions (all by default): codes times scales."""
+        if state.is_paged:
+            raise ValueError("raw_kv_view reads a dense state (a staging "
+                             "row), not a page pool")
+        d = state.data
+        n = d.s_max if n_tokens is None else n_tokens
+        return (_dequant8(d.k_codes[:, :, :n], d.k_scales[:, :, :n]),
+                _dequant8(d.v_codes[:, :, :n], d.v_scales[:, :, :n]))
+
+    def insert_row(self, state, row, slot):
+        """Copy a prefilled batch-1 ragged row into ``slot`` (in place)."""
+        if state.is_paged:
+            raise NotImplementedError(
+                "paged admission goes through insert_row_paged (the engine "
+                "supplies the COW page plan)")
+        d, r = state.data, row.data
+        for b, x in zip((*d.leaves(), d.length), (*r.leaves(), r.length)):
+            _insert_row_leaf(b, x, slot)
+        return state
+
+    def insert_row_paged(self, state, row, slot, shared_pages, n_shared,
+                         n_new):
+        r = row.data
+        paged.insert_row(state.data, r.leaves(), (), r.length, slot,
+                         shared_pages, n_shared, n_new)
+        return state
+
+    def reset_rows(self, state, mask):
+        if state.is_paged:
+            paged.reset_rows(state.data, mask)
+        else:
+            _reset_lengths(state.data.length, mask)
+        return state
+
+    def _dequantized(self, state) -> BF16KVCache:
+        """The whole cache dequantized to fp32, per row (a paged state
+        through its gathered view): the GATHER read's operand."""
+        d = state.data
+        kc, ks, vc, vs = (paged.gather_view(d) if state.is_paged
+                          else d.leaves())
+        return BF16KVCache(_dequant8(kc, ks), _dequant8(vc, vs), d.length)
+
+    def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
+               sliding_window=None):
+        backend = AttendBackend.parse(backend)
+        if backend is not AttendBackend.GATHER:
+            raise NotImplementedError(
+                f"int8-per-token implements only the GATHER read path "
+                f"(got {backend.value}); tiled dequant is int4-only")
+        return decode_attention_bf16(q, self._dequantized(state),
+                                     scale=scale,
+                                     sliding_window=sliding_window)
+
+    def rollback_leaves(self, state) -> tuple:
+        """The live tensors a verify pass's rollback rewrites: the lengths
+        alone (per-token codes are position-addressed: an append at t
+        overwrites t's codes and scale whole)."""
+        return (state.data.length,)
+
+    def snapshot_rows(self, state, into=None):
+        """The entry lengths, copied (into ``into`` when given)."""
+        return _copy_into(state.data.length, into)
+
+    def verify_attend(self, q, state, snap, *, scale=None, backend=None,
+                      kv_block=512, sliding_window=None):
+        """k queries (B, Hq, k, d) against a state holding all k appended
+        tokens; every backend reads with GATHER's numerics, as the
+        reference's."""
+        AttendBackend.parse(backend)
+        return verify_attention_bf16(q, self._dequantized(state),
+                                     base_len=snap, scale=scale,
+                                     sliding_window=sliding_window)
+
+    def truncate_rows(self, state, new_length, snap):
+        """Roll back to ``new_length`` in place: a length decrement."""
+        kvcache.set_length(state.data, new_length)
+        return state
+
+    def nbytes(self, state, *, persistent_only: bool = True):
+        """Codes + scales; for a paged state the whole pool, plus the page
+        table and refcounts unless ``persistent_only``."""
+        d = state.data
+        if state.is_paged:
+            n = _leaf_bytes(*d.pools)
+            return n if persistent_only else n + paged.meta_nbytes(d)
+        return _leaf_bytes(*d.leaves())
+
+    def compression_ratio(self, state) -> float:
+        """bf16-equivalent bytes / persistent bytes."""
+        k_codes = state.data.pools[0] if state.is_paged \
+            else state.data.k_codes
+        return 2 * 2 * k_codes.numel() / self.nbytes(state)

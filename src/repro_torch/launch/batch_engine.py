@@ -2,12 +2,13 @@
 (port of ``repro/launch/batch_engine.py``: ``Request``, ``Completion``
 and ``BatchEngine`` with monolithic admission (:1129-1236, :1497-1528)
 and chunked admission with token-level prefix reuse (:138-160, :258-290,
-:564-600, :1252-1300, :1303-1400 without the host tier, :1635-1688), the
-paged page plan with its page-aligned copy-on-write prefix index and
-token-level donor index (:687-770), slot release (:772-824, without the
-host-tier spill), LRU recompute preemption (:826-878, :1409-1457), the
-decode chunk (:945-977, :1705-1777) and the speculative decode chunk
-(:211-230, :350-364, :474-478, :686-692, :979-1063, :1074-1085, :1238)).
+:564-600, :1252-1300, :1303-1400, :1635-1688), the paged page plan with
+its page-aligned copy-on-write prefix index and token-level donor index
+(:687-770), the host prefix tier (:366-381, :406-416, :480-488,
+:772-830, :890-927, :1282-1345), slot release (:772-824), LRU recompute
+preemption (:826-878, :1409-1457), the decode chunk (:945-977,
+:1705-1777) and the speculative decode chunk (:211-230, :350-364,
+:474-478, :686-692, :979-1063, :1074-1085, :1238)).
 
 ``BatchEngine`` keeps a fixed-capacity slot cache (one ragged
 ``CacheState`` per layer: per-row lengths) and a host-side scheduler:
@@ -52,6 +53,20 @@ reuses.  The staging row and raw buffers live outside the captured
 decode step, and admission leaves every slot-cache buffer at its
 address.
 
+The host prefix tier (``offload_bytes=``, paged and chunked only) keeps
+retired prompts' pages in host RAM (``launch/prefix_store.py``), and on
+disk with ``offload_dir=``.  When the last reference to a registered
+prompt page is about to drop (retirement, preemption, ``cancel_all``),
+the page's bytes are exported (``policy.export_pages``, one device-to-host
+copy per leaf and layer) and put under the page's key.  A chunked
+admission walks the prompt's page keys from the start
+(``_find_host_prefix``); when the host tier reaches deeper than a
+resident donor, the pages are copied to the card in one copy per leaf,
+imported into every layer of the staging row (``policy.import_pages``)
+and read back into the raw buffers as a device hit is (int4: B4), and
+only the rest is chunked.  The restored bytes are the donor's, so the
+stream equals the one a resident donor would have served.
+
 Paged mode (``paged=True``) swaps the dense slot stripes for a page pool
 (``core/paged.py``): admission allocates only the pages a request needs,
 requests whose prompts share a page-aligned prefix map the same physical
@@ -78,13 +93,13 @@ rolls back.  ``n_drafted`` / ``n_accepted`` count draft positions.
 
 Sampling is greedy, or by temperature from the explicit ``generator``.
 Not in this slice, each raising if asked for: packed admission
-(``admit_packed``), the host prefix tier (``offload_bytes``), tracing
-(``trace``) and meshes (``mesh``).
+(``admit_packed``), tracing (``trace``) and meshes (``mesh``).
 
     eng = BatchEngine(model, params, capacity=4, s_max=4608,
                       policy="int4-srft", backend="kernel", paged=True,
                       prefill_chunk=256,  # None: monolithic admission
-                      spec_k=None)  # 4: speculative passes of 4 tokens
+                      spec_k=None,  # 4: speculative passes of 4 tokens
+                      offload_bytes=None)  # 2**28: a 256 MiB host tier
     for c in eng.run([Request(rid=0, prompt=toks, max_new_tokens=64)]):
         ...  # Completion(rid, prompt_len, tokens, finish_reason)
 """
@@ -102,6 +117,7 @@ from repro_torch.core.cache_api import AttendBackend
 from repro_torch.core.paged import NULL_PAGE
 from repro_torch.launch.engine import GREEDY, Sampler, verify_pass
 from repro_torch.launch.graphs import StepGraph
+from repro_torch.launch.prefix_store import PrefixStore
 
 __all__ = ["Request", "Completion", "BatchEngine"]
 
@@ -146,7 +162,6 @@ class _PendingAdmission:
 
 
 _LATER = {
-    "offload_bytes": "ROADMAP A6: the host prefix tier",
     "trace": "ROADMAP A9: tracing with the server",
     "mesh": "ROADMAP A12: multi-device serving",
 }
@@ -162,7 +177,9 @@ class BatchEngine:
     ``graph=True``.  ``prefill_chunk`` (None: monolithic admission) and
     ``prefill_budget`` (default: one chunk per quantum) turn on chunked
     admission, and ``prefix_reuse`` its token-level reuse when paged.
-    ``spec_k`` (None: plain decode) turns on speculative decoding."""
+    ``spec_k`` (None: plain decode) turns on speculative decoding.
+    ``offload_bytes`` (None: no host tier) bounds the host prefix tier's
+    RAM, and ``offload_dir`` gives it a disk tier."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -174,9 +191,10 @@ class BatchEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
                  prefix_reuse: bool = True, spec_k: Optional[int] = None,
-                 offload_bytes: Optional[int] = None, trace=None, mesh=None,
+                 offload_bytes: Optional[int] = None,
+                 offload_dir: Optional[str] = None, trace=None, mesh=None,
                  graph: Optional[bool] = None):
-        asked = dict(offload_bytes=offload_bytes, trace=trace, mesh=mesh)
+        asked = dict(trace=trace, mesh=mesh)
         for name, value in asked.items():
             if value is not None:
                 raise NotImplementedError(
@@ -230,6 +248,9 @@ class BatchEngine:
         self.prefill_budget = (prefill_budget if prefill_budget is not None
                                else prefill_chunk)
         self.prefix_reuse = prefix_reuse
+        self._check_offload(offload_bytes, prefill_chunk)
+        self.prefix_store = (None if offload_bytes is None else
+                             PrefixStore(offload_bytes, offload_dir))
         self._pending: Optional[_PendingAdmission] = None
         self.n_prefill_chunks = 0
         self.n_reused_tokens = 0
@@ -280,9 +301,20 @@ class BatchEngine:
             self._orig: dict[int, tuple[int, int]] = {}
             self.n_preemptions = 0
             self.peak_pages = 0
+            # the host tier's traffic: device COW hit, host restore or
+            # miss, counted once per chunked admission
+            self.n_spilled_pages = 0
+            self.n_restored_pages = 0
+            self.n_restored_tokens = 0
             self.n_reuse_hits_device = 0
+            self.n_reuse_hits_host = 0
             self.n_reuse_misses = 0
             self._sync_pool()
+        # the tier that first admitted each live request (device, host,
+        # miss; "none" for dense engines), folded into tier_outcomes by
+        # finish reason when it ends
+        self._admit_tier: dict[int, str] = {}
+        self.tier_outcomes: dict[str, dict[str, int]] = {}
 
     def _check_spec(self, spec_k: int) -> None:
         """The reference's validation (``batch_engine.py:214-230``)."""
@@ -299,6 +331,29 @@ class BatchEngine:
                 f"spec_k={spec_k} must be <= the policy flush window W={W}: "
                 f"a verify pass appends at most one residual-ring wrap "
                 f"(DESIGN.md §13)")
+
+    def _check_offload(self, offload_bytes, prefill_chunk) -> None:
+        """The reference's conditions (``batch_engine.py:366-381``)."""
+        if offload_bytes is not None and not self.paged:
+            raise ValueError(
+                "offload_bytes requires paged=True: the host tier stores "
+                "evicted pool pages behind the prefix index")
+        if offload_bytes is not None and prefill_chunk is None:
+            raise ValueError(
+                "offload_bytes requires chunked admission (prefill_chunk): "
+                "a host-tier restore seeds the staging row and resumes "
+                "prefill after the restored tokens -- monolithic admission "
+                "has no resume path")
+
+    def _record_tier(self, rid: int, tier: str) -> None:
+        """The first admission wins: a preemption continuation keeps the
+        tier its request was first admitted from."""
+        self._admit_tier.setdefault(rid, tier)
+
+    def _count_outcome(self, rid: int, reason: str) -> None:
+        tier = self._admit_tier.pop(rid, "none")
+        by = self.tier_outcomes.setdefault(tier, {})
+        by[reason] = by.get(reason, 0) + 1
 
     def _init_spec(self, k: int) -> None:
         """The speculative pass's fixed device buffers: per-slot drafter
@@ -454,10 +509,12 @@ class BatchEngine:
                                                row[:n_pp].copy())
 
     def _release_slots(self, slots) -> None:
-        """Called before the reset that drops these slots' page references:
-        prune every prefix-index entry whose page is about to be freed (a
-        freed page may be reallocated with other content before the next
-        sync could notice)."""
+        """Called before the reset that drops these slots' page references,
+        while their bytes are resident: spill the registered prompt pages
+        about to die into the host tier (when there is one), then prune
+        every prefix-index entry whose page is about to be freed (a freed
+        page may be reallocated with other content before the next sync
+        could notice)."""
         if not self.paged:
             return
         drops = np.zeros((self.n_pages,), np.int32)
@@ -467,11 +524,33 @@ class BatchEngine:
         rc = self._refcount_host
         dying = (rc > 0) & (rc - drops <= 0)
         dying[NULL_PAGE] = False
+        if self.prefix_store is not None and dying.any():
+            self._spill([(k, p) for k, p in self._prefix_pages.items()
+                         if dying[p]])
         for k in [k for k, p in self._prefix_pages.items() if dying[p]]:
             del self._prefix_pages[k]
         for k in [k for k, (_, pgs) in self._prefix_seqs.items()
                   if dying[pgs].any()]:
             del self._prefix_seqs[k]
+
+    def _spill(self, spill: list) -> None:
+        """Put the dying pages ``spill`` ((key, page) in index order, that
+        is page order) into the host tier: the keys not stored yet are
+        exported, one ``export_pages`` a layer, and each page's payload
+        is its leaves stacked with the layer axis leading; a stored key
+        is only touched (its bytes are a function of its tokens)."""
+        store = self.prefix_store
+        fresh = [(k, p) for k, p in spill if k not in store]
+        if fresh:
+            per_layer = [self.policy.export_pages(st, [p for _, p in fresh])
+                         for st in self.cache["attn"]]
+            for j, (k, _) in enumerate(fresh):
+                store.put(k, tuple(
+                    torch.stack([leaves[i][j] for leaves in per_layer])
+                    for i in range(len(per_layer[0]))))
+            self.n_spilled_pages += len(fresh)
+        for k, _ in spill:
+            store.touch(k)
 
     def _reset(self, mask: np.ndarray) -> None:
         """Retire the masked rows in every layer; their positions go to 0
@@ -537,7 +616,33 @@ class BatchEngine:
             else 0
         pool_bytes = sum(self.policy.nbytes(st) for st in self.cache["attn"])
         page_bytes = pool_bytes / self.n_pages
+        # the host RAM the pool spends besides the device: the mirrors,
+        # the prefix indexes and the host tier
+        store = self.prefix_store
+        host_bytes = {
+            "refcount_mirror": int(rc.nbytes),
+            "page_table_mirror": int(self._ptab_host.nbytes),
+            "prefix_index": int(
+                sum(len(k) for k in self._prefix_pages)
+                + sum(len(k) + t.nbytes + pg.nbytes
+                      for k, (t, pg) in self._prefix_seqs.items())),
+            "offload_store": int(store.nbytes) if store is not None else 0,
+        }
+        host_bytes["total"] = sum(host_bytes.values())
+        offload = {
+            "enabled": store is not None,
+            "spilled_pages": self.n_spilled_pages,
+            "restored_pages": self.n_restored_pages,
+            "restored_tokens": self.n_restored_tokens,
+            "hits_device": self.n_reuse_hits_device,
+            "hits_host": self.n_reuse_hits_host,
+            "misses": self.n_reuse_misses,
+        }
+        if store is not None:
+            offload["store"] = store.stats()
         return {
+            "host_bytes": host_bytes,
+            "offload": offload,
             "n_pages": usable,
             "page_size": self.page_size,
             "pages_used": used,
@@ -630,6 +735,9 @@ class BatchEngine:
         the paged COW insert plus its host bookkeeping."""
         if self.paged:
             shared, n_new = plan
+            # monolithic admissions take their tier here, chunked ones in
+            # _start_pending
+            self._record_tier(req.rid, "device" if len(shared) else "miss")
             for st, r in zip(self.cache["attn"], row["attn"]):
                 self.policy.insert_row_paged(st, r, slot, shared,
                                              len(shared), n_new)
@@ -639,6 +747,7 @@ class BatchEngine:
             self._sync_pool()
             self._register_prefix(req, slot)
         else:
+            self._record_tier(req.rid, "none")
             for st, r in zip(self.cache["attn"], row["attn"]):
                 self.policy.insert_row(st, r, slot)
         self.cache["pos"][slot] = row["pos"][0]
@@ -744,6 +853,36 @@ class BatchEngine:
             return 0, None
         return best_t, best_pages
 
+    def _find_host_prefix(self, prompt: np.ndarray
+                          ) -> tuple[int, Optional[list]]:
+        """The deepest run of ``prompt``'s page keys in the host tier,
+        walked from the first page and stopped at the first miss; at most
+        ``(len(prompt) - 1) // page_size`` pages (the last token is
+        computed).  (n_tokens, page payloads in page order), or (0, None)."""
+        if self.prefix_store is None:
+            return 0, None
+        ps = self.page_size
+        payloads: list[tuple] = []
+        for i in range((int(prompt.shape[-1]) - 1) // ps):
+            pl = self.prefix_store.get(prompt[:(i + 1) * ps].tobytes())
+            if pl is None:
+                break
+            payloads.append(pl)
+        if not payloads:
+            return 0, None
+        return len(payloads) * ps, payloads
+
+    def _restore(self, row: dict, payloads: list, n_tok: int) -> None:
+        """Seed the staging row from host page payloads: each leaf's pages
+        stacked (n_layers, NP, H, ps, c), copied to the card at once, and
+        imported into every layer; its length and position set."""
+        stacked = [torch.stack([pl[j] for pl in payloads], dim=1).to(
+            self.device) for j in range(len(payloads[0]))]
+        for i, r in enumerate(row["attn"]):
+            self.policy.import_pages(r, tuple(leaf[i] for leaf in stacked),
+                                     n_tok)
+        row["pos"].fill_(n_tok)
+
     def _seed(self, row: dict, pages: np.ndarray, n_tok: int) -> None:
         """Adopt the donor pages' bytes into the staging row, every layer,
         and set its length and position to ``n_tok``."""
@@ -774,13 +913,24 @@ class BatchEngine:
                                     rots=self._rots, ragged=True)
         shared_t = 0
         if self.paged and self.prefix_reuse and req.resume_tok is None:
+            # the deeper tier wins; a device hit wins a tie (no copy)
             shared_t, donor_pages = self._find_donor(prompt)
-            if shared_t:
+            host_t, payloads = self._find_host_prefix(prompt)
+            if host_t > shared_t:
+                self._restore(row, payloads, host_t)
+                shared_t = host_t
+                self.n_restored_pages += len(payloads)
+                self.n_restored_tokens += host_t
+                self.n_reuse_hits_host += 1
+                self._record_tier(req.rid, "host")
+            elif shared_t:
                 self._seed(row, donor_pages[:-(-shared_t // self.page_size)],
                            shared_t)
                 self.n_reuse_hits_device += 1
+                self._record_tier(req.rid, "device")
             else:
                 self.n_reuse_misses += 1
+                self._record_tier(req.rid, "miss")
         cfg = self.model.cfg
         shape = (cfg.n_layers, 1, cfg.n_kv_heads, n_total, cfg.head_dim)
         raw_k = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
@@ -869,6 +1019,7 @@ class BatchEngine:
         self._slot_toks[slot] = []
         self.active[slot] = False
         self.budget[slot] = 0
+        self._count_outcome(req.rid, reason)
         return Completion(rid=req.rid, prompt_len=plen, tokens=toks,
                           finish_reason=reason)
 
@@ -880,6 +1031,7 @@ class BatchEngine:
         if self.paged:
             toks = self._carried.pop(req.rid, [])
             plen, _ = self._orig.pop(req.rid, (plen, req.max_new_tokens))
+        self._count_outcome(req.rid, "cancelled")
         return Completion(rid=req.rid, prompt_len=plen,
                           tokens=np.asarray(toks, np.int32),
                           finish_reason="cancelled")

@@ -339,12 +339,18 @@ def test_engine_validates_and_refuses_what_is_not_ported(lm):
     with pytest.raises(ValueError, match="exceeds s_max"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32),
                            max_new_tokens=8))
-    for kw in (dict(offload_bytes=1 << 20), dict(trace=object()),
-               dict(mesh=object())):
+    for kw in (dict(trace=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
                         **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.admit_packed([])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        eng.policy.export_pages(None)
+    # the host prefix tier (A6) is ported: it refuses what the reference
+    # refuses
+    with pytest.raises(ValueError, match="paged=True"):
+        BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
+                    offload_bytes=1 << 20)
+    with pytest.raises(ValueError, match="chunked admission"):
+        BatchEngine(model, params, capacity=1, s_max=32, policy="bf16",
+                    paged=True, page_size=8, device="cpu",
+                    offload_bytes=1 << 20)

@@ -710,5 +710,9 @@ def test_batch_spec_validation_matches_reference(lm):
                       paged=True, page_size=16, device="cpu")
     assert eng._pages_needed(30, 2) == 3  # 32 tokens + 3 of slack
     assert eng.n_rejected == 0
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.policy.export_pages(None)
+    # the host prefix tier (A6) takes a speculative engine, as the
+    # reference's does
+    eng = BatchEngine(model, params, capacity=1, s_max=64, spec_k=4,
+                      paged=True, page_size=16, prefill_chunk=16,
+                      offload_bytes=1 << 20, device="cpu")
+    assert eng.prefix_store is not None and eng.n_spilled_pages == 0
