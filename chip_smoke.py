@@ -135,7 +135,37 @@ Phases (any failure exits non-zero):
      per token beside phase 6's, graph == eager, cache bytes and
      compression at s_max 4608, a replay loop without host syncs); and
      ``repro_torch.examples.quickstart`` on the card (80 training steps,
-     fp32 operands).
+     fp32 operands);
+ 12. training, checkpoints and learned rotations (TRAIN_ARGV, CALIB_KW;
+     lines tagged with the card's name and power limit).  (a)
+     ``repro_torch.launch.train.main`` in-process on internlm2-1.8b at
+     full width and depth, 4 steps of 4 x 256 tokens, bf16 operands: ms
+     per step by CUDA events, each step's loss (finite), peak memory;
+     ``(params, opt)`` saved with ``CheckpointManager`` under
+     ``build/phase12`` and restored onto the card into a fresh tree,
+     every leaf bit for bit, bytes on disk and seconds each way, then the
+     directory deleted and the state freed.  (b)
+     ``repro_torch.examples.train_lm`` (tiny-33m) through its CLI: two
+     uninterrupted runs to step 12 compared leaf for leaf, then a run to
+     step 6 started again to 12 (a resume): its step-12 checkpoint and
+     iterator state equal the uninterrupted run's (held to the
+     run-to-run spread, leaf by leaf, if the two uninterrupted runs
+     differ).  (c) K/V of phase 5's 2055-token request (``collect_kv``)
+     and every layer and side fitted by ``calibrate`` (learned lambda +
+     Householder k = 64 on the SRFT base, group 32, 120 steps): every
+     matrix orthogonal within ORTH_TOL, every lambda finite and positive.
+     (d) ``Engine`` on that request with the cache built on the learned
+     rotations, int4-srft KERNEL graph and eager and GATHER: graph ==
+     eager, KERNEL vs GATHER within LOGIT_TOL, and B3 / B1 launching as
+     many times as on phase 5's request (counters zeroed just before,
+     read just after); ms per token beside phase 6's.  (e) B3 (the
+     cache's write and the folded matrix) and B4 (``fold_and_invert``) on
+     layer 0's learned K rotation and on a no-SRFT rotation (identity
+     base, learned Cayley + lambda) fitted on the same vectors, held to
+     their plain versions.  (f) the paper's §5.3 ablation
+     (``benchmarks/calibration_ablation.py``'s five variants on smol-d64
+     trained 250 steps, alpha = 20, fp32 operands): mean MSE reduction,
+     hook dPPL and the four claims, logged and not gated.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -196,7 +226,8 @@ OFFLOAD_ROUNDS = 2
 OFFLOAD_RUNS = (("int4-srft", "kernel"), ("bf16", None),
                 ("int8-per-token", None))
 CARD = ""  # the card's name and power limit, set by main()
-MAIN_SUMMARY: dict = {}  # phase 6's decode ms/token, for phase 11
+MAIN_SUMMARY: dict = {}  # phase 6's decode ms/token, for phases 11-12
+MAIN_LAUNCHES: dict = {}  # phase 5's launches per request, for phase 12
 
 
 def log(*a):
@@ -787,9 +818,10 @@ def _agree_until(t_ref, t_got, l_ref) -> int:
 
 
 def serve(model, params, policy, backend, prompt_len, graph=True,
-          keep=False):
+          keep=False, rots=None):
     """One request through ``Engine`` on a ragged batch-1 cache: the
-    captured step (``graph``) or the eager loop.  The first decode call
+    captured step (``graph``) or the eager loop; ``rots`` (one (k, v) pair
+    per layer) replaces the cache's own rotations.  The first decode call
     makes one step (under a graph it warms up and captures first); the
     other NEW_TOKENS - 2 are timed by CUDA events.  Returns (row, tokens,
     logits), plus (engine, cache) with ``keep``."""
@@ -798,7 +830,7 @@ def serve(model, params, policy, backend, prompt_len, graph=True,
     g = torch.Generator(device="cuda").manual_seed(SEED + prompt_len)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
                            generator=g, device="cuda")
-    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True, rots=rots,
                              generator=torch.Generator().manual_seed(SEED))
     eng = Engine(model, backend=backend, graph=graph)
     a = torch.cuda.Event(enable_timing=True)
@@ -925,6 +957,7 @@ def main_path_phase():
     for n in PROMPTS:
         _zero_counters()
         row, toks, logits = serve(model, params, "int4-srft", "kernel", n)
+        MAIN_LAUNCHES[n] = _counters()
         for k, c in _counters().items():
             launches[k] += c
         runs["int4-srft", "kernel", n, True] = [(row, toks, logits)]
@@ -2519,6 +2552,467 @@ def quality_reference_phase():
         f"worst rel {worst:.2e}, tolerance {PPL_RTOL}")
 
 
+# ----------------------------- phase 12: training, checkpoints, calibration
+
+# 12a: the training CLI at full width (bf16 operands, fp32 accumulation)
+TRAIN_ARGV = ("--arch", "internlm2-1.8b", "--steps", "4", "--batch", "4",
+              "--seq", "256", "--log-every", "1")
+# 12b: train_lm's run A and run B's first leg, both inside its 20-step
+# warmup, where the cosine schedule does not depend on --steps
+TRAIN_LM_STEPS = (12, 6)
+# 12c / 12e: fits on the served model's K/V, at the cache's group
+CALIB_KW = dict(group=32, bits=4, steps=120, lr=1e-2, learn_lambda=True,
+                learn_householder=64)
+NOSRFT_KW = dict(group=32, bits=4, steps=120, lr=1e-2, learn_lambda=True,
+                 learn_cayley=True)
+ORTH_TOL = 1e-4  # every learned matrix: max |M M^T - I|
+# 12f: benchmarks/calibration_ablation.py:31-41 (-1: k = d / 2) and its
+# Adam steps
+ABLATION_VARIANTS = (
+    ("random_srft", "srft", {}),
+    ("srft_lambda", "srft", dict(learn_lambda=True)),
+    ("srft_cayley_lambda", "srft", dict(learn_lambda=True,
+                                        learn_cayley=True)),
+    ("srft_householder_lambda", "srft", dict(learn_lambda=True,
+                                             learn_householder=-1)),
+    ("nosrft_cayley_lambda", "identity", dict(learn_lambda=True,
+                                              learn_cayley=True)),
+)
+ABLATION_STEPS = 120
+WORK_DIR = ROOT / "build" / "phase12"  # checkpoints, deleted after use
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers of its width: bit-for-bit
+    comparison (-0.0 vs 0.0 and NaN payloads count)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _free_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_phase() -> dict:
+    """12a: ``launch.train.main`` in-process on internlm2-1.8b at full
+    width and depth (TRAIN_ARGV), then ``(params, opt)`` saved with
+    ``CheckpointManager`` and restored into a fresh tree on the card, every
+    leaf compared bit for bit; the directory is deleted and the state
+    freed."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import AdamState, tree_leaves, tree_map
+
+    _free_cuda()
+    log(f"[{CARD}] before 12a: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, metrics["loss"]))
+
+    t0 = time.perf_counter()
+    state = train.main(list(TRAIN_ARGV), on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(loss) for _, loss in marks]
+    step_ms = [a.elapsed_time(b) for (a, _), (b, _) in zip(marks,
+                                                            marks[1:])]
+    assert len(losses) == 4 and torch.isfinite(torch.tensor(losses)).all(), \
+        losses
+    leaves = tree_leaves(state)
+    n_params = sum(t.numel() for t in tree_leaves(state[0]))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    path = WORK_DIR / "full"
+    mgr = CheckpointManager(str(path), keep=1)
+    free = shutil.disk_usage(path).free
+    t0 = time.perf_counter()
+    mgr.save(4, state, metadata={"data": {"step": 4}})
+    save_s = time.perf_counter() - t0
+    disk = _dir_bytes(path)
+    example = tree_map(lambda t: torch.empty_like(t, device="meta"), state)
+    t0 = time.perf_counter()
+    restored, meta = mgr.restore(4, example,
+                                 device_fn=lambda i, ex: torch.device(DEV))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = tree_leaves(restored)
+    assert isinstance(restored[1], AdamState) and len(got) == len(leaves)
+    for i, (a, b) in enumerate(zip(leaves, got)):
+        assert (a.dtype, a.shape, a.device) == (b.dtype, b.shape, b.device), i
+        assert torch.equal(_bits(a), _bits(b)), f"leaf {i} differs"
+    assert meta == {"data": {"step": 4}}
+    shutil.rmtree(path)
+    rec = dict(params=n_params, leaves=len(leaves), state_bytes=state_bytes,
+               losses=losses, step_ms_2_to_4=step_ms, main_wall_s=wall,
+               peak_bytes=peak, disk_free_bytes=free, ckpt_disk_bytes=disk,
+               save_s=save_s, restore_s=restore_s)
+    log("train " + json.dumps(rec))
+    log(f"[{CARD}] 12a internlm2-1.8b training, 4 x 256 tokens a step, bf16 "
+        f"operands: {n_params:,} params, ms/step (events, steps 2-4) "
+        + ", ".join(f"{m:.1f}" for m in step_ms)
+        + f"; losses {losses}; peak {peak / 1e9:.2f} GB allocated; "
+        f"checkpoint {disk / 1e9:.3f} GB on disk, save {save_s:.1f} s, "
+        f"restore {restore_s:.1f} s, {len(leaves)} leaves bit for bit")
+    del state, restored, got, leaves, example
+    _free_cuda()
+    return rec
+
+
+def _ckpt_diff(dir_a, dir_b, step) -> dict:
+    """Two checkpoints of one step, leaf by leaf: the leaves whose bytes
+    differ, the largest abs difference of each, and both metadata."""
+    import numpy as np
+
+    name = f"step_{step:08d}"
+    metas = [json.loads((Path(d) / name / "meta.json").read_text())
+             for d in (dir_a, dir_b)]
+    assert metas[0]["n_leaves"] == metas[1]["n_leaves"]
+    diff = {}
+    with np.load(Path(dir_a) / name / "arrays.npz") as fa, \
+            np.load(Path(dir_b) / name / "arrays.npz") as fb:
+        for i in range(metas[0]["n_leaves"]):
+            a, b = fa[f"leaf_{i}"], fb[f"leaf_{i}"]
+            if a.tobytes() != b.tobytes():
+                ta = _from_npz(a, metas[0]["dtypes"][i])
+                tb = _from_npz(b, metas[0]["dtypes"][i])
+                diff[i] = (ta - tb).abs().max().item()
+    return {"n_leaves": metas[0]["n_leaves"], "differ": diff,
+            "meta": [m["metadata"] for m in metas],
+            "dtypes": metas[0]["dtypes"]}
+
+
+def _from_npz(a, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(a.copy())
+    return (t.view(torch.bfloat16) if dtype == "bfloat16" else t).double()
+
+
+def resume_phase() -> dict:
+    """12b: ``examples.train_lm`` (tiny-33m) through its CLI on the card:
+    two uninterrupted runs A and A' to TRAIN_LM_STEPS[0], and run B to
+    TRAIN_LM_STEPS[1] then started again to TRAIN_LM_STEPS[0] (a resume);
+    the step checkpoints compared leaf for leaf, with the iterator state."""
+    from repro_torch.examples import train_lm
+
+    n, half = TRAIN_LM_STEPS
+    dirs = {k: WORK_DIR / f"train_lm_{k}" for k in ("a", "a2", "b")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    runs = {k: train_lm.main(["--steps", str(n), "--ckpt-dir", str(dirs[k])])
+            for k in ("a", "a2")}
+    first = train_lm.main(["--steps", str(half), "--ckpt-dir",
+                           str(dirs["b"])])
+    runs["b"] = train_lm.main(["--steps", str(n), "--ckpt-dir",
+                               str(dirs["b"])])
+    secs = time.perf_counter() - t0
+    assert first["reached"] == half, first
+    assert runs["b"]["start"] == half and runs["b"]["reached"] == n, runs["b"]
+    rerun = _ckpt_diff(dirs["a"], dirs["a2"], n)
+    resume = _ckpt_diff(dirs["a"], dirs["b"], n)
+    data = {"step": n, "shard_id": 0, "num_shards": 1}
+    assert rerun["meta"] == resume["meta"][::-1] == [{"data": data}] * 2, \
+        (rerun["meta"], resume["meta"])
+    losses_a, losses_b = runs["a"]["losses"], first["losses"] + runs["b"][
+        "losses"]
+    rec = dict(steps=n, resumed_at=half, leaves=rerun["n_leaves"],
+               rerun_leaves_differ=len(rerun["differ"]),
+               resume_leaves_differ=len(resume["differ"]),
+               rerun_max_abs=max(rerun["differ"].values(), default=0.0),
+               resume_max_abs=max(resume["differ"].values(), default=0.0),
+               losses_a=losses_a, losses_b=losses_b, seconds=secs)
+    log("resume " + json.dumps(rec))
+    if rerun["differ"]:
+        # the card reorders some reduction between two identical runs:
+        # then the resume is held to the run-to-run spread, leaf by leaf
+        log(f"  uninterrupted runs differ in leaves {rerun['differ']}")
+        for i, err in resume["differ"].items():
+            assert err <= 2 * rerun["differ"].get(i, 0.0), \
+                f"leaf {i}: resume {err} beyond twice the rerun spread"
+    else:
+        assert not resume["differ"], f"resume differs: {resume['differ']}"
+        assert losses_a == losses_b, (losses_a, losses_b)
+    log(f"[{CARD}] 12b train_lm (tiny-33m) on the card: two uninterrupted "
+        f"runs to step {n} {'equal' if not rerun['differ'] else 'DIFFER'} "
+        f"bit for bit ({rerun['n_leaves']} leaves); {half} steps + resume "
+        f"to {n}: {len(resume['differ'])} leaves differ, iterator state "
+        f"{data}; {secs:.1f} s for the four runs")
+    for d in dirs.values():
+        shutil.rmtree(d)
+    return rec
+
+
+def calibration_phase(model, params):
+    """12c: K/V of the 2,055-token request (phase 5's prompt) through
+    ``collect_kv``; every layer and side fitted with ``calibrate``
+    (CALIB_KW: learned lambda + Householder k = 64 on the SRFT base);
+    every matrix orthogonal within ORTH_TOL, every lambda finite and
+    positive.  Returns the learned (k, v) pairs and layer 0's K vectors."""
+    from repro_torch.core.calibrate import calibrate
+
+    cfg = model.cfg
+    n = PROMPTS[1]
+    g = torch.Generator(device=DEV).manual_seed(SEED + n)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
+                           device=DEV)
+    with torch.no_grad():
+        k_act, v_act = model.collect_kv(params, prompt)
+    acts = {"k": k_act, "v": v_act}
+    base = model.init_rotations(model.generator(SEED + 1))
+    eye = torch.eye(cfg.head_dim, device=DEV)
+    learned, red, orth, lam = [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(cfg.n_layers):
+        pair = []
+        for j, side in enumerate("kv"):
+            x = acts[side][i].reshape(-1, cfg.head_dim).float()
+            rot, diag = calibrate(base[i][j], x,
+                                  generator=model.generator(SEED + 2 * i + j),
+                                  **CALIB_KW)
+            pair.append(rot)
+            red.append(diag["mse_reduction"])
+            orth.append((rot.matrix @ rot.matrix.T - eye).abs().max().item())
+            lam.append((rot.lam.min().item(), rot.lam.max().item()))
+            assert torch.isfinite(rot.lam).all() and (rot.lam > 0).all(), \
+                f"layer {i} {side}: lambda {rot.lam}"
+        learned.append(tuple(pair))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert max(orth) <= ORTH_TOL, f"orthogonality {max(orth)}"
+    rec = dict(vectors_per_fit=k_act[0].numel() // cfg.head_dim,
+               fits=len(red), seconds=secs,
+               mse_reduction=[min(red), sum(red) / len(red), max(red)],
+               max_orthogonality_err=max(orth),
+               lambda_range=[min(a for a, _ in lam), max(b for _, b in lam)])
+    log("calibration " + json.dumps(rec))
+    log(f"[{CARD}] 12c learned lambda + Householder k = 64 on internlm2-1.8b's "
+        f"own K/V ({rec['vectors_per_fit']} vectors a fit, {len(red)} fits "
+        f"of {CALIB_KW['steps']} steps): {secs:.1f} s; MSE reduction min / "
+        f"mean / max {min(red):.4f} / {sum(red) / len(red):.4f} / "
+        f"{max(red):.4f}; orthogonality <= {max(orth):.2e}")
+    return learned, acts["k"][0].reshape(-1, cfg.head_dim), rec
+
+
+def learned_serve_phase(model, params, rots) -> tuple[dict, dict]:
+    """12d: ``Engine`` on the 2,055-token request (64 new tokens) with the
+    int4-srft cache built on the learned rotations: KERNEL under the graph
+    (counters zeroed just before, read just after: the counts of phase 5's
+    request) and eager, and GATHER; graph == eager within GRAPH_TOL,
+    KERNEL vs GATHER within LOGIT_TOL."""
+    n = PROMPTS[1]
+    _zero_counters()
+    row_g, t_g, l_g = serve(model, params, "int4-srft", "kernel", n, True,
+                            rots=rots)
+    launches = _counters()
+    row_e, t_e, l_e = serve(model, params, "int4-srft", "kernel", n, False,
+                            rots=rots)
+    _, t_ga, l_ga = serve(model, params, "int4-srft", "gather", n, True,
+                          rots=rots)
+    for row in (row_g, row_e):
+        log("learned request " + json.dumps(row))
+    _graph_agrees((t_e, l_e), (t_g, l_g), f"learned rotations {n} tokens")
+    n_same = _agree_until(t_g, t_ga, l_g)
+    err = (l_g[:, :n_same] - l_ga[:, :n_same]).abs().max().item()
+    tol = LOGIT_TOL * l_g.abs().max().item()
+    assert err <= tol, f"learned rotations: GATHER vs KERNEL {err} > {tol}"
+    want = MAIN_LAUNCHES[n]
+    for name in ("srft_quant", "quant_decode_attention"):
+        assert launches[name] == want[name] > 0, (launches, want)
+    main_ms = MAIN_SUMMARY[f"int4-srft/kernel/{n}"]["graph"]
+    rec = dict(decode_ms_per_tok=row_g["decode_ms_per_tok"],
+               eager_ms_per_tok=row_e["decode_ms_per_tok"],
+               phase6_graph_ms_per_tok=main_ms, kernel_vs_gather=err,
+               kernel_vs_gather_tol=tol, tokens_agree=n_same,
+               launches=launches)
+    log("learned serve " + json.dumps(rec))
+    log(f"[{CARD}] 12d Engine int4-srft KERNEL on learned rotations, {n} "
+        f"tokens: {row_g['decode_ms_per_tok']:.4f} ms/token graph "
+        f"(phase 6's random SRFT: {main_ms}), eager "
+        f"{row_e['decode_ms_per_tok']:.3f}; KERNEL vs GATHER {err:.3e} (tol "
+        f"{tol:.3e}); launches {launches}")
+    return rec, launches
+
+
+def learned_kernel_phase(rot_k0, x) -> tuple[list, dict]:
+    """12e: B3 (the cache's write, lambda as an epilogue, and the folded
+    matrix) and B4 (``kernel_quality.fold_and_invert``) on layer 0's
+    learned K rotation and on a no-SRFT rotation (identity base, learned
+    Cayley + lambda) fitted on the same vectors, each held to its plain
+    version: B3 by ``check_b3``, B4 within B4_RTOL * max(1, max |x|).
+    Counters zeroed just before and read just after."""
+    from repro_torch.benchmarks.kernel_quality import fold_and_invert
+    from repro_torch.core.calibrate import calibrate
+    from repro_torch.core.transforms import Rotation, make_rotation
+    from repro_torch.kernels.srft_quant import ops as sq_ops
+    from repro_torch.kernels.srft_quant import ref
+
+    d = x.shape[-1]
+    ident = make_rotation("identity", torch.Generator().manual_seed(SEED), d,
+                          DEV)
+    nosrft, diag = calibrate(ident, x.float(),
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(SEED), **NOSRFT_KW)
+    eye = torch.eye(d, device=DEV)
+    rows = []
+    _zero_counters()
+    for name, rot in (("learned_householder_k", rot_k0),
+                      ("nosrft_cayley", nosrft)):
+        orth = (rot.matrix @ rot.matrix.T - eye).abs().max().item()
+        assert orth <= ORTH_TOL, f"{name}: orthogonality {orth}"
+        err, flips = check_b3(sq_ops, ref, rot, x, group=CALIB_KW["group"])
+        folded = Rotation(ref.fold_matrix(rot), torch.ones_like(rot.lam),
+                          rot.signs, rot.kind)
+        err_f, flips_f = check_b3(sq_ops, ref, folded, x.float(),
+                                  group=CALIB_KW["group"])
+        rt = fold_and_invert(x.float(), rot, group=CALIB_KW["group"])
+        assert rt["err"] <= rt["tol"], f"{name}: B4 {rt['err']} > {rt['tol']}"
+        rows.append(dict(rotation=name, rows=x.shape[0],
+                         lam=[rot.lam.min().item(), rot.lam.max().item()],
+                         orthogonality_err=orth, b3_cache_deq_err=err,
+                         b3_cache_tie_flips=flips, b3_folded_deq_err=err_f,
+                         b3_folded_tie_flips=flips_f, b4_err=rt["err"],
+                         b4_tol=rt["tol"]))
+        log("learned kernels " + json.dumps(rows[-1]))
+    launches = _counters()
+    assert launches["srft_quant"] > 0 and launches["srft_dequant"] > 0
+    log(f"[{CARD}] 12e B3 / B4 on learned matrices (layer 0 K, {x.shape[0]} "
+        f"rows): pass, no-SRFT fit MSE reduction "
+        f"{diag['mse_reduction']:.4f}; launches {launches}")
+    return rows, launches
+
+
+def ablation_phase() -> dict:
+    """12f: the paper's §5.3 ablation (benchmarks/calibration_ablation.py)
+    on fp32 operands: smol-d64 trained 250 steps, alpha = 20 outliers,
+    8 x 256 eval tokens; per variant the mean MSE reduction over layers
+    and sides, hook dPPL (per_channel, group 32) and the four claims,
+    logged and not gated."""
+    from repro_torch.benchmarks.common import (
+        eval_tokens,
+        hook_ppl,
+        trained_standin,
+    )
+    from repro_torch.core.calibrate import calibrate
+    from repro_torch.core.outliers import inject_kv_outliers
+    from repro_torch.core.transforms import make_rotation
+    from repro_torch.models import common
+
+    t0 = time.perf_counter()
+    with common.dot_mode(False):
+        st = trained_standin("smol-d64", device=DEV)
+        cfg, model = st.cfg, st.model
+        params = inject_kv_outliers(st.params, head_dim=cfg.head_dim,
+                                    alpha=20.0)
+        d, L = cfg.head_dim, cfg.n_layers
+        toks = eval_tokens(batch=8, device=DEV)
+        base = hook_ppl(model, params, toks, None, None)
+        with torch.no_grad():
+            k_act, v_act = model.collect_kv(params, toks)
+        acts = {"k": k_act.reshape(L, -1, d).float(),
+                "v": v_act.reshape(L, -1, d).float()}
+        rows = []
+        for name, kind, kw in ABLATION_VARIANTS:
+            kw = dict(kw)
+            if kw.get("learn_householder") == -1:
+                kw["learn_householder"] = d // 2
+            fitted, red = {"k": [], "v": []}, []
+            for which in "kv":
+                for i in range(L):
+                    rot = make_rotation(kind, torch.Generator().manual_seed(
+                        10 + i), d, DEV)
+                    if kw:  # learned variants: per layer and side (§5.1)
+                        rot, diag = calibrate(
+                            rot, acts[which][i], bits=4,
+                            steps=ABLATION_STEPS, lr=1e-2,
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(10 + i), **kw)
+                        red.append(diag["mse_reduction"])
+                    fitted[which].append(rot)
+            ppl = hook_ppl(model, params, toks,
+                           list(zip(fitted["k"], fitted["v"])),
+                           dict(bits=4, scheme="per_channel", group=32))
+            n_params = {"random_srft": 0, "srft_lambda": d,
+                        "srft_cayley_lambda": d * d + d,
+                        "srft_householder_lambda": (d // 2) * d + d,
+                        "nosrft_cayley_lambda": d * d + d}[name]
+            rows.append(dict(variant=name, params_per_ch=n_params,
+                             mse_reduction=sum(red) / len(red) if red
+                             else None, dppl=ppl - base))
+    r = {row["variant"]: row for row in rows}
+    claims = {
+        "all_learned_beat_random": all(
+            r[v]["dppl"] < r["random_srft"]["dppl"]
+            for v in ("srft_lambda", "srft_cayley_lambda",
+                      "srft_householder_lambda")),
+        "householder_half_params_of_cayley":
+            r["srft_householder_lambda"]["params_per_ch"]
+            < 0.6 * r["srft_cayley_lambda"]["params_per_ch"],
+        "nosrft_higher_mse_reduction":
+            r["nosrft_cayley_lambda"]["mse_reduction"]
+            > r["srft_cayley_lambda"]["mse_reduction"],
+        "nosrft_worse_ppl_than_best_srft":
+            r["nosrft_cayley_lambda"]["dppl"]
+            > min(r["srft_cayley_lambda"]["dppl"],
+                  r["srft_householder_lambda"]["dppl"]),
+    }
+    rec = dict(model=cfg.name, train_loss=[st.losses[0], st.losses[-1]],
+               fp_ppl=base, adam_steps=ABLATION_STEPS, rows=rows,
+               claims=claims, seconds=time.perf_counter() - t0)
+    log("ablation " + json.dumps(rec))
+    log(f"[{CARD}] 12f §5.3 ablation (smol-d64, alpha 20, fp32 operands, "
+        f"fp PPL {base:.4f}): "
+        + "; ".join(f"{x['variant']} MSE red "
+                    + ("-" if x["mse_reduction"] is None
+                       else f"{x['mse_reduction']:.4f}")
+                    + f" dPPL {x['dppl']:+.4f}" for x in rows)
+        + f"; paper claims (logged, not gated): {claims}")
+    return rec
+
+
+def learned_phase(model, params) -> dict:
+    """Phase 12 (see the module doc).  Returns launches per kernel of its
+    two kernel paths."""
+    t = {}
+    t0 = time.perf_counter()
+    train_phase()
+    t["12a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resume_phase()
+    t["12b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rots, x_k0, _ = calibration_phase(model, params)
+    t["12c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, serve_launches = learned_serve_phase(model, params, rots)
+    t["12d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, rt_launches = learned_kernel_phase(rots[0][0], x_k0)
+    t["12e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ablation_phase()
+    t["12f"] = time.perf_counter() - t0
+    log("phase 12 seconds " + json.dumps(t))
+    return {"learned_engine": serve_launches,
+            "learned_roundtrip": rt_launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2589,8 +3083,11 @@ def main() -> int:
     t0 = time.perf_counter()
     offload = offload_phase(model, params)
     log(f"offload phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    learned = learned_phase(model, params)
+    log(f"learned phase {time.perf_counter() - t0:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
-               "quality": quality}
+               "quality": quality, **learned}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

@@ -5,8 +5,10 @@ Stand-in models: the paper evaluates pretrained SmolLM2 / Qwen / Gemma
 checkpoints; none ship offline, so the benchmarks train the ``smol-*``
 stand-ins (the same head_dim regimes) on the synthetic corpus.  The port
 trains in memory on every call (the reference caches the trained params
-on disk; its checkpoint manager is not ported yet).  Absolute PPLs differ
-from the paper; the orderings and mechanisms are what is measured.
+on disk with its checkpoint manager; the port's ``CheckpointManager``
+could, but a run here depends on nothing another run left).  Absolute
+PPLs differ from the paper; the orderings and mechanisms are what is
+measured.
 Records go to ``artifacts/bench_torch/`` at the root of the checkout.
 """
 from __future__ import annotations

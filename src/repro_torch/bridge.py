@@ -15,9 +15,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.calibrate import CalibParams
 from repro_torch.core.transforms import Rotation
 
-__all__ = ["to_torch", "lm_params", "rotations"]
+__all__ = ["to_torch", "lm_params", "rotation", "rotations", "calib_params"]
 
 
 def to_torch(x: Any, device="cpu") -> Any:
@@ -48,16 +49,28 @@ def lm_params(tree: dict, device="cpu") -> dict:
     return out
 
 
+def rotation(tree: dict, kind: str = "srft", device="cpu") -> Rotation:
+    """One rotation ``{"matrix", "lam", "signs"}`` -> the port's."""
+    return Rotation(matrix=to_torch(tree["matrix"], device),
+                    lam=to_torch(tree["lam"], device),
+                    signs=to_torch(tree["signs"], device), kind=kind)
+
+
 def rotations(tree: dict, kind: str = "srft", device="cpu"
               ) -> list[tuple[Rotation, Rotation]]:
     """Layer-stacked rotations ``{"k": {"matrix", "lam", "signs"}, "v":
     {...}}`` (leaves (L, ...)) -> one (rot_k, rot_v) pair per layer."""
     def one(side, i):
-        r = tree[side]
-        return Rotation(matrix=to_torch(np.asarray(r["matrix"])[i], device),
-                        lam=to_torch(np.asarray(r["lam"])[i], device),
-                        signs=to_torch(np.asarray(r["signs"])[i], device),
-                        kind=kind)
+        return rotation({k: np.asarray(v)[i] for k, v in tree[side].items()},
+                        kind, device)
 
     n_layers = np.asarray(tree["k"]["matrix"]).shape[0]
     return [(one("k", i), one("v", i)) for i in range(n_layers)]
+
+
+def calib_params(tree: Any, device="cpu"):
+    """The reference's ``CalibParams`` (numpy leaves, ``None`` kept) -> the
+    port's, field by field."""
+    return CalibParams(*(None if getattr(tree, f) is None
+                         else to_torch(getattr(tree, f), device)
+                         for f in CalibParams._fields))

@@ -79,3 +79,17 @@ class DataIterator:
             for i in range(self.batch_per_shard)])
         self.step += 1
         return {"tokens": torch.from_numpy(b).long().to(self.device)}
+
+    # -- checkpoint integration (reference ``pipeline.py:88-98``) --
+    def state_dict(self) -> dict:
+        return {"step": self.step, "shard_id": self.shard_id,
+                "num_shards": self.num_shards}
+
+    def restore(self, state: dict) -> None:
+        """Resume at the saved step; the shard stays the iterator's own."""
+        self.step = int(state["step"])
+
+    def reshard(self, shard_id: int, num_shards: int) -> None:
+        """Elastic re-scale: repartition shards, keep the step counter."""
+        self.shard_id = shard_id
+        self.num_shards = num_shards

@@ -42,6 +42,7 @@ def make_train_step(model, *, lr=3e-4, clip: float = 1.0):
                  for p, g in zip(leaves, grads)]
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
+        del it  # its list would keep the raw grads alive through the update
         grads, gnorm = clip_by_global_norm(grads, clip)
         step_lr = lr_fn(opt_state.step)
         params = tree_map(lambda p: p.detach(), params)

@@ -1,0 +1,134 @@
+"""Training CLI (port of ``repro/launch/train.py``).
+
+    python -m repro_torch.launch.train --arch internlm2-1.8b --steps 200 \
+        --ckpt-dir DIR [--resume] [--smoke] [--device cpu]
+
+Wires the substrates together: config registry -> model -> synthetic data
+iterator -> train step (autograd through the plain modules, clip, AdamW)
+-> atomic checkpoints with the iterator's state, and exact resume from
+the latest one through ``TrainSupervisor``.  ``--smoke`` shrinks the arch
+to a CPU-trainable depth and width with the same wiring.  Runs on
+``cuda`` unless ``--device cpu`` is given; without a card and without
+that flag it raises before building anything.  ``--mesh`` (a sharded
+train step) is ROADMAP A12.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, Optional
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.data import DataIterator, SyntheticCorpus
+from repro_torch.distributed.fault_tolerance import TrainSupervisor
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.lm import LM
+from repro_torch.optim.adam import adam_init, cosine_schedule, tree_leaves
+
+__all__ = ["smoke_config", "main"]
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """CPU-trainable reduction of a dense config (the reference's dense
+    branch; its other families are ROADMAP A11)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"smoke_config reduces the dense family only (got {cfg.family}); "
+            "the other families are ROADMAP A11")
+    return dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, 4), d_model=min(cfg.d_model, 256),
+        n_heads=min(cfg.n_heads, 4), n_kv_heads=min(cfg.n_kv_heads, 2),
+        head_dim=min(cfg.head_dim, 64),
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512)).validated()
+
+
+def main(argv: Optional[list[str]] = None, *,
+         on_step: Optional[Callable[[int, dict], None]] = None):
+    """Train as the flags say; returns the final (params, opt_state).
+
+    ``on_step(step, metrics)``, if given, is called after every step (an
+    in-process caller's hook, e.g. for timing with CUDA events)."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--mesh", default=None, help="ROADMAP A12; raises")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduce the arch to CPU-trainable size")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh (a sharded train step) is ROADMAP A12; the port trains "
+            "on one device")
+    dev = resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    model = LM(cfg, device=dev)
+    params = model.init(model.generator(args.seed))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the loop rebinds ``state``; no other name may keep the first tree
+    # alive (the reference donates it to its jitted step)
+    state = (params, adam_init(params))
+    del params
+    step_fn = make_train_step(
+        model, lr=cosine_schedule(args.lr, args.warmup, args.steps))
+    it = DataIterator(SyntheticCorpus(args.seed), shard_id=0, num_shards=1,
+                      batch_per_shard=args.batch, seq_len=args.seq,
+                      device=dev)
+
+    ckpt = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
+    start = 0
+    if ckpt is not None:
+        sup = TrainSupervisor(ckpt, it, ckpt_every=args.ckpt_every)
+        if args.resume:
+            state, start = sup.maybe_resume(state)
+            if start:
+                print(f"[resume] from step {start}")
+
+    print(f"[train] arch={cfg.name} family={cfg.family} "
+          f"layers={cfg.n_layers} d={cfg.d_model} "
+          f"params={n_params / 1e6:.1f}M mesh=None device={dev}")
+
+    step = start
+    t_last = time.time()
+    losses = []
+    while step < args.steps:
+        p, o, m = step_fn(*state, it.next())
+        state = (p, o)
+        step += 1
+        losses.append(float(m["loss"]))
+        if on_step is not None:
+            on_step(step, m)
+        if step % args.log_every == 0:
+            dt = (time.time() - t_last) / args.log_every
+            t_last = time.time()
+            print(f"  step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(m['grad_norm']):.3f} "
+                  f"{dt * 1e3:.0f} ms/step")
+        if ckpt is not None and step % args.ckpt_every == 0:
+            ckpt.save(step, state, metadata={"data": it.state_dict()})
+    if ckpt is not None:
+        ckpt.save(args.steps, state, metadata={"data": it.state_dict()})
+    print(f"[done] loss {losses[0] if losses else float('nan'):.4f} -> "
+          f"{losses[-1] if losses else float('nan'):.4f}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -21,13 +21,16 @@ __all__ = ["AdamState", "adam_init", "adam_update", "clip_by_global_norm",
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the tensors of ``tree`` (and the same places of
-    ``rest``), keeping the dict/list/tuple structure."""
+    ``rest``), keeping the dict/list/tuple/NamedTuple structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        children = [tree_map(fn, v, *(r[i] for r in rest))
+                    for i, v in enumerate(tree)]
+        # a NamedTuple takes its fields positionally, not as one iterable
+        return (type(tree)(*children) if hasattr(tree, "_fields")
+                else type(tree)(children))
     return fn(tree, *rest)
 
 
@@ -58,7 +61,7 @@ def adam_update(grads, state: AdamState, params, *, lr, b1: float = 0.9,
     callable of the (1-based) step tensor."""
     step = state.step + 1
     stepf = step.float()
-    lr_t = lr(step) if callable(lr) else torch.tensor(
+    lr_t = lr(step) if callable(lr) else torch.as_tensor(
         lr, dtype=torch.float32, device=step.device)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
                                  device=step.device)

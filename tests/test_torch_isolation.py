@@ -27,6 +27,10 @@ def _sources():
 def test_port_sources_import_neither_jax_nor_repro():
     files = _sources()
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for sub in ("checkpoint/manager.py", "distributed/fault_tolerance.py",
+                "launch/train.py", "core/calibrate.py"):
+        assert f"src/repro_torch/{sub}" in names, sub
     bad = []
     for f in files:
         for m in FORBIDDEN.finditer(f.read_text()):
