@@ -165,7 +165,33 @@ Phases (any failure exits non-zero):
      their plain versions.  (f) the paper's §5.3 ablation
      (``benchmarks/calibration_ablation.py``'s five variants on smol-d64
      trained 250 steps, alpha = 20, fp32 operands): mean MSE reduction,
-     hook dPPL and the four claims, logged and not gated.
+     hook dPPL and the four claims, logged and not gated;
+ 13. the serving front-end (``repro_torch.launch.server``) on phase 5's
+     model, int4-srft KERNEL, capacity 4, graph on, over the closed-loop
+     trace ``make_trace(8, prompt_len=512, new_tokens=32, run_len=2)``
+     (prompts of 256 / 384 / 512 tokens in runs of two, so bucketed
+     admission packs k = 2 prompts a prefill).  (a) ``SyncServer`` and
+     ``ServingPipeline``, paged and dense, each on its own engine (the
+     pipeline's decode thread captures its graph): every stream equal bit
+     for bit, the counters zeroed just before each pipelined run and read
+     just after (B3 and B2 paged, B3 and B1 dense); paged, tracing off
+     equal to tracing on, and SERVE_ROUNDS interleaved rounds of both on
+     their warm engines, each equal to the first run (req/s and tokens/s
+     by the host clock); TTFT p50 / p90, ITL p50, e2e p50 from
+     ``ServerMetrics``; the host ms of each packed prefill (its trace
+     span) and the capture seconds; a profiled pipelined run (device busy
+     over CUDA-event ms: the idle share).  (b) ``admit_packed([a, b])``
+     == ``([b, a])`` bit for bit (where they part, the first recorded op
+     is logged).  (c) ``CompletionServer`` on 127.0.0.1, ephemeral port,
+     before the paged pipeline: the eight prompts POSTed at once as token
+     lists with ``"stream": true``; each SSE stream ends in one terminal
+     event, "length", with 32 tokens, equal to (a)'s up to a near-tie of
+     its forced logits; /healthz answers, /metrics is strict Prometheus
+     text counting 8 completed, /debug/trace passes
+     ``benchmarks/check_trace.py`` with 0 dropped; two more requests and a
+     cancel-shutdown return every page.  (d) ``python -m
+     repro_torch.launch.serve`` (SERVE_CLI) in a subprocess: exit 0, its
+     ``--stats-json`` with the compression and the pool's pages.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -3013,6 +3039,476 @@ def learned_phase(model, params) -> dict:
             "learned_roundtrip": rt_launches}
 
 
+# ------------------------------------------- phase 13: the serving front-end
+# the closed-loop trace: buckets of 256 / 384 / 512 tokens in runs of two,
+# so bucketed admission packs k = 2 prompts a prefill
+SERVE_N, SERVE_PROMPT, SERVE_NEW, SERVE_RUN = 8, 512, 32, 2
+SERVE_ROUNDS = 3  # interleaved sync / pipelined rounds (paged)
+SERVE_CLI = ("--arch", "internlm2-1.8b", "--paged", "--policy", "int4-srft",
+             "--backend", "kernel", "--max-batch", "4", "--requests", "4",
+             "--prompt-len", "256", "--new-tokens", "16")
+
+
+def _check_trace_fn():
+    """``benchmarks/check_trace.py``'s validator, loaded by path (stdlib
+    only), as ``tests/test_tracing.py`` loads it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "benchmarks" / "check_trace.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.check_trace
+
+
+def _strict_prometheus(text) -> dict:
+    """Every sample in a family declared by HELP then TYPE above it, every
+    name in the Prometheus charset, every value a number; returns the
+    samples by name."""
+    import re
+
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    families, helped, samples = {}, set(), {}
+    for line in text.strip().split("\n"):
+        if line.startswith("# HELP "):
+            helped.add(line.split()[2])
+        elif line.startswith("# TYPE "):
+            _, _, fam, typ = line.split(None, 3)
+            assert fam in helped and typ in ("counter", "gauge", "summary")
+            families[fam] = typ
+        else:
+            name = re.split(r"[{\s]", line, maxsplit=1)[0]
+            assert name_re.match(name), line
+            base = next((name[:-len(s)] for s in ("_count", "_sum")
+                         if name.endswith(s) and name[:-len(s)] in families),
+                        name)
+            assert base in families, f"undeclared family: {line!r}"
+            samples[line.rsplit(None, 1)[0]] = float(line.rsplit(None, 1)[1])
+    return samples
+
+
+def serve_engine(model, params, paged):
+    from repro_torch.launch.batch_engine import BatchEngine
+
+    return BatchEngine(model, params, capacity=CAPACITY,
+                       s_max=SERVE_PROMPT + SERVE_NEW + 16, policy="int4-srft",
+                       backend="kernel", chunk=CHUNK, paged=paged,
+                       page_size=PAGE_SIZE, device=DEV)
+
+
+def sync_replay(eng, items):
+    """The closed-loop trace through ``SyncServer``: (streams by rid, host
+    seconds from the first admission to the drain, metrics)."""
+    from repro_torch.launch.server import SyncServer
+    from repro_torch.launch.server.pipeline import drain_stream
+
+    srv = SyncServer(eng, max_group=CAPACITY)
+    streams = {it.req.rid: srv.submit(it.req) for it in items}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    wall = time.perf_counter() - t0
+    out = {rid: drain_stream(q, 60) for rid, q in streams.items()}
+    srv.close()
+    return out, wall, srv.metrics
+
+
+def pipe_replay(eng, items, trace=None, profiled=False):
+    """The same trace through ``ServingPipeline`` (everything submitted
+    before the stage threads start, which pins the grouping), recorded in
+    ``trace`` (default: a fresh recorder).  Returns the streams, the host
+    seconds from the start to the last stream's end, the metrics, the
+    trace, and (device busy ms by kernel name with ``profiled``, else None;
+    the run's CUDA-event ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.server import ServingPipeline, TraceRecorder
+    from repro_torch.launch.server.pipeline import drain_stream
+
+    pipe = ServingPipeline(eng, max_group=CAPACITY, admit_queue=2 * SERVE_N,
+                           trace=TraceRecorder() if trace is None else trace)
+    streams = {it.req.rid: pipe.submit(it.req) for it in items}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled else None
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    a.record()
+    pipe.start()
+    out = {rid: drain_stream(q, 120) for rid, q in streams.items()}
+    b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    assert pipe.shutdown(timeout=60.0), "the pipeline did not drain"
+    busy = None if prof is None else {
+        k: us / 1e3 for k, us in _kernel_us(prof).items()}
+    return out, wall, pipe.metrics, pipe.trace, (busy, a.elapsed_time(b))
+
+
+def _latency_ms(metrics) -> dict:
+    """TTFT p50 / p90, ITL p50, e2e p50 in ms from ``ServerMetrics``."""
+    import numpy as np
+
+    def q(h, p):
+        return float(np.percentile(np.asarray(h._v), p)) * 1e3 if h._v \
+            else None
+
+    return {"ttft_p50": q(metrics.ttft, 50), "ttft_p90": q(metrics.ttft, 90),
+            "itl_p50": q(metrics.itl, 50), "e2e_p50": q(metrics.e2e, 50)}
+
+
+def _span_ms(trace) -> dict:
+    """Host ms summed by span name, for the spans of one serving run."""
+    out = {}
+    for e in trace.export()["traceEvents"]:
+        if e["ph"] == "X":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
+    return out
+
+
+def gil_probe(eng, reqs) -> float:
+    """Whether a decode chunk's device time leaves the GIL to other
+    threads: a thread counts loop turns while this one runs one
+    ``step()`` of four live rows (8 graph replays and the chunk's blocking
+    readback), against its count while this thread sleeps as long.  The
+    ratio is the share of the chunk in which another thread could run
+    Python (near 0 if the replay or the readback held the GIL)."""
+    for r in reqs:
+        eng.submit(r)
+    eng.step()  # admits the four and decodes a chunk
+    torch.cuda.synchronize()
+    count, stop = [0], threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            count[0] += 1
+
+    spinner = threading.Thread(target=spin, daemon=True)
+    spinner.start()
+    time.sleep(0.01)
+    n0, t0 = count[0], time.perf_counter()
+    eng.step()
+    n1, dt = count[0], time.perf_counter() - t0
+    time.sleep(dt)
+    n2 = count[0]
+    stop.set()
+    spinner.join(10)
+    eng.cancel_all()
+    return (n1 - n0) / max(n2 - n1, 1)
+
+
+def _collect(eng, reqs) -> dict:
+    """``admit_packed(reqs)`` then steps to the end: tokens by rid, from
+    the step listeners."""
+    got = {}
+
+    def listen(events, comps):
+        for rid, toks in events:
+            got.setdefault(rid, []).extend(toks)
+
+    eng.step_listeners.append(listen)
+    eng.admit_packed(reqs)
+    while eng.has_work:
+        eng.step()
+    eng.step_listeners.remove(listen)
+    return got
+
+
+def packed_op_report(model, params, a, b) -> None:
+    """Where ``admit_packed([a, b])`` and ``([b, a])`` part: the same two
+    prompts prefilled as one batch-2 staging cache in both row orders,
+    every recorded output (``_Taps``: norms, projections, RoPE, the
+    unembedding) of a's row compared in call order; the first that
+    differs, by its index and shape."""
+    outs = []
+    for rows in ((a, b), (b, a)):
+        prompts = torch.as_tensor([list(r.prompt) for r in rows],
+                                  device=DEV)
+        with _Taps(model, "int4-srft") as taps:
+            _prefilled(model, params, prompts, "int4-srft", rows=2,
+                       s_max=SERVE_PROMPT + SERVE_NEW + 16)
+        outs.append(list(taps.out))
+    first = None
+    for n, ((_, x), (_, y)) in enumerate(zip(*outs)):
+        if x.shape[:1] == (2,) and (x[0] != y[1]).any():
+            first = (n, tuple(x.shape), int((x[0] != y[1]).sum()))
+            break
+    log(f"[{CARD}] packed prefill, rows (a, b) vs (b, a), {len(outs[0])} "
+        f"recorded outputs: first differing output of a's row: "
+        + ("none" if first is None else
+           f"#{first[0]}, shape {first[1]} ({first[2]} elements)"))
+
+
+def _post_sse(url, prompt, n_new) -> tuple[list, list]:
+    """POST a completion with ``"stream": true``; (tokens, events)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(
+            {"prompt": [int(t) for t in prompt], "max_tokens": n_new,
+             "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    toks, events = [], []
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        assert resp.headers["Content-Type"].startswith("text/event-stream")
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                return toks, events
+            ev = json.loads(line[len("data: "):])
+            events.append(ev)
+            toks.extend(ev["tokens"])
+    raise AssertionError("SSE stream ended without [DONE]")
+
+
+def http_phase(model, params, eng, items, want) -> dict:
+    """13c: ``CompletionServer`` on an ephemeral port before the paged
+    pipeline; the eight prompts POSTed at once; /healthz, /metrics,
+    /debug/trace; then two more requests and a cancel-shutdown."""
+    import urllib.request
+
+    from repro_torch.core.paged import NULL_PAGE
+    from repro_torch.launch.server import (CompletionServer, ServingPipeline,
+                                           TraceRecorder)
+    from repro_torch.launch.server.pipeline import drain_stream
+
+    pipe = ServingPipeline(eng, max_group=CAPACITY, admit_queue=2 * SERVE_N,
+                           trace=TraceRecorder())
+    pipe.start()
+    server = CompletionServer(pipe, host="127.0.0.1", port=0,
+                              vocab_size=model.cfg.vocab_size)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    got, errors = {}, []
+
+    def client(it):
+        try:
+            got[it.req.rid] = _post_sse(server.url, it.req.prompt, SERVE_NEW)
+        except Exception as e:  # reported below: a client thread must end
+            errors.append(f"rid {it.req.rid}: {e!r}")
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(it,)) for it in items]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(300)
+    wall = time.perf_counter() - t0
+    try:
+        assert not errors and len(got) == len(items), errors
+        n_equal = 0
+        for it in items:
+            toks, events = got[it.req.rid]
+            finals = [e for e in events if e["finish_reason"] is not None]
+            assert len(finals) == 1 and events[-1] is finals[0], events[-1:]
+            assert finals[0]["finish_reason"] == "length"
+            assert len(toks) == SERVE_NEW, (it.req.rid, len(toks))
+            ref = want[it.req.rid][0]
+            if toks == ref:
+                n_equal += 1
+            else:
+                _tie_check(ref, toks, forced_logits(
+                    model, params, "int4-srft", "kernel", it.req.prompt, ref,
+                    eng._rots), f"HTTP stream of request {it.req.rid}")
+        with urllib.request.urlopen(server.url + "/healthz",
+                                    timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health["ok"] and health["slots_capacity"] == CAPACITY
+        with urllib.request.urlopen(server.url + "/metrics",
+                                    timeout=60) as resp:
+            samples = _strict_prometheus(resp.read().decode())
+        assert samples["server_requests_completed_total"] == SERVE_N
+        assert samples["server_trace_dropped_total"] == 0
+        with urllib.request.urlopen(server.url + "/debug/trace",
+                                    timeout=60) as resp:
+            trace = json.loads(resp.read())
+        problems = _check_trace_fn()(trace)
+        assert not problems, problems
+        assert trace["otherData"]["dropped"] == 0
+        # a cancel-shutdown with two long requests live returns every page
+        late = [pipe.submit(dataclasses.replace(
+            it.req, rid=100 + i, max_new_tokens=SERVE_NEW))
+            for i, it in enumerate(items[-2:])]
+        deadline = time.monotonic() + 60
+        while not eng.n_active and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert eng.n_active, "the late requests were never admitted"
+    finally:
+        server.shutdown()
+    pipe.shutdown(cancel=True, timeout=60.0)
+    reasons = [drain_stream(q, 60)[1] for q in late]
+    rc = eng._refcount_host.copy()
+    assert rc[NULL_PAGE] == 1
+    rc[NULL_PAGE] = 0
+    assert (rc == 0).all() and eng.n_free_slots == CAPACITY, \
+        f"pages leaked: {rc.nonzero()}"
+    rec = dict(streams=len(got), equal_to_sync=n_equal, wall_s=wall,
+               trace_events=len(trace["traceEvents"]),
+               trace_dropped=trace["otherData"]["dropped"],
+               metrics_samples=len(samples), late_reasons=reasons,
+               **_latency_ms(pipe.metrics))
+    log(f"[{CARD}] 13c HTTP: {len(got)} concurrent SSE streams of "
+        f"{SERVE_NEW} tokens in {wall:.3f} s, {n_equal}/{len(got)} equal to "
+        f"sync bit for bit (the rest up to a near-tie); /metrics strict "
+        f"({len(samples)} samples), /debug/trace passes check_trace "
+        f"({rec['trace_events']} events, 0 dropped); after a cancel-shutdown "
+        f"with 2 live ({reasons}) every page is back")
+    return rec
+
+
+def cli_phase() -> dict:
+    """13d: ``python -m repro_torch.launch.serve`` in a subprocess."""
+    out_json = ROOT / "build" / "serve_cli_stats.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_CLI,
+         "--stats-json", str(out_json)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines()[-12:]:
+        log(f"  serve CLI | {line}")
+    assert res.returncode == 0, f"serve CLI rc {res.returncode}:\n" \
+        f"{res.stderr[-4000:]}"
+    stats = json.loads(out_json.read_text())
+    out_json.unlink()
+    cache = stats["cache"]
+    assert stats["requests_done"] == 4 and cache["pool"]["pages_used"] == 0
+    rec = dict(wall_s=wall, compression=cache["compression_ratio"],
+               pool_pages=cache["pool"]["n_pages"],
+               aggregate_tok_s=stats["aggregate_tok_s"])
+    log(f"[{CARD}] 13d serve CLI: rc 0 in {wall:.1f} s (process start, "
+        f"model init and capture included); compression "
+        f"{rec['compression']}, pool {rec['pool_pages']} pages")
+    return rec
+
+
+def serve_phase(model, params) -> dict:
+    """Phase 13 (see the module doc).  Returns launches per kernel of the
+    pipelined paged and dense runs."""
+    from repro_torch.launch.server import TraceRecorder, make_trace
+
+    items = make_trace(SERVE_N, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+                       run_len=SERVE_RUN, arrival="closed")
+    log(f"13: prompt lengths {[len(it.req.prompt) for it in items]}, "
+        f"{SERVE_NEW} new tokens each")
+    launches, engines, want, rec = {}, {}, {}, {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense"
+        eng_s = serve_engine(model, params, paged)
+        sync, wall_s, _ = sync_replay(eng_s, items)
+        assert all(r == "length" and len(t) == SERVE_NEW
+                   for t, r in sync.values())
+        eng_p = serve_engine(model, params, paged)
+        _zero_counters()
+        piped, wall_p, metrics, trace, (_, ev_ms) = pipe_replay(eng_p, items)
+        launches[f"serve_{layout}"] = _counters()
+        assert piped == sync, f"{layout}: pipelined != sync"
+        packed = [e["dur"] / 1e3 for e in trace.export()["traceEvents"]
+                  if e["name"] == "prefill.packed"]
+        rec[layout] = dict(sync_s=wall_s, pipelined_s=wall_p,
+                           pipelined_events_ms=ev_ms,
+                           capture_s_sync=eng_s._step_graph.capture_s,
+                           capture_s_pipelined=eng_p._step_graph.capture_s,
+                           packed_prefill_host_ms=packed,
+                           **_latency_ms(metrics))
+        log(f"[{CARD}] 13a {layout}: pipelined == sync bit for bit "
+            f"({SERVE_N} streams); launches {launches[f'serve_{layout}']}; "
+            f"packed prefills (k = 2) host ms {[round(x, 3) for x in packed]}"
+            f"; capture s {rec[layout]['capture_s_pipelined']:.3f} (decode "
+            f"thread) / {rec[layout]['capture_s_sync']:.3f} (main)")
+        engines[paged], want[paged] = (eng_s, eng_p), sync
+    paged_l, dense_l = launches["serve_paged"], launches["serve_dense"]
+    assert paged_l["srft_quant"] > 0 and \
+        paged_l["quant_decode_attention_paged"] > 0, paged_l
+    assert dense_l["srft_quant"] > 0 and \
+        dense_l["quant_decode_attention"] > 0, dense_l
+
+    eng_s, eng_p = engines[True]
+    off, *_ = pipe_replay(eng_p, items, trace=TraceRecorder(enabled=False))
+    assert off == want[True], "tracing off != tracing on"
+    log("  13a: tracing off == tracing on, paged, bit for bit")
+    rounds = []
+    for r in range(SERVE_ROUNDS):
+        row = {}
+        for mode in (("sync", "pipelined") if r % 2 == 0
+                     else ("pipelined", "sync")):
+            extra = {}
+            if mode == "sync":
+                got, wall, metrics = sync_replay(eng_s, items)
+            else:
+                got, wall, metrics, trace, (_, ev_ms) = pipe_replay(eng_p,
+                                                                    items)
+                extra = dict(events_ms=ev_ms, span_ms=_span_ms(trace))
+            assert got == want[True], f"round {r} {mode} != the first run"
+            row[mode] = dict(wall_s=wall, req_s=SERVE_N / wall,
+                             tok_s=SERVE_N * SERVE_NEW / wall,
+                             **_latency_ms(metrics), **extra)
+        rounds.append(row)
+    _, wall, _, _, (busy, ev_ms) = pipe_replay(eng_p, items, profiled=True)
+    busy_ms = sum(busy.values())
+    warm_ev = sorted(x["pipelined"]["events_ms"] for x in rounds)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    rec["rounds"] = rounds
+    rec["profiled"] = dict(
+        wall_s=wall, device_busy_ms=busy_ms, events_ms=ev_ms,
+        idle_share=1 - busy_ms / ev_ms,
+        idle_share_events=1 - busy_ms / warm_ev[len(warm_ev) // 2],
+        top_kernels_ms=[(k[:60], v) for k, v in top])
+    rec["gil_free_share"] = gil_probe(
+        eng_p, [dataclasses.replace(it.req, max_new_tokens=SERVE_NEW)
+                for it in items[:CAPACITY]])
+    log(f"[{CARD}] 13a req/s sync vs pipelined, paged, {SERVE_ROUNDS} "
+        f"interleaved rounds: "
+        + "; ".join(f"{x['sync']['req_s']:.3f} vs "
+                    f"{x['pipelined']['req_s']:.3f}" for x in rounds)
+        + "; tokens/s "
+        + "; ".join(f"{x['sync']['tok_s']:.1f} vs "
+                    f"{x['pipelined']['tok_s']:.1f}" for x in rounds))
+    for what, lat in (("pipelined, first run (capture included)",
+                       rec["paged"]),
+                      ("pipelined, last round", rounds[-1]["pipelined"]),
+                      ("sync, last round", rounds[-1]["sync"])):
+        log(f"[{CARD}] 13a latency, paged, {what}: TTFT p50 "
+            f"{lat['ttft_p50']:.2f} ms, p90 {lat['ttft_p90']:.2f} ms; ITL "
+            f"p50 {lat['itl_p50']:.3f} ms; e2e p50 {lat['e2e_p50']:.2f} ms")
+    span = rounds[-1]["pipelined"]["span_ms"]
+    log(f"[{CARD}] 13a host ms by span, last pipelined round ("
+        f"{rounds[-1]['pipelined']['wall_s'] * 1e3:.1f} ms wall): "
+        + ", ".join(f"{k} {span[k]:.1f}" for k in (
+            "prefill.packed", "decode.chunk", "engine.step", "admit.sweep")
+                    if k in span))
+    prof = rec["profiled"]
+    log(f"[{CARD}] 13a device idle share under the pipeline: profiler busy "
+        f"{busy_ms:.2f} ms over the profiled run's events {ev_ms:.2f} ms: "
+        f"{prof['idle_share']:.4f}; over the warm rounds' median events "
+        f"ms: {prof['idle_share_events']:.4f}; top kernels "
+        + json.dumps([(k, round(v, 3)) for k, v in top]))
+    log(f"[{CARD}] 13a GIL: another thread ran Python for "
+        f"{rec['gil_free_share']:.3f} of a decode chunk (graph replays and "
+        f"the chunk's readback) relative to an idle interval")
+
+    # (b) packed admission is order-free on the card
+    a, b = (it.req for it in items[4:6])
+    ab, ba = _collect(eng_s, [a, b]), _collect(eng_s, [b, a])
+    if ab != ba:
+        packed_op_report(model, params, a, b)
+    assert ab == ba, "admit_packed([a, b]) != admit_packed([b, a])"
+    log(f"[{CARD}] 13b admit_packed([a, b]) == ([b, a]) bit for bit "
+        f"({len(a.prompt)}-token prompts)")
+    rec["http"] = http_phase(model, params, eng_p, items, want[True])
+    rec["cli"] = cli_phase()
+    log("serve " + json.dumps(rec))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3086,8 +3582,11 @@ def main() -> int:
     t0 = time.perf_counter()
     learned = learned_phase(model, params)
     log(f"learned phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    served = serve_phase(model, params)
+    log(f"serve phase {time.perf_counter() - t0:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
-               "quality": quality, **learned}
+               "quality": quality, **learned, **served}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

@@ -7,8 +7,11 @@ its page-aligned copy-on-write prefix index and token-level donor index
 (:687-770), the host prefix tier (:366-381, :406-416, :480-488,
 :772-830, :890-927, :1282-1345), slot release (:772-824), LRU recompute
 preemption (:826-878, :1409-1457), the decode chunk (:945-977,
-:1705-1777) and the speculative decode chunk (:211-230, :350-364,
-:474-478, :686-692, :979-1063, :1074-1085, :1238)).
+:1705-1777), the speculative decode chunk (:211-230, :350-364,
+:474-478, :686-692, :979-1063, :1074-1085, :1238), and what the serving
+front-end needs: the engine lock, step listeners and tracing (:295-315,
+:461-471, :1086-1127, :1689-1703), packed admission (:606-652,
+:1531-1633)).
 
 ``BatchEngine`` keeps a fixed-capacity slot cache (one ragged
 ``CacheState`` per layer: per-row lengths) and a host-side scheduler:
@@ -91,9 +94,28 @@ grid that the same extraction loop reads.  A request needs k - 1 tokens
 of slack under ``s_max`` (and in its pages): a pass appends before it
 rolls back.  ``n_drafted`` / ``n_accepted`` count draft positions.
 
+Packed admission (``admit_packed``, the serving front-end's): k prompts
+of one exact length are prefilled as one batch-k staging cache, and
+each row is sliced out (``_slice_row``) and inserted as a monolithic
+admission's row is, in slot order, its first token drawn in row order.
+
+Thread safety and tracing (the serving front-end, ``launch/server``):
+``submit``, ``step``, ``admit_packed``, ``cancel_all`` and ``pool_stats``
+take ``lock``, so every device touch of the engine, the decode graph's
+capture included, happens under it; ``step_listeners`` get each
+non-empty (events, completions) pair under the lock, host data only.
+``trace`` is a ``TraceRecorder`` (disabled by default).  Spans are host
+clock: ``decode.chunk`` (and ``engine.step``) end after the chunk's
+readback, a device sync, as the reference's do; ``engine.prefill``,
+``prefill.packed`` and ``prefill.chunk`` end when their launches return
+and sync nothing (the reference's paged ``engine.prefill`` alone ends
+after a sync, its device pool's readback, which the port's host pool
+does not need).  The ``first_token`` mark follows the first token's
+readback in ``_post_insert`` in both packages, so time to first token
+means the same in each.  Tracing adds no device sync.
+
 Sampling is greedy, or by temperature from the explicit ``generator``.
-Not in this slice, each raising if asked for: packed admission
-(``admit_packed``), tracing (``trace``) and meshes (``mesh``).
+Meshes (``mesh``) are not in this slice and raise.
 
     eng = BatchEngine(model, params, capacity=4, s_max=4608,
                       policy="int4-srft", backend="kernel", paged=True,
@@ -106,14 +128,16 @@ Not in this slice, each raising if asked for: packed admission
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from collections import deque
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.cache_api import AttendBackend
+from repro_torch.core.cache_api import AttendBackend, CacheState
 from repro_torch.core.paged import NULL_PAGE
 from repro_torch.launch.engine import GREEDY, Sampler, verify_pass
 from repro_torch.launch.graphs import StepGraph
@@ -161,10 +185,39 @@ class _PendingAdmission:
     reused_tokens: int = 0
 
 
-_LATER = {
-    "trace": "ROADMAP A9: tracing with the server",
-    "mesh": "ROADMAP A12: multi-device serving",
-}
+def _leaves(obj) -> Iterator[torch.Tensor]:
+    """The tensors of a staging-cache tree (dicts, lists, ``CacheState``
+    data, dataclasses), in a fixed order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _leaves(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _leaves(v)
+    elif isinstance(obj, CacheState):
+        yield from _leaves(obj.data)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name))
+
+
+def _rebuild(obj, new: Iterator[torch.Tensor]):
+    """``obj`` with its tensors (``_leaves`` order) taken from ``new``."""
+    if isinstance(obj, torch.Tensor):
+        return next(new)
+    if isinstance(obj, dict):
+        return {k: _rebuild(v, new) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_rebuild(v, new) for v in obj)
+    if isinstance(obj, CacheState):
+        return CacheState(obj.policy, _rebuild(obj.data, new))
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _rebuild(getattr(obj, f.name), new)
+            for f in dataclasses.fields(obj)})
+    return obj
 
 
 class BatchEngine:
@@ -179,7 +232,8 @@ class BatchEngine:
     admission, and ``prefix_reuse`` its token-level reuse when paged.
     ``spec_k`` (None: plain decode) turns on speculative decoding.
     ``offload_bytes`` (None: no host tier) bounds the host prefix tier's
-    RAM, and ``offload_dir`` gives it a disk tier."""
+    RAM, and ``offload_dir`` gives it a disk tier.  ``trace`` is a
+    ``TraceRecorder`` (default: a disabled one)."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -194,12 +248,10 @@ class BatchEngine:
                  offload_bytes: Optional[int] = None,
                  offload_dir: Optional[str] = None, trace=None, mesh=None,
                  graph: Optional[bool] = None):
-        asked = dict(trace=trace, mesh=mesh)
-        for name, value in asked.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"BatchEngine({name}=...) is not ported yet "
-                    f"({_LATER[name]})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchEngine(mesh=...) is not ported yet (ROADMAP A12: "
+                "multi-device serving)")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if chunk < 1:
@@ -254,6 +306,18 @@ class BatchEngine:
         self._pending: Optional[_PendingAdmission] = None
         self.n_prefill_chunks = 0
         self.n_reused_tokens = 0
+
+        # the serving front-end's thread-safe step API: every entry that
+        # touches the device or the scheduler's state takes this lock, and
+        # listeners get each non-empty (events, completions) pair under it
+        self.lock = threading.RLock()
+        self.step_listeners: list[Callable[[list, list], None]] = []
+        if trace is None:
+            # lazy: repro_torch.launch.server imports this module
+            from repro_torch.launch.server.tracing import TraceRecorder
+            trace = TraceRecorder(capacity=1, enabled=False)
+        self.trace = trace
+        self._slice_axes: Optional[tuple] = None
 
         self.cache = model.init_cache(
             capacity, s_max, policy=self.policy, rots=rots, ragged=True,
@@ -315,6 +379,18 @@ class BatchEngine:
         # finish reason when it ends
         self._admit_tier: dict[int, str] = {}
         self.tier_outcomes: dict[str, dict[str, int]] = {}
+
+    @property
+    def trace(self):
+        return self._trace
+
+    @trace.setter
+    def trace(self, rec) -> None:
+        # the serving front-end swaps in its recorder after construction;
+        # the host tier records into the same one
+        self._trace = rec
+        if self.prefix_store is not None:
+            self.prefix_store.trace = rec
 
     def _check_spec(self, spec_k: int) -> None:
         """The reference's validation (``batch_engine.py:214-230``)."""
@@ -549,6 +625,8 @@ class BatchEngine:
                     torch.stack([leaves[i][j] for leaves in per_layer])
                     for i in range(len(per_layer[0]))))
             self.n_spilled_pages += len(fresh)
+            self._trace.instant("offload.spill", cat="offload", tier="host",
+                                pages=len(fresh))
         for k, _ in spill:
             store.touch(k)
 
@@ -594,6 +672,10 @@ class BatchEngine:
         self._slot_toks[slot] = []
         self.active[slot] = False
         self.budget[slot] = 0
+        self._trace.instant(
+            "engine.preempt", cat="sched", rid=req.rid, slot=int(slot),
+            pages=int((self._ptab_host[slot] != NULL_PAGE).sum()),
+            carried=len(self._carried[req.rid]))
         self._release_slots([slot])
         mask = np.zeros((self.capacity,), bool)
         mask[slot] = True
@@ -604,9 +686,14 @@ class BatchEngine:
     def pool_stats(self) -> Optional[dict]:
         """Pool utilization snapshot (None for dense engines): page
         counts, live per-request page spans, COW sharing and bytes (pool
-        bytes from the policy's own ``nbytes``, summed over layers)."""
+        bytes from the policy's own ``nbytes``, summed over layers).
+        Host data only, under the engine lock."""
         if not self.paged:
             return None
+        with self.lock:
+            return self._pool_stats_locked()
+
+    def _pool_stats_locked(self) -> dict:
         rc = self._refcount_host
         used = int((rc > 0).sum()) - 1
         usable = self.n_pages - 1
@@ -680,8 +767,10 @@ class BatchEngine:
         # paged: the s_max bound caps a request at max_pages pages, and the
         # constructor's floor lets the pool hold that once all else is
         # preempted
-        self._validate(req)
-        self._queue.append(req)
+        with self.lock:
+            self._validate(req)
+            self._trace.req_mark(req.rid, "submit")
+            self._queue.append(req)
 
     @property
     def pending(self) -> int:
@@ -701,17 +790,25 @@ class BatchEngine:
     def has_work(self) -> bool:
         return self.pending > 0 or bool(self.active.any())
 
-    def admit_packed(self, reqs: list[Request]) -> None:
-        raise NotImplementedError(
-            "BatchEngine.admit_packed is not ported yet (ROADMAP A9: "
-            "packed admission with the serving front-end)")
+    def _notify(self, events, completions) -> None:
+        """Fan (events, completions) out to ``step_listeners``, under the
+        engine lock; listeners must be quick (enqueue and return) and must
+        not call back into the engine."""
+        if not events and not completions:
+            return
+        for fn in list(self.step_listeners):
+            fn(events, completions)
 
     # ---------------------------------------------------------- admission
     def _admit(self, req: Request, slot: int, plan=None
                ) -> Optional[Completion]:
         """Prefill alone, copy into ``slot``, draw the first token.
         ``plan`` is the paged (shared_pages, n_new) admission plan."""
+        tr = self._trace
+        tr.req_mark(req.rid, "submit")  # direct-admission callers
+        tr.req_mark(req.rid, "admit")
         plen = int(np.asarray(req.prompt).shape[-1])
+        t0p = time.perf_counter()
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
         row = self.model.init_cache(1, self.s_max, policy=self.policy,
@@ -719,6 +816,9 @@ class BatchEngine:
         logits, row = self.model.prefill(self.params, prompt, row)
         tok0 = self._draw_tok0(req, logits)
         self._insert_row(req, slot, row, tok0, plen, plan)
+        tr.span_at("engine.prefill", t0p, cat="prefill", rid=req.rid,
+                   tokens=plen)
+        tr.req_add(req.rid, "prefill_s", time.perf_counter() - t0p)
         return self._post_insert(req, slot, tok0)
 
     def _draw_tok0(self, req: Request, logits) -> torch.Tensor:
@@ -735,9 +835,15 @@ class BatchEngine:
         the paged COW insert plus its host bookkeeping."""
         if self.paged:
             shared, n_new = plan
-            # monolithic admissions take their tier here, chunked ones in
-            # _start_pending
-            self._record_tier(req.rid, "device" if len(shared) else "miss")
+            # monolithic and packed admissions take their tier here,
+            # chunked ones in _start_pending
+            if req.rid not in self._admit_tier:
+                self._record_tier(req.rid, "device" if len(shared)
+                                  else "miss")
+                if len(shared):
+                    self._trace.instant("prefix.adopt", cat="prefix",
+                                        rid=req.rid, tier="device",
+                                        pages=len(shared))
             for st, r in zip(self.cache["attn"], row["attn"]):
                 self.policy.insert_row_paged(st, r, slot, shared,
                                              len(shared), n_new)
@@ -767,6 +873,7 @@ class BatchEngine:
         the row is in its slot and ``tok0`` is drawn."""
         t0 = int(tok0[0, 0])
         self._slot_req[slot] = req
+        self._trace.req_mark(req.rid, "first_token")
         if self.spec_k is not None:
             self._seed_hist(slot, req, t0)
         if req.resume_tok is not None:
@@ -827,6 +934,124 @@ class BatchEngine:
             self._reset_slot_now(slot)
         elif req.resume_tok is None:  # resumes already streamed theirs
             events.append((req.rid, [self._slot_toks[slot][0]]))
+
+    # -------------------------------------------------- packed admission
+    def admit_packed(self, reqs: list[Request]) -> None:
+        """Admit ``reqs`` through ONE batched prefill (ref
+        ``batch_engine.py:1531-1633``).  Every prompt must have the same
+        exact length: the batch is stacked, never padded (padding would
+        change the prefill's sums and leave junk bytes in the cache).
+
+        A packed row equals the same row of any other batch-k prefill of
+        these prompts, in any row order, but not a batch-1 prefill's
+        (cuBLAS rounds by row count), so streams are equal between runs
+        that group admissions the same way.  Needs ``len(reqs)`` free
+        slots (raises otherwise; callers pack against ``n_free_slots``)
+        and monolithic admission.  Rows go to the free slots in order, and
+        the first tokens are drawn in row order.  Paged, each row's pages
+        are planned in order, preempting pre-round LRU victims as
+        ``_admit_monolithic`` does; when the pool runs dry mid-group the
+        unplaced tail is requeued at the front, in order (its prefill is
+        repeated on re-admission)."""
+        with self.lock:
+            if not reqs:
+                return
+            if self.prefill_chunk is not None:
+                raise ValueError(
+                    "admit_packed requires monolithic admission "
+                    "(prefill_chunk=None); chunked admission already "
+                    "interleaves prefill with decode")
+            lens = {self._validate(r) for r in reqs}
+            if len(lens) != 1:
+                raise ValueError(
+                    f"admit_packed needs one exact prompt length, got "
+                    f"{sorted(lens)} (stacked, never padded: padding would "
+                    f"poison cache bytes)")
+            free = [s for s in range(self.capacity)
+                    if self._slot_req[s] is None]
+            if len(reqs) > len(free):
+                raise ValueError(
+                    f"admit_packed: {len(reqs)} requests but only "
+                    f"{len(free)} free slots (callers pack against "
+                    f"n_free_slots)")
+            self._admit_packed_locked(reqs, free[:len(reqs)])
+
+    def _admit_packed_locked(self, reqs: list[Request],
+                             slots: list[int]) -> None:
+        k, tr = len(reqs), self._trace
+        for req in reqs:
+            tr.req_mark(req.rid, "submit")  # direct callers (no submit())
+            tr.req_mark(req.rid, "admit")
+        prompts = torch.as_tensor(
+            np.stack([np.asarray(r.prompt, np.int64) for r in reqs]),
+            device=self.device)
+        L = int(prompts.shape[-1])
+        t0p = time.perf_counter()
+        staged = self.model.init_cache(k, self.s_max, policy=self.policy,
+                                       rots=self._rots, ragged=True)
+        logits, staged = self.model.prefill(self.params, prompts, staged)
+        tr.span_at("prefill.packed", t0p, cat="prefill", rows=k, tokens=L,
+                   rids=[r.rid for r in reqs])
+        dt = time.perf_counter() - t0p
+        for req in reqs:
+            # the group shares one prefill: each request waited on all of it
+            tr.req_add(req.rid, "prefill_s", dt)
+        events: list[tuple[int, list[int]]] = []
+        completions: list[Completion] = []
+        round_start = self._admit_seq if self.paged else 0
+        for j, (req, slot) in enumerate(zip(reqs, slots)):
+            plan = None
+            if self.paged:
+                while (plan := self._plan_pages(req)) is None:
+                    if not self._preempt_one(round_start):
+                        self._queue.extendleft(reversed(reqs[j:]))
+                        self._notify(events, completions)
+                        return
+            tok0 = self._draw_tok0(req, logits[j:j + 1])
+            self._insert_row(req, slot, self._slice_row(staged, j), tok0, L,
+                             plan)
+            self._admitted(req, slot, self._post_insert(req, slot, tok0),
+                           events, completions)
+        self._notify(events, completions)
+
+    def _row_slice_axes(self) -> tuple:
+        """The batch axis of each staging-cache leaf of one layer state
+        (``_leaves`` order), None where the leaf has none (the rotations):
+        found by comparing the shapes of batch-1 and batch-2 states, built
+        once on the CPU at one flush window of tokens, so no head count or
+        capacity that equals the group size can confuse it."""
+        if self._slice_axes is None:
+            cfg = self.model.cfg
+
+            def shapes(b):
+                st = self.policy.init_state(b, cfg.n_kv_heads, self._align,
+                                            cfg.head_dim, device="cpu",
+                                            ragged=True)
+                return [t.shape for t in _leaves(st)]
+
+            axes = []
+            for s1, s2 in zip(shapes(1), shapes(2)):
+                diff = [i for i, (a, b) in enumerate(zip(s1, s2)) if a != b]
+                if len(diff) > 1 or (diff and s1[diff[0]] != 1):
+                    raise AssertionError(
+                        f"cannot locate the batch axis of a staging-cache "
+                        f"leaf: {tuple(s1)} vs {tuple(s2)}")
+                axes.append(diff[0] if diff else None)
+            self._slice_axes = tuple(axes)
+        return self._slice_axes
+
+    def _slice_row(self, staged: dict, j: int) -> dict:
+        """Batch-1 view of row ``j`` of a batch-k staging cache, shaped as
+        a monolithic admission's staging row (the ``_insert_row`` input)."""
+        axes = self._row_slice_axes()
+
+        def row(st):
+            views = (t if ax is None else t.narrow(ax, j, 1)
+                     for t, ax in zip(_leaves(st), axes))
+            return _rebuild(st, views)
+
+        return {"pos": staged["pos"].narrow(0, j, 1),
+                "attn": [row(st) for st in staged["attn"]]}
 
     # ------------------------------------------------- chunked admission
     def _find_donor(self, prompt: np.ndarray
@@ -907,6 +1132,8 @@ class BatchEngine:
         so that chunking starts after the shared tokens.  A preemption
         continuation never reuses: its recompute must rebuild the bytes
         its first admission wrote."""
+        tr = self._trace
+        tr.req_mark(req.rid, "admit")
         prompt = np.asarray(req.prompt, np.int32)
         n_total = int(prompt.shape[-1])
         row = self.model.init_cache(1, self.s_max, policy=self.policy,
@@ -923,14 +1150,19 @@ class BatchEngine:
                 self.n_restored_tokens += host_t
                 self.n_reuse_hits_host += 1
                 self._record_tier(req.rid, "host")
+                tr.instant("prefix.restore", cat="prefix", rid=req.rid,
+                           tier="host", pages=len(payloads), tokens=host_t)
             elif shared_t:
-                self._seed(row, donor_pages[:-(-shared_t // self.page_size)],
-                           shared_t)
+                npg = -(-shared_t // self.page_size)
+                self._seed(row, donor_pages[:npg], shared_t)
                 self.n_reuse_hits_device += 1
                 self._record_tier(req.rid, "device")
+                tr.instant("prefix.adopt", cat="prefix", rid=req.rid,
+                           tier="device", pages=npg, tokens=shared_t)
             else:
                 self.n_reuse_misses += 1
                 self._record_tier(req.rid, "miss")
+                tr.instant("prefix.miss", cat="prefix", rid=req.rid)
         cfg = self.model.cfg
         shape = (cfg.n_layers, 1, cfg.n_kv_heads, n_total, cfg.head_dim)
         raw_k = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
@@ -983,6 +1215,7 @@ class BatchEngine:
             while pend.n_done < pend.n_total and (
                     spent == 0 or spent < self.prefill_budget):
                 C = min(self.prefill_chunk, pend.n_total - pend.n_done)
+                t0c = time.perf_counter()
                 toks = torch.as_tensor(
                     prompt[None, pend.n_done:pend.n_done + C],
                     device=self.device)
@@ -992,6 +1225,11 @@ class BatchEngine:
                 pend.n_done += C
                 spent += C
                 self.n_prefill_chunks += 1
+                self._trace.span_at("prefill.chunk", t0c, cat="prefill",
+                                    rid=pend.req.rid, tokens=C,
+                                    done=pend.n_done, total=pend.n_total)
+                self._trace.req_add(pend.req.rid, "prefill_s",
+                                    time.perf_counter() - t0c)
             if pend.n_done < pend.n_total:
                 return  # budget spent: decode now
             if not self._finalize_pending(round_start, events, completions):
@@ -1020,6 +1258,9 @@ class BatchEngine:
         self.active[slot] = False
         self.budget[slot] = 0
         self._count_outcome(req.rid, reason)
+        self._trace.req_done(req.rid)
+        self._trace.instant("req.retire", cat="request", rid=req.rid,
+                            reason=reason, tokens=int(len(toks)))
         return Completion(rid=req.rid, prompt_len=plen, tokens=toks,
                           finish_reason=reason)
 
@@ -1032,6 +1273,7 @@ class BatchEngine:
             toks = self._carried.pop(req.rid, [])
             plen, _ = self._orig.pop(req.rid, (plen, req.max_new_tokens))
         self._count_outcome(req.rid, "cancelled")
+        self._trace.req_done(req.rid)
         return Completion(rid=req.rid, prompt_len=plen,
                           tokens=np.asarray(toks, np.int32),
                           finish_reason="cancelled")
@@ -1039,22 +1281,25 @@ class BatchEngine:
     def cancel_all(self) -> list[Completion]:
         """Cancel every live, pending and queued request, returning partial
         ``Completion``s.  Afterwards every slot is free, every length zero
-        and, paged, every refcount zero but the null page's."""
-        completions = []
-        if self._pending is not None:
-            pend, self._pending = self._pending, None
-            self._slot_req[pend.slot] = None  # the reservation
-            completions.append(self._cancelled(pend.req))
-        completions += [self._retire(s, reason="cancelled")
-                       for s in range(self.capacity)
-                       if self._slot_req[s] is not None]
-        while self._queue:
-            completions.append(self._cancelled(self._queue.popleft()))
-        self.active[:] = False
-        self.budget[:] = 0
-        self._release_slots(list(range(self.capacity)))
-        self._reset(np.ones((self.capacity,), bool))
-        return completions
+        and, paged, every refcount zero but the null page's.  Listeners
+        see the cancellations as one final batch."""
+        with self.lock:
+            completions = []
+            if self._pending is not None:
+                pend, self._pending = self._pending, None
+                self._slot_req[pend.slot] = None  # the reservation
+                completions.append(self._cancelled(pend.req))
+            completions += [self._retire(s, reason="cancelled")
+                            for s in range(self.capacity)
+                            if self._slot_req[s] is not None]
+            while self._queue:
+                completions.append(self._cancelled(self._queue.popleft()))
+            self.active[:] = False
+            self.budget[:] = 0
+            self._release_slots(list(range(self.capacity)))
+            self._reset(np.ones((self.capacity,), bool))
+            self._notify([], completions)
+            return completions
 
     # -------------------------------------------------------------- decode
     def _step(self) -> None:
@@ -1168,7 +1413,18 @@ class BatchEngine:
     def step(self) -> tuple[list[tuple[int, list[int]]], list[Completion]]:
         """One scheduler quantum: admit into free slots, decode one chunk.
         Returns (events, completions); ``events`` holds one ``(rid,
-        new_tokens)`` per live request."""
+        new_tokens)`` per live request.  ``step_listeners`` receive the
+        same pair before it is returned, under the engine lock."""
+        with self.lock:
+            t0 = time.perf_counter()
+            events, completions = self._step_locked()
+            self._notify(events, completions)
+            self._trace.span_at("engine.step", t0, cat="engine",
+                                streams=len(events),
+                                retired=len(completions))
+            return events, completions
+
+    def _step_locked(self):
         events: list[tuple[int, list[int]]] = []
         completions: list[Completion] = []
         round_start = self._admit_seq if self.paged else 0
@@ -1181,7 +1437,17 @@ class BatchEngine:
 
         # the chunk is clipped to the longest remaining budget
         n_steps = int(min(self.chunk, self.budget[self.active].max()))
+        t0d = time.perf_counter()
+        n_live = int(self.active.sum())
+        drafted, accepted = (self.n_drafted, self.n_accepted) \
+            if self.spec_k is not None else (0, 0)
         toks, valid, budget, still_active = self._decode_chunk(n_steps)
+        self._trace.span_at("decode.chunk", t0d, cat="decode", steps=n_steps,
+                            rows=n_live, spec=self.spec_k is not None)
+        if self.spec_k is not None:
+            nd, na = self.n_drafted - drafted, self.n_accepted - accepted
+            self._trace.instant("spec.verify", cat="spec", drafted=nd,
+                                accepted=na, rejected=nd - na)
         self.budget = budget.copy()
         newly_retired = np.zeros((self.capacity,), bool)
         for slot in range(self.capacity):

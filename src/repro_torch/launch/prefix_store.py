@@ -1,5 +1,6 @@
 """Host-RAM (optionally disk-backed) LRU store of evicted prefix pages
-(port of ``repro/launch/prefix_store.py:74-269``).
+(port of ``repro/launch/prefix_store.py:74-269``, its disk-tier trace
+instants included).
 
 The paged pool's prefix index only matches prompts whose pages are still
 resident.  This is the tier behind it: when the last row that maps a
@@ -90,6 +91,9 @@ class PrefixStore:
         self.evictions = 0  # dropped outright (no disk tier)
         self.disk_spills = 0
         self.disk_loads = 0
+        # the engine's TraceRecorder (ref ``prefix_store.py:108``): the
+        # engine assigns its own, which records the disk tier's traffic
+        self.trace = None
 
     # ------------------------------------------------------------- disk tier
     def _disk_path(self, key: bytes) -> str:
@@ -147,6 +151,9 @@ class PrefixStore:
                 self._entries.move_to_end(victim, last=False)
                 self.disk_bytes += dent.nbytes
                 self.disk_spills += 1
+                if self.trace is not None:
+                    self.trace.instant("store.spill", cat="offload",
+                                       tier="disk", bytes=dent.nbytes)
             else:
                 self.evictions += 1
 
@@ -205,6 +212,9 @@ class PrefixStore:
                     self.misses += 1
                     return None
                 self.disk_loads += 1
+                if self.trace is not None:
+                    self.trace.instant("store.load", cat="offload",
+                                       tier="disk", bytes=ent.nbytes)
                 rent = _RamEntry(payload)
                 if rent.nbytes <= self.capacity_bytes:
                     self._entries[key] = rent

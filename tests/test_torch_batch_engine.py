@@ -339,12 +339,19 @@ def test_engine_validates_and_refuses_what_is_not_ported(lm):
     with pytest.raises(ValueError, match="exceeds s_max"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32),
                            max_new_tokens=8))
-    for kw in (dict(trace=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
-                        **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.admit_packed([])
+    # the serving front-end's parts (A9) are ported: a recorder is adopted
+    # (and handed to the host tier), an empty packed admission is a no-op
+    from repro_torch.launch.server import TraceRecorder
+
+    rec = TraceRecorder(capacity=8)
+    traced = BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
+                         trace=rec)
+    assert traced.trace is rec and not eng.trace.enabled
+    eng.admit_packed([])
+    assert not eng.has_work and eng.n_free_slots == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
+                    mesh=object())
     # the host prefix tier (A6) is ported: it refuses what the reference
     # refuses
     with pytest.raises(ValueError, match="paged=True"):

@@ -691,3 +691,72 @@ def test_spec_pass_launches_b3_per_append_and_no_b1_b2(smol_card, paged):
     assert len(done) == 3 and eng._step_graph.counts == per_pass
     ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
     assert ran[0] == ran[1] == 0, ran
+
+
+# ------------------------------------------------------ serving front-end
+
+def test_pipeline_equals_sync_with_the_graph_captured_under_a_scrape(
+        smol_card):
+    """The decode thread captures the step graph (its first ``step()``)
+    while another thread scrapes ``/metrics`` over HTTP without pause:
+    every device touch is under the engine lock, so the capture succeeds,
+    and the pipelined streams equal the sync loop's bit for bit, paged
+    int4 KERNEL (B3 writes, B2 reads), with B3 and B2 launched."""
+    import threading
+    import time
+    import urllib.request
+
+    from repro_torch.launch import graphs
+    from repro_torch.launch.batch_engine import BatchEngine
+    from repro_torch.launch.server import (CompletionServer, ServingPipeline,
+                                           SyncServer, make_requests)
+    from repro_torch.launch.server.pipeline import drain_stream
+
+    model, params = smol_card
+    reqs = make_requests(6, prompt_len=64, new_tokens=12, align=16,
+                         run_len=2)
+
+    def engine():
+        return BatchEngine(model, params, capacity=3, s_max=96,
+                           policy="int4-srft", backend="kernel", chunk=4,
+                           paged=True, page_size=16)
+
+    eng = engine()
+    srv = SyncServer(eng, max_group=3)
+    streams = {r.rid: srv.submit(r) for r in reqs}
+    srv.run_until_drained()
+    want = {rid: drain_stream(q, 60) for rid, q in streams.items()}
+    srv.close()
+
+    eng = engine()
+    pipe = ServingPipeline(eng, max_group=3, admit_queue=8)
+    server = CompletionServer(pipe, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    stop, scrapes = threading.Event(), []
+
+    def scrape():
+        while not stop.is_set():
+            with urllib.request.urlopen(server.url + "/metrics",
+                                        timeout=30) as resp:
+                scrapes.append(resp.status)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    while not scrapes:
+        time.sleep(0.001)
+    before = graphs.launch_counts()
+    streams = {r.rid: pipe.submit(r) for r in reqs}
+    pipe.start()
+    try:
+        got = {rid: drain_stream(q, 120) for rid, q in streams.items()}
+    finally:
+        stop.set()
+        scraper.join(30)
+        server.shutdown()
+        assert pipe.shutdown(timeout=60.0)
+    ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
+    assert got == want
+    assert eng._step_graph is not None and len(scrapes) > 1
+    assert set(scrapes) == {200}
+    assert ran[1] > 0 and ran[2] > 0 and ran[0] == 0, ran
+    assert eng.pool_stats()["pages_used"] == 0
