@@ -192,6 +192,31 @@ Phases (any failure exits non-zero):
      cancel-shutdown return every page.  (d) ``python -m
      repro_torch.launch.serve`` (SERVE_CLI) in a subprocess: exit 0, its
      ``--stats-json`` with the compression and the pool's pages.
+ 14. the other configs at full width, one resident at a time, random
+     weights from SEED, bf16 operands with fp32 accumulation, int4-srft
+     (``P14_CONFIGS``: gemma-7b 28/28 layers, qwen3-14b 40/40,
+     qwen1.5-110b 16/80, dbrx-132b 8/40, llava-next-34b 48/60,
+     qwen3-moe-235b-a22b 10/94; B1 at G = 1 (d 256), 5, 6, 7, 8 and 16).
+     First a reduced qwen3-moe with 16 query heads over 1 KV head on the
+     card against the CPU plain path, as phase 4, on fp32 operands.  Each
+     config: ``Engine`` at batch 1 on a 2055-token prompt (2048 for a MoE,
+     whose routing groups want a large divisor) and 32 new tokens under
+     the graph, counted (B3 and B1 > 0), profiled (device busy, idle
+     share), against the eager loop (GRAPH_TOL) and GATHER (LOGIT_TOL; a
+     MoE up to the first pass where the two reads route a token apart,
+     which must be a near-tie of its router); a MoE replays inside
+     ``set_sync_debug_mode("error")``.  gemma-7b, qwen3-14b,
+     dbrx-132b and qwen3-moe also through ``BatchEngine`` (capacity 4,
+     pages of 16, prompts of 512 / 2048 / 2055 / 1024, 16 new): paged ==
+     dense bit for bit, every page back, B2 and B1 counted.  For a MoE,
+     reported and not gated: chunked admission against monolithic, the
+     batch row against the same request alone, spec (k = 4) against
+     plain, and the dropped (token, expert) pairs of each prefill.
+     dbrx-132b also serves phase 13's trace: pipelined == sync bit for
+     bit.  llava-next-34b also prefills 1152 patch embeddings + 1024
+     tokens, then 16 eager steps, KERNEL against GATHER within LOGIT_TOL.
+     Phase 3 also holds B1 and B2 at these configs' (kv heads, G, d)
+     and times B3 at gemma-7b's prefill write (32,768 rows x d 256).
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -228,7 +253,10 @@ B1_ATOL = 1e-4  # fp32 sums in another order (split-K) over ~4K tokens
 B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
 PPL_RTOL = 1e-3  # hook PPL on the card vs the CPU plain path
 GRAPH_TOL = 1e-5  # graph vs eager logits, relative to the largest logit
-ENGINE_ROUNDS = 2  # interleaved eager / graph rounds of the Engine requests
+# interleaved eager / graph rounds of the Engine requests; the rounds of
+# phases 6, 11 and 13 were cut (2, 2, 3 before phase 14) to keep the script
+# inside its time limit
+ENGINE_ROUNDS = 1
 PREFILL_CHUNK = PREFILL_BUDGET = 256  # chunked admission (phase 8)
 # the preempting pool's budget: the 4093-token admission must end while the
 # 517-token stream still decodes (at 256 a quantum that stream retires
@@ -248,7 +276,7 @@ SPEC_BATCH_RUNS = (("int4-srft", "kernel", True),
 OFFLOAD_PROMPT, OFFLOAD_NEW = 2055, 32
 OFFLOAD_BYTES = 256 * 2**20
 DEPTH_BYTES = 128 * 2**20
-OFFLOAD_ROUNDS = 2
+OFFLOAD_ROUNDS = 1
 OFFLOAD_RUNS = (("int4-srft", "kernel"), ("bf16", None),
                 ("int8-per-token", None))
 CARD = ""  # the card's name and power limit, set by main()
@@ -450,9 +478,10 @@ def check_b3(sq_ops, ref, rot, x, *, group):
     return err, int(flips.sum())
 
 
-def b3_shape(sq_ops, x, rot, group, flush, label=None) -> dict:
+def b3_shape(sq_ops, x, rot, group, flush, label=None, plain=False) -> dict:
     """B3 at one shape: held to its plain version (``check_b3``) and timed
-    by events beside its bound; ``rot`` None is the no-matrix route."""
+    by events beside its bound (and the plain version's time, with
+    ``plain``); ``rot`` None is the no-matrix route."""
     from repro_torch.kernels.srft_quant import ref
 
     n, d = x.shape
@@ -467,8 +496,17 @@ def b3_shape(sq_ops, x, rot, group, flush, label=None) -> dict:
     rec = dict(rows=n, dtype=str(x.dtype).replace("torch.", ""),
                matrix=rot is not None, max_abs_err=err, tie_flips=flips,
                ms=ms, bound_ms=b_ms, bound_by=b_by)
+    if plain:
+        rec["plain_ms"] = device_ms(lambda: ref.srft_quant_ref(
+            x, mat, lam, group=group), flush, iters=5, warmup=1)
     log("B3 " + json.dumps(rec))
     return rec
+
+
+# (kv heads, G, d) of the configs phase 14 serves: gemma-7b, qwen3-14b,
+# dbrx-132b, llava-next-34b, qwen1.5-110b, qwen3-moe-235b-a22b
+SERVED_GROUPINGS = ((16, 1, 256), (8, 5, 128), (8, 6, 128), (8, 7, 128),
+                    (8, 8, 128), (4, 16, 128))
 
 
 def kernel_phase(flush):
@@ -517,10 +555,40 @@ def kernel_phase(flush):
               cublas_fp32_product_ms=cublas)
     out.append(b3)
 
-    out.append(check_b1(flush, g, Hkv, G, d, group, W))
+    # B3 at gemma-7b's prefill write: 2048 tokens x 16 kv heads, d 256
+    rot256 = make_rotation("srft", g, 256, "cuda")
+    rot256.lam = torch.exp(0.3 * torch.randn(256, generator=g, device="cuda"))
+    x256 = torch.randn((2048 * 16, 256), generator=g,
+                       device="cuda").to(torch.bfloat16)
+    shapes.append(b3_shape(sq_ops, x256, rot256, group, flush, plain=True))
+    log(f"[{CARD}] B3 at gemma-7b's prefill write (32,768 rows x d 256 "
+        f"bf16): {shapes[-1]['ms']:.4f} ms, plain {shapes[-1]['plain_ms']:.4f}"
+        f" ms, bound {shapes[-1]['bound_ms']:.4f} ms "
+        f"({shapes[-1]['bound_by']})")
+    del x256
+    b3["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
+
+    b1 = check_b1(flush, g, Hkv, G, d, group, W)
     b2 = check_b2(flush, g, Hkv, G, d, group, W)
+    # the grouping of phase 14's configs: each B1 / B2 shape held to its
+    # plain version and timed beside its bound (G > 8: two head groups)
+    keep = ("Hkv", "G", "d", "max_abs_err", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "sdpa_context_ms")
+    b1["served_shapes"], b2["served_shapes"] = [], []
+    for h, gg, dd in SERVED_GROUPINGS:
+        r1 = check_b1(flush, g, h, gg, dd, group, W, label=None,
+                      by_prompt=False)
+        r2 = check_b2(flush, g, h, gg, dd, group, W, label=None,
+                      plain_iters=3)
+        b1["served_shapes"].append({k: r1[k] for k in keep})
+        b2["served_shapes"].append({k: r2.get(k) for k in keep
+                                    if k not in ("Hkv", "sdpa_context_ms")}
+                                   | {"H": h})
+        b1["max_abs_err"] = max(b1["max_abs_err"], r1["max_abs_err"])
+        b2["max_abs_err"] = max(b2["max_abs_err"], r2["max_abs_err"])
+    out.append(b1)
     # pages of 48 tokens: neither a divisor nor a multiple of B2's tile
-    b2_48 = check_b2(flush, g, Hkv, G, d, group, W, ps=48)
+    b2_48 = check_b2(flush, g, Hkv, G, d, group, W, ps=48, label=None)
     b2["page_48"] = {k: b2_48[k] for k in ("max_abs_err", "ms", "graph_ms",
                                            "b1_same_bytes_ms")}
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_48["max_abs_err"])
@@ -574,11 +642,12 @@ def check_b4_raw_view(flush, g, rot, group, tokens=SHARED_PREFIX,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
-def check_b1(flush, g, Hkv, G, d, group, W):
+def check_b1(flush, g, Hkv, G, d, group, W, label="B1", by_prompt=True):
     """B1 at the longest request's last decode step (batch 1, scalar
     lengths) and at per-row lengths with an empty row and tile-edge rows,
     against its plain version (B1_ATOL); then timed: CUDA events around
-    each call, and each call captured once in a CUDA graph and replayed."""
+    each call, and each call captured once in a CUDA graph and replayed
+    (``by_prompt``: also at the 517- and 4093-token requests' lengths)."""
     from repro_torch.kernels.quant_attention import ops as qa_ops
     from repro_torch.kernels.quant_attention import ref as qa_ref
 
@@ -599,11 +668,13 @@ def check_b1(flush, g, Hkv, G, d, group, W):
     want = qa_ref.quant_decode_attention_ref(*args, plen, total, group=group)
     err = (got - want).abs().max().item()
     assert torch.isfinite(got).all() and err <= B1_ATOL, f"B1 err {err}"
-    # per-row lengths with an empty row and a tile-edge row
+    # per-row lengths with an empty row and a tile-edge row (the pattern
+    # of 8 repeated or cut to BH rows)
     rows = torch.tensor([0, 64, 65, 1000, plen, 16, 4096, 4500],
                         dtype=torch.int32, device="cuda")
     tl = (rows + torch.tensor([0, 0, 3, 15, total - plen, 1, 16, 7],
                               device="cuda")).int()
+    rows, tl = (t.repeat(-(-BH // 8))[:BH] for t in (rows, tl))
     got_r = qa_ops.quant_decode_attention(*args, rows, tl, group=group)
     want_r = qa_ref.quant_decode_attention_ref(*args, rows, tl, group=group)
     err_r = (got_r - want_r).abs().max().item()
@@ -613,7 +684,7 @@ def check_b1(flush, g, Hkv, G, d, group, W):
         f"tolerance {B1_ATOL}")
     call = lambda: qa_ops.quant_decode_attention(  # noqa: E731
         *args, plen, total, group=group)
-    ms, ms_wall = device_ms(call, flush, label="B1"), wall_ms(call)
+    ms, ms_wall = device_ms(call, flush, label=label), wall_ms(call)
     ms_graph = graph_ms(call, flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, plen, total, group=group), flush)
@@ -626,12 +697,13 @@ def check_b1(flush, g, Hkv, G, d, group, W):
     sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qb, kb, kb, enable_gqa=True), flush)
     log(f"context: bf16 SDPA over a {total}-token bf16 cache: {sdpa:.4f} ms")
-    log(f"B1 {ms:.4f} ms (events), {ms_graph:.4f} ms (graph replay), plain "
-        f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    log(f"[{CARD}] B1 Hkv={Hkv} G={G} d={d}: {ms:.4f} ms (events), "
+        f"{ms_graph:.4f} ms (graph replay), plain {plain:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
     # the graph decodes a ragged cache: per-row lengths plan the split from
     # S = s_max, scalar lengths from the prefix
     by_length = {}
-    for n in (PROMPTS[0], PROMPTS[-1]):
+    for n in (PROMPTS[0], PROMPTS[-1]) if by_prompt else ():
         tot = n + NEW_TOKENS - 1
         pl = tot - tot % W
         rows_p = torch.full((BH,), pl, dtype=torch.int32, device="cuda")
@@ -651,7 +723,8 @@ def check_b1(flush, g, Hkv, G, d, group, W):
                 max_abs_err=max(err, err_r), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 wall_ms=ms_wall, graph_ms=ms_graph,
-                graph_ms_by_prompt=by_length)
+                graph_ms_by_prompt=by_length, sdpa_context_ms=sdpa,
+                Hkv=Hkv, G=G, d=d)
 
 
 def check_b4(flush, g, n, group, b3_call):
@@ -711,11 +784,13 @@ def check_b4(flush, g, n, group, b3_call):
                 checks=checks), b3_rounds
 
 
-def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE):
+def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE, label="B2",
+             plain_iters=20):
     """B2 at the batch path's shapes: rows at the batch prompts' lengths
     plus a retired row of length 0, pages of ``ps`` tokens shuffled.
     Against its plain version (B1_ATOL) and against B1 on the gathered view
-    (bitwise), then both timed on the same bytes."""
+    (bitwise), then both timed on the same bytes (the plain version over
+    ``plain_iters`` calls)."""
     from repro_torch.kernels.quant_attention import ops as qa_ops
     from repro_torch.kernels.quant_attention import ref as qa_ref
 
@@ -755,18 +830,20 @@ def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE):
     torch.cuda.synchronize()
     assert torch.equal(got, dense), "B2 != B1 on the gathered view"
     call = lambda: qa_ops.quant_decode_attention_paged(*args, **kw)  # noqa
-    ms = device_ms(call, flush, label="B2" if ps == PAGE_SIZE else None)
+    ms = device_ms(call, flush, label=label)
     ms_wall = wall_ms(call)
     ms_graph = graph_ms(call, flush)
     b1_ms = device_ms(lambda: qa_ops.quant_decode_attention(
         *dense_args, group=group), flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_paged_ref(
-        *args, group=group, n_kv_heads=H), flush)
+        *args, group=group, n_kv_heads=H), flush, iters=plain_iters,
+        warmup=min(3, plain_iters))
     n_tok = int(plen.sum())  # packed tokens this input's rows hold
     nbytes = (2 * BH * G * d * 4 + 2 * n_tok * (d // 2 + d // group * 4)
               + 2 * BH * W * d * 4 + table.numel() * 4 + 2 * BH * 4)
     b_ms, b_by = bound(nbytes, 4.0 * G * d * (n_tok + BH * W))
-    log(f"B2 paged read rows={lengths} H={H} G={G} d={d} page_size={ps} "
+    log(f"[{CARD}] B2 paged read rows={lengths} H={H} G={G} d={d} "
+        f"page_size={ps} "
         f"(shuffled table): max abs err {err:.3e} (tol {B1_ATOL}); equal "
         f"to B1 on the gathered view; B2 {ms:.4f} ms (graph replay "
         f"{ms_graph:.4f} ms), B1 on the same bytes {b1_ms:.4f} ms, bound "
@@ -777,28 +854,31 @@ def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE):
                          "quant_attention.py:228",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, wall_ms=ms_wall,
-                graph_ms=ms_graph, b1_same_bytes_ms=b1_ms)
+                graph_ms=ms_graph, b1_same_bytes_ms=b1_ms, H=H, G=G, d=d,
+                page_size=ps)
 
 
 # ------------------------------------------------------------------ model
 
-def small_reference_phase():
+def small_reference_phase(cfg=None, what="reduced internlm2",
+                          cases=(("int4-srft", "kernel"),
+                                 ("int8-per-token", None))):
     """The port on the card (kernels) against the port on the CPU (plain
     versions, themselves held against the JAX reference by the tests), on
-    a small internlm2-shaped model."""
+    a small model: internlm2-shaped unless ``cfg`` is given."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.engine import Engine
     from repro_torch.models.lm import LM
 
-    cfg = reduced(get_config("internlm2-1.8b"))
+    if cfg is None:
+        cfg = reduced(get_config("internlm2-1.8b"))
     cpu = LM(cfg, device="cpu")
     params = cpu.init(cpu.generator(SEED))
     gpu = LM(cfg, device="cuda")
     params_gpu = _to(params, "cuda")
     prompt = torch.randint(0, cfg.vocab_size, (1, 37),
                            generator=torch.Generator().manual_seed(SEED))
-    for policy, backend in (("int4-srft", "kernel"),
-                            ("int8-per-token", None)):
+    for policy, backend in cases:
         res = {}
         for name, model, p in (("cpu", cpu, params),
                                ("cuda", gpu, params_gpu)):
@@ -814,7 +894,7 @@ def small_reference_phase():
         err = (lc[:, :n_same] - lg[:, :n_same]).abs().max().item()
         tol = LOGIT_TOL * lc.abs().max().item()
         assert err <= tol, f"small model {policy}: card vs CPU {err} > {tol}"
-        log(f"small model (reduced internlm2, 37+24 tokens, {policy} "
+        log(f"small model ({what}, 37+24 tokens, {policy} "
             f"{(backend or 'gather').upper()}): card (graph) vs CPU plain "
             f"max logit err {err:.3e} (tol {tol:.3e}), tokens agree for "
             f"{n_same}/24 steps")
@@ -844,19 +924,19 @@ def _agree_until(t_ref, t_got, l_ref) -> int:
 
 
 def serve(model, params, policy, backend, prompt_len, graph=True,
-          keep=False, rots=None):
+          keep=False, rots=None, new_tokens=NEW_TOKENS, s_max=S_MAX):
     """One request through ``Engine`` on a ragged batch-1 cache: the
     captured step (``graph``) or the eager loop; ``rots`` (one (k, v) pair
     per layer) replaces the cache's own rotations.  The first decode call
     makes one step (under a graph it warms up and captures first); the
-    other NEW_TOKENS - 2 are timed by CUDA events.  Returns (row, tokens,
+    other ``new_tokens`` - 2 are timed by CUDA events.  Returns (row, tokens,
     logits), plus (engine, cache) with ``keep``."""
     from repro_torch.launch.engine import GRAPH_KEY, Engine
 
     g = torch.Generator(device="cuda").manual_seed(SEED + prompt_len)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
                            generator=g, device="cuda")
-    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True, rots=rots,
+    cache = model.init_cache(1, s_max, policy=policy, ragged=True, rots=rots,
                              generator=torch.Generator().manual_seed(SEED))
     eng = Engine(model, backend=backend, graph=graph)
     a = torch.cuda.Event(enable_timing=True)
@@ -872,20 +952,20 @@ def serve(model, params, policy, backend, prompt_len, graph=True,
     t2 = time.perf_counter()
     a.record()
     toks, step_logits, cache = eng.decode(params, tok1, cache,
-                                          NEW_TOKENS - 2, return_logits=True)
+                                          new_tokens - 2, return_logits=True)
     b.record()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     toks = torch.cat([tok, tok1, toks], dim=1)
     all_logits = torch.cat([lg[:, -1:].float(), l1, step_logits], dim=1)
-    assert toks.shape == (1, NEW_TOKENS)
-    assert all_logits.shape == (1, NEW_TOKENS, model.cfg.vocab_size)
+    assert toks.shape == (1, new_tokens)
+    assert all_logits.shape == (1, new_tokens, model.cfg.vocab_size)
     assert torch.isfinite(all_logits).all(), "non-finite logits"
     pos = int(cache["pos"][0])
-    assert pos == prompt_len + NEW_TOKENS - 1, pos
+    assert pos == prompt_len + new_tokens - 1, pos
     assert all(int(c.length[0]) == pos for c in cache["attn"])
     attn = cache["attn"]
-    n = NEW_TOKENS - 2
+    n = new_tokens - 2
     row = dict(policy=policy, backend=backend or "gather", prompt=prompt_len,
                graph=graph, prefill_ms=(t1 - t0) * 1e3,
                decode_ms_per_tok=a.elapsed_time(b) / n,
@@ -1138,7 +1218,7 @@ def batch_requests(vocab):
 
 def serve_batch(model, params, policy, backend, paged, reqs, *,
                 capacity=CAPACITY, n_pages=None, after_first_step=None,
-                graph=True, **chunking):
+                graph=True, s_max=S_MAX, **chunking):
     """Run ``reqs`` through a BatchEngine (the captured step, or the eager
     loop; ``chunking`` takes ``prefill_chunk``, ``prefill_budget`` and
     ``prefix_reuse``).  Returns (engine, completions by rid, report):
@@ -1152,7 +1232,7 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
     each request's reused tokens (``reused``)."""
     from repro_torch.launch.batch_engine import BatchEngine
 
-    eng = BatchEngine(model, params, capacity=capacity, s_max=S_MAX,
+    eng = BatchEngine(model, params, capacity=capacity, s_max=s_max,
                       policy=policy, backend=backend, chunk=CHUNK,
                       paged=paged, page_size=PAGE_SIZE, n_pages=n_pages,
                       device=DEV, graph=graph, **chunking)
@@ -3043,7 +3123,7 @@ def learned_phase(model, params) -> dict:
 # the closed-loop trace: buckets of 256 / 384 / 512 tokens in runs of two,
 # so bucketed admission packs k = 2 prompts a prefill
 SERVE_N, SERVE_PROMPT, SERVE_NEW, SERVE_RUN = 8, 512, 32, 2
-SERVE_ROUNDS = 3  # interleaved sync / pipelined rounds (paged)
+SERVE_ROUNDS = 2  # interleaved sync / pipelined rounds (paged)
 SERVE_CLI = ("--arch", "internlm2-1.8b", "--paged", "--policy", "int4-srft",
              "--backend", "kernel", "--max-batch", "4", "--requests", "4",
              "--prompt-len", "256", "--new-tokens", "16")
@@ -3509,6 +3589,497 @@ def serve_phase(model, params) -> dict:
     return launches
 
 
+# ---------------------------- phase 14: the other configs at full width
+# (arch, layers run, Engine prompt): every config at its full width, the
+# depth cut where the bf16 weights would not fit one 80 GB card beside the
+# caches (GB at full depth: gemma-7b 17.1, qwen3-14b 29.5, qwen1.5-110b
+# 222, dbrx-132b 263, llava-next-34b 68.8, qwen3-moe-235b-a22b 470).  The
+# MoE prompts have a large divisor (gs = 512 at 2048 tokens): a prime
+# length makes every token a group of its own (ROADMAP D).
+P14_CONFIGS = (("gemma-7b", 28, 2055), ("qwen3-14b", 40, 2055),
+               ("qwen1.5-110b", 16, 2055), ("dbrx-132b", 8, 2048),
+               ("llava-next-34b", 48, 2055),
+               ("qwen3-moe-235b-a22b", 10, 2048))
+P14_NEW = 32
+P14_S_MAX = 2304  # 1152 patches + 1024 tokens + 16 new, W-aligned, and room
+P14_BATCH_ARCHS = ("gemma-7b", "qwen3-14b", "dbrx-132b",
+                   "qwen3-moe-235b-a22b")
+P14_BATCH_PROMPTS, P14_BATCH_NEW = (512, 2048, 2055, 1024), 16
+P14_PATCH_TOKENS, P14_PATCH_NEW = 1024, 16
+P14_PROFILE_STEPS, P14_NO_SYNC_STEPS, P14_SPEC_NEW = 4, 8, 16
+
+
+def _p14_prompt(vocab, n):
+    """``serve``'s prompt of ``n`` tokens (the same seed), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + n)
+    return torch.randint(0, vocab, (1, n), generator=g, device="cuda")
+
+
+class _DropLog:
+    """Wraps a MoE model's ``prefill`` and ``prefill_chunk``: each call
+    records (its tokens, its dropped (token, expert) pairs), read back after
+    the prefill (no graph captures a prefill)."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+
+        self.calls = []
+        for name in ("prefill", "prefill_chunk"):
+            def logged(params, tokens, *a, _fn=getattr(model, name), **k):
+                moe.drop_log = []
+                try:
+                    out = _fn(params, tokens, *a, **k)
+                finally:
+                    got, moe.drop_log = moe.drop_log, None
+                self.calls.append((tokens.numel(), int(sum(got))))
+                return out
+            setattr(model, name, logged)
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+class _Routes:
+    """While open, records each ``moe_apply``'s router probabilities and
+    chosen experts, copied to the host (so eager runs only)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        top_k = self.orig = self.moe.top_k
+
+        def recording(probs, k):
+            vals, idx = top_k(probs, k)
+            self.calls.append((probs.float().cpu(), idx.cpu()))
+            return vals, idx
+
+        self.moe.top_k = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.orig
+        return False
+
+
+def _route_split(a, b, n_layers):
+    """The first forward pass (0: the prefill; i: the step that scores
+    token i) in which two runs' routers (``_Routes.calls``) choose another
+    expert or order for some token, and how near a tie it was in run
+    ``a``: the largest (p_j - p_{j+1}) / p_max over the tokens that part,
+    j their first differing rank.  (None, 0.0) if they never part."""
+    for c, ((pa, ia), (_, ib)) in enumerate(zip(a, b)):
+        rows = (ia != ib).any(-1)
+        if not rows.any():
+            continue
+        p = pa.sort(-1, descending=True).values[rows]
+        j = (ia != ib)[rows].int().argmax(-1)  # first differing rank
+        gap = (p.gather(-1, j[:, None]) - p.gather(-1, j[:, None] + 1))[:, 0]
+        return c // n_layers, float((gap / p[:, 0]).max())
+    return None, 0.0
+
+
+def _p14_profile(eng, params, cache, tok, steps=P14_PROFILE_STEPS) -> dict:
+    """Graph replays of a served request under torch.profiler (device busy
+    ms a step), then as many again timed by CUDA events: the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        toks, cache = eng.decode(params, tok, cache, steps)
+        torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    a.record()
+    eng.decode(params, toks[:, -1:], cache, steps)
+    b.record()
+    torch.cuda.synchronize()
+    ev = a.elapsed_time(b) / steps
+    us = _kernel_us(prof)
+    busy = sum(us.values()) / 1e3 / steps
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    return dict(events_ms_per_step=ev, device_busy_ms_per_step=busy,
+                idle_share=1 - busy / ev,
+                top_kernels_ms_per_step=[(k[:60], v / 1e3 / steps)
+                                         for k, v in top],
+                own_kernels_ms_per_step=_own_ms(us, steps))
+
+
+def _first_divergence(a, b) -> int:
+    """Tokens two streams share before they part (their length if equal)."""
+    a, b = list(a), list(b)
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def p14_engine(model, params, arch, prompt_len, launches) -> dict:
+    """``Engine`` at batch 1: KERNEL under the graph (counted, profiled;
+    a MoE replays inside ``set_sync_debug_mode("error")``), the eager
+    loop (graph == eager) and GATHER (KERNEL vs GATHER)."""
+    kw = dict(new_tokens=P14_NEW, s_max=P14_S_MAX)
+    _zero_counters()
+    row, t_k, l_k, eng, cache = serve(model, params, "int4-srft", "kernel",
+                                      prompt_len, keep=True, **kw)
+    launches[f"p14_{arch}_engine"] = c = _counters()
+    assert c["srft_quant"] > 0 and c["quant_decode_attention"] > 0, c
+    tok = t_k[:, -1:].cuda()
+    prof = _p14_profile(eng, params, cache, tok)
+    if model.cfg.moe is not None:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, cache = eng.decode(params, tok, cache, P14_NO_SYNC_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert out.shape == (1, P14_NO_SYNC_STEPS)
+        log(f"  14 {arch}: no host sync in {P14_NO_SYNC_STEPS} MoE graph "
+            f"replays under set_sync_debug_mode('error')")
+    del eng, cache
+    moe = model.cfg.moe is not None
+    with _Routes() as r_k:
+        row_e, t_e, l_e = serve(model, params, "int4-srft", "kernel",
+                                prompt_len, graph=False, **kw)
+    _graph_agrees((t_e, l_e), (t_k, l_k), f"14 {arch} int4-srft/kernel")
+    row_g, t_g, l_g = serve(model, params, "int4-srft", "gather", prompt_len,
+                            **kw)
+    split, margin, n = None, 0.0, P14_NEW
+    if moe:
+        # a MoE's router turns the reads' rounding into another expert at
+        # a near-tie, after which the runs part by more than LOGIT_TOL:
+        # compare up to the first pass where the eager runs route apart,
+        # which must be a near-tie (gap below LOGIT_TOL of the top
+        # probability, the rule tokens follow)
+        with _Routes() as r_g:
+            _, t_g, l_g = serve(model, params, "int4-srft", "gather",
+                                prompt_len, graph=False, **kw)
+        t_k, l_k = t_e, l_e
+        split, margin = _route_split(r_k.calls, r_g.calls,
+                                     model.cfg.n_layers)
+        assert split is None or margin < LOGIT_TOL, (
+            f"14 {arch}: GATHER vs KERNEL route apart at pass {split} off a "
+            f"near-tie (gap {margin:.3e} of the top probability)")
+        n = P14_NEW if split is None else max(split, 1)
+    n_same = _agree_until(t_k[:, :n], t_g[:, :n], l_k[:, :n])
+    err = (l_k[:, :n_same] - l_g[:, :n_same]).abs().max().item()
+    tol = LOGIT_TOL * l_k.abs().max().item()
+    assert err <= tol, f"14 {arch}: GATHER vs KERNEL logits {err} > {tol}"
+    log(f"  14 {arch}: GATHER vs KERNEL max logit diff {err:.3e} (tol "
+        f"{tol:.3e}), tokens agree for {n_same}/{P14_NEW} steps"
+        + (f"; the routers part first at pass {split} (a near-tie: gap "
+           f"{margin:.3e} of the top probability)" if split is not None
+           else "; the routers never part" if moe else ""))
+    return dict(kernel=row, eager=row_e, gather=row_g, profile=prof,
+                gather_agree=n_same, gather_err=err, route_split=split,
+                route_margin=margin, tokens=t_k)
+
+
+def p14_batch(model, params, arch, launches, drops) -> dict:
+    """``BatchEngine`` (capacity 4, pages of 16), paged and dense: equal
+    streams (no row shares a page), every page back (``serve_batch``);
+    for a MoE (``drops``, its ``_DropLog``) also chunked admission, with
+    each run's dropped pairs."""
+    from repro_torch.launch.batch_engine import Request
+
+    vocab = model.cfg.vocab_size
+    reqs = [Request(i, _p14_prompt(vocab, n)[0].cpu().numpy(), P14_BATCH_NEW)
+            for i, n in enumerate(P14_BATCH_PROMPTS)]
+    out, rep = {}, {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense"
+        _zero_counters()
+        _, done, rep[layout] = serve_batch(model, params, "int4-srft",
+                                           "kernel", paged, reqs,
+                                           s_max=P14_S_MAX)
+        launches[f"p14_{arch}_batch_{layout}"] = c = _counters()
+        read = "quant_decode_attention" + ("_paged" if paged else "")
+        assert c["srft_quant"] > 0 and c[read] > 0, c
+        out[layout] = {rid: list(cp.tokens) for rid, cp in done.items()}
+        if drops is not None:
+            rep[layout]["moe_drops"] = drops.take()
+    assert out["paged"] == out["dense"], f"14 {arch}: paged != dense"
+    res = dict(paged=rep["paged"], dense=rep["dense"],
+               tokens_dense=out["dense"])
+    log(f"[{CARD}] 14 {arch} BatchEngine (capacity {CAPACITY}, prompts "
+        f"{list(P14_BATCH_PROMPTS)}, {P14_BATCH_NEW} new): paged == dense "
+        f"for {len(reqs)}/{len(reqs)} streams, every page back; ms/step "
+        f"paged {rep['paged']['decode_ms_per_step']:.3f} / dense "
+        f"{rep['dense']['decode_ms_per_step']:.3f} (events, graph); "
+        f"launches paged {launches[f'p14_{arch}_batch_paged']}, dense "
+        f"{launches[f'p14_{arch}_batch_dense']}")
+    if drops is None:
+        return res
+    _zero_counters()
+    _, done, rep_c = serve_batch(
+        model, params, "int4-srft", "kernel", False, reqs, s_max=P14_S_MAX,
+        prefill_chunk=PREFILL_CHUNK, prefill_budget=PREFILL_BUDGET)
+    launches[f"p14_{arch}_batch_chunked"] = _counters()
+    rep_c["moe_drops"] = drops.take()
+    chunked = {rid: list(cp.tokens) for rid, cp in done.items()}
+    res["chunked"] = rep_c
+    res["chunked_agree"] = {rid: _first_divergence(out["dense"][rid], t)
+                            for rid, t in chunked.items()}
+    return res
+
+
+def p14_moe_report(model, params, arch, prompt_len, batch, t_alone,
+                   drops, engine_drops) -> dict:
+    """MoE rows are coupled through routing groups: chunked against
+    monolithic, the batch row against the same request alone, spec against
+    plain, with the dropped (token, expert) pairs of each side's prefills;
+    printed, not gated."""
+    from repro_torch.launch.engine import Engine
+
+    row = P14_BATCH_PROMPTS.index(prompt_len)
+    dense = batch["dense"]
+    alone = t_alone[0, :P14_BATCH_NEW].tolist()
+    cache = model.init_cache(1, P14_S_MAX, policy="int4-srft", ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    toks_s, _, st = Engine(model, backend="kernel").generate_spec(
+        params, _p14_prompt(model.cfg.vocab_size, prompt_len), cache,
+        P14_SPEC_NEW, spec_k=SPEC_K)
+    spec_drops = drops.take()
+    rec = dict(
+        chunked_vs_monolithic=batch["chunked_agree"],
+        batched_vs_alone=_first_divergence(batch["tokens_dense"][row],
+                                           alone),
+        spec_vs_plain=_first_divergence(toks_s[0].tolist(),
+                                        t_alone[0, :P14_SPEC_NEW].tolist()),
+        spec_stats=st,
+        drops=dict(engine=engine_drops, spec=spec_drops,
+                   batch_paged=batch["paged"]["moe_drops"],
+                   batch_dense=dense["moe_drops"],
+                   batch_chunked=batch["chunked"]["moe_drops"]))
+    log(f"[{CARD}] 14 {arch} MoE, reported (not gated): tokens shared "
+        f"before parting: chunked vs monolithic by request "
+        f"{rec['chunked_vs_monolithic']} of {P14_BATCH_NEW}; the "
+        f"{prompt_len}-token request batched vs alone "
+        f"{rec['batched_vs_alone']}/{P14_BATCH_NEW}; spec (k = {SPEC_K}) "
+        f"vs plain {rec['spec_vs_plain']}/{P14_SPEC_NEW} (acceptance "
+        f"{st['accepted']}/{st['drafted']})")
+    log(f"  14 {arch} dropped (token, expert) pairs, (tokens, dropped) per "
+        f"prefill: " + json.dumps(rec["drops"]))
+    return rec
+
+
+def p14_serve(model, params, arch, launches, drops) -> dict:
+    """Phase 13's closed-loop trace (packed prefills of k x L tokens, so a
+    MoE routes k prompts as one group) through ``SyncServer`` and
+    ``ServingPipeline``, paged: every stream equal bit for bit."""
+    from repro_torch.launch.server import make_trace
+
+    items = make_trace(SERVE_N, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+                       run_len=SERVE_RUN, arrival="closed")
+    sync, wall_s, _ = sync_replay(serve_engine(model, params, True), items)
+    sync_drops = drops.take() if drops is not None else None
+    eng_p = serve_engine(model, params, True)
+    _zero_counters()
+    piped, wall_p, metrics, trace, (_, ev_ms) = pipe_replay(eng_p, items)
+    launches[f"p14_{arch}_serve"] = c = _counters()
+    assert piped == sync, f"14 {arch}: pipelined != sync"
+    assert all(r == "length" and len(t) == SERVE_NEW for t, r in sync.values())
+    assert c["srft_quant"] > 0 and c["quant_decode_attention_paged"] > 0, c
+    assert eng_p.pool_stats()["pages_used"] == 0
+    packed = [e["dur"] / 1e3 for e in trace.export()["traceEvents"]
+              if e["name"] == "prefill.packed"]
+    rec = dict(sync_s=wall_s, pipelined_s=wall_p, pipelined_events_ms=ev_ms,
+               packed_prefill_host_ms=packed,
+               moe_drops=dict(sync=sync_drops, pipelined=drops.take())
+               if drops is not None else None, **_latency_ms(metrics))
+    log(f"[{CARD}] 14 {arch} serving: pipelined == sync bit for bit "
+        f"({SERVE_N} streams, paged), sync {wall_s:.3f} s, pipelined "
+        f"{wall_p:.3f} s; packed prefill host ms "
+        f"{[round(x, 1) for x in packed]}; launches {c}; MoE drops "
+        f"(tokens, dropped) per packed prefill "
+        f"{json.dumps(rec['moe_drops'])}")
+    return rec
+
+
+def p14_patches(model, params, arch, launches) -> dict:
+    """A vlm prompt of ``n_patches`` random patch embeddings (scaled like
+    the embeddings) then P14_PATCH_TOKENS tokens through ``LM.prefill``,
+    then P14_PATCH_NEW - 1 eager decode steps, KERNEL (counted) against
+    GATHER within LOGIT_TOL."""
+    from repro_torch.launch.engine import Engine
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    patches = (torch.randn((1, cfg.n_patches, cfg.d_model), generator=g,
+                           device="cuda") * 0.02).to(torch.bfloat16)
+    prompt = _p14_prompt(cfg.vocab_size, P14_PATCH_TOKENS)
+    res = {}
+    for backend in ("kernel", "gather"):
+        cache = model.init_cache(1, P14_S_MAX, policy="int4-srft",
+                                 ragged=True,
+                                 generator=torch.Generator().manual_seed(SEED))
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, prompt, cache, patches=patches)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        assert int(cache["pos"][0]) == cfg.n_patches + P14_PATCH_TOKENS
+        tok0 = lg[:, -1].argmax(-1)[:, None]
+        toks, logits, cache = Engine(model, backend=backend, graph=False
+                                     ).decode(params, tok0, cache,
+                                              P14_PATCH_NEW - 1,
+                                              return_logits=True)
+        torch.cuda.synchronize()
+        if backend == "kernel":
+            launches[f"p14_{arch}_patches"] = c = _counters()
+            assert c["srft_quant"] > 0 and c["quant_decode_attention"] > 0
+        all_l = torch.cat([lg[:, -1:].float(), logits], 1).cpu()
+        assert torch.isfinite(all_l).all()
+        res[backend] = (torch.cat([tok0, toks], 1).cpu(), all_l, pre_ms)
+    (t_k, l_k, pre_k), (t_g, l_g, _) = res["kernel"], res["gather"]
+    n_same = _agree_until(t_k, t_g, l_k)
+    err = (l_k[:, :n_same] - l_g[:, :n_same]).abs().max().item()
+    tol = LOGIT_TOL * l_k.abs().max().item()
+    assert err <= tol, f"14 {arch} patches: GATHER vs KERNEL {err} > {tol}"
+    log(f"[{CARD}] 14 {arch}: prefill of {cfg.n_patches} patches + "
+        f"{P14_PATCH_TOKENS} tokens {pre_k:.1f} ms (host, synchronized), "
+        f"{P14_PATCH_NEW} eager steps: GATHER vs KERNEL max logit diff "
+        f"{err:.3e} (tol {tol:.3e}), tokens agree for {n_same}/"
+        f"{P14_PATCH_NEW}; launches {launches[f'p14_{arch}_patches']}")
+    return dict(prefill_ms=pre_k, gather_agree=n_same, gather_err=err)
+
+
+def p14_model(arch, depth, prompt_len) -> tuple[dict, dict]:
+    """Phase 14 for one config (see the module doc): (launches by path,
+    record).  The model is freed when this returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg)
+    params = model.init(model.generator(SEED))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    rec = dict(arch=arch, family=cfg.family, layers=depth,
+               full_layers=full.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+               G=cfg.n_heads // cfg.n_kv_heads, head_dim=cfg.head_dim,
+               params_b=sum(t.numel() for t in leaves) / 1e9,
+               weight_gb=sum(t.numel() * t.element_size()
+                             for t in leaves) / 1e9,
+               init_s=time.perf_counter() - t_start)
+    del leaves
+    log(f"14 {arch}: {depth}/{full.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {rec['heads']} (G {rec['G']}, d {cfg.head_dim}), "
+        f"{rec['params_b']:.2f}B params, {rec['weight_gb']:.1f} GB bf16, "
+        f"init {rec['init_s']:.1f} s")
+    drops = _DropLog(model) if cfg.moe is not None else None
+    launches, secs = {}, {}
+    t0 = time.perf_counter()
+    eng = p14_engine(model, params, arch, prompt_len, launches)
+    secs["engine"] = time.perf_counter() - t0
+    t_alone = eng.pop("tokens")
+    rec["engine"] = eng
+    engine_drops = drops.take() if drops is not None else None
+    k, prof = eng["kernel"], eng["profile"]
+    log(f"[{CARD}] 14 {arch} Engine, {prompt_len} + {P14_NEW} tokens, "
+        f"int4-srft KERNEL, graph: {k['decode_ms_per_tok']:.3f} ms/token "
+        f"(events; eager {eng['eager']['decode_ms_per_tok']:.3f}, GATHER "
+        f"graph {eng['gather']['decode_ms_per_tok']:.3f}), prefill "
+        f"{k['prefill_ms']:.1f} ms, capture {k['capture_s']:.3f} s, cache "
+        f"{k['cache_bytes']} B (compression {k['compression']:.4f}); one "
+        f"profiled replay: device busy {prof['device_busy_ms_per_step']:.3f}"
+        f" of {prof['events_ms_per_step']:.3f} ms a step, idle share "
+        f"{prof['idle_share']:.3f}; launches {launches[f'p14_{arch}_engine']}"
+        + (f"; MoE drops (tokens, dropped) {engine_drops}"
+           if drops is not None else ""))
+    log("14 engine " + json.dumps(dict(arch=arch, **{
+        m: eng[m] for m in ("kernel", "eager", "gather", "profile")})))
+    if arch in P14_BATCH_ARCHS:
+        t0 = time.perf_counter()
+        batch = p14_batch(model, params, arch, launches, drops)
+        rec["batch"] = {k: v for k, v in batch.items() if k != "tokens_dense"}
+        secs["batch"] = time.perf_counter() - t0
+        if drops is not None:
+            t0 = time.perf_counter()
+            rec["moe"] = p14_moe_report(model, params, arch, prompt_len,
+                                        batch, t_alone, drops, engine_drops)
+            secs["moe_spec"] = time.perf_counter() - t0
+    if arch == "dbrx-132b":
+        t0 = time.perf_counter()
+        rec["serve"] = p14_serve(model, params, arch, launches, drops)
+        secs["serve"] = time.perf_counter() - t0
+    if cfg.family == "vlm":
+        t0 = time.perf_counter()
+        rec["patches"] = p14_patches(model, params, arch, launches)
+        secs["patches"] = time.perf_counter() - t0
+    rec["step_seconds"] = secs
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t_start
+    log(f"[{CARD}] 14 {arch}: peak allocated {rec['peak_gb']:.1f} GB, "
+        f"{rec['seconds']:.1f} s")
+    del model, params, drops
+    return launches, rec
+
+
+def _p14_summary(rec) -> dict:
+    """The numbers of one config's record that PERF.md quotes."""
+    eng = rec["engine"]
+    out = {k: rec[k] for k in ("arch", "layers", "full_layers", "G",
+                               "head_dim", "weight_gb", "init_s", "peak_gb",
+                               "seconds", "step_seconds")}
+    out.update({f"{m}_ms_per_tok": eng[m]["decode_ms_per_tok"]
+                for m in ("kernel", "eager", "gather")},
+               prefill_ms=eng["kernel"]["prefill_ms"],
+               capture_s=eng["kernel"]["capture_s"],
+               cache_bytes=eng["kernel"]["cache_bytes"],
+               compression=eng["kernel"]["compression"],
+               busy_ms_per_step=eng["profile"]["device_busy_ms_per_step"],
+               idle_share=eng["profile"]["idle_share"],
+               own_kernels_ms_per_step=eng["profile"][
+                   "own_kernels_ms_per_step"],
+               gather_agree=eng["gather_agree"], gather_err=eng["gather_err"],
+               route_split=eng["route_split"],
+               route_margin=eng["route_margin"])
+    if "batch" in rec:
+        out["batch_ms_per_step"] = {
+            k: v["decode_ms_per_step"] for k, v in rec["batch"].items()
+            if isinstance(v, dict) and "decode_ms_per_step" in v}
+    for k in ("moe", "serve", "patches"):
+        if k in rec:
+            out[k] = rec[k]
+    return out
+
+
+def p14_phase() -> dict:
+    """Phase 14 (see the module doc): the small G = 16 MoE against the
+    CPU, then each config of P14_CONFIGS, one resident at a time.  Returns
+    launches by path."""
+    from repro_torch.configs import get_config, reduced
+
+    from repro_torch.models import common
+
+    small = dataclasses.replace(reduced(get_config("qwen3-moe-235b-a22b")),
+                                n_heads=16, n_kv_heads=1)
+    # fp32 operands: with bf16 products the card's and the CPU's roundings
+    # differ, and a random router's near-ties flip experts on that alone
+    # (on an H100 a token parted at step 15 with a top-2 logit gap of
+    # 0.76); the full-width configs below run on bf16 operands
+    with common.dot_mode(False):
+        small_reference_phase(small, "reduced qwen3-moe, 16 query heads "
+                              "over 1 KV head, fp32 operands",
+                              (("int4-srft", "kernel"),))
+    launches = {}
+    for arch, depth, prompt_len in P14_CONFIGS:
+        _free_cuda()
+        got, rec = p14_model(arch, depth, prompt_len)
+        launches.update(got)
+        log("14 summary " + json.dumps(_p14_summary(rec)))
+    _free_cuda()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3585,8 +4156,15 @@ def main() -> int:
     t0 = time.perf_counter()
     served = serve_phase(model, params)
     log(f"serve phase {time.perf_counter() - t0:.1f}s")
+    del model, params, mono, pre_mono  # their engines hold ~10 GB
+    _free_cuda()
+    log(f"before phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    t0 = time.perf_counter()
+    configs = p14_phase()
+    log(f"[{card}] phase 14 {time.perf_counter() - t0:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
-               "quality": quality, **learned, **served}
+               "quality": quality, **learned, **served, **configs}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

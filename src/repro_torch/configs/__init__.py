@@ -1,13 +1,14 @@
 """Config registry (port of ``repro/configs/__init__.py``,
-``paper_models.py`` and ``internlm2_1_8b.py``): the dense models the port
-serves, plus ``reduced()`` for CPU-sized variants of the same family."""
+``paper_models.py`` and the per-arch modules): the dense, MoE and VLM
+models the port serves, plus ``reduced()`` for CPU-sized variants of the
+same family."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "MoEConfig", "ARCH_IDS", "get_config", "reduced"]
 
 # internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
 # vocab=92544 [arXiv:2403.17297]
@@ -15,6 +16,58 @@ INTERNLM2_1_8B = ModelConfig(
     name="internlm2-1.8b", family="dense", n_layers=24, d_model=2048,
     n_heads=16, n_kv_heads=8, head_dim=128, d_ff=8192, vocab_size=92544,
     rope_theta=1e6,
+).validated()
+
+# gemma-7b [dense]: 28L d_model=3072 16H (kv=16, MHA) d_ff=24576
+# vocab=256000, GeGLU, head_dim=256 [arXiv:2403.08295]
+GEMMA_7B = ModelConfig(
+    name="gemma-7b", family="dense", n_layers=28, d_model=3072, n_heads=16,
+    n_kv_heads=16, head_dim=256, d_ff=24576, vocab_size=256000,
+    ffn_activation="geglu", rms_unit_offset=True, embed_scale=True,
+    tie_embeddings=True, rope_theta=10000.0,
+).validated()
+
+# qwen3-14b [dense]: 40L d_model=5120 40H (GQA kv=8) d_ff=17408
+# vocab=151936, qk_norm [hf:Qwen/Qwen3-8B family]
+QWEN3_14B = ModelConfig(
+    name="qwen3-14b", family="dense", n_layers=40, d_model=5120, n_heads=40,
+    n_kv_heads=8, head_dim=128, d_ff=17408, vocab_size=151936, qk_norm=True,
+    rope_theta=1e6,
+).validated()
+
+# qwen1.5-110b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=49152
+# vocab=152064, QKV bias [hf:Qwen/Qwen1.5 family]
+QWEN1_5_110B = ModelConfig(
+    name="qwen1.5-110b", family="dense", n_layers=80, d_model=8192,
+    n_heads=64, n_kv_heads=8, head_dim=128, d_ff=49152, vocab_size=152064,
+    qkv_bias=True, rope_theta=1e6,
+).validated()
+
+# dbrx-132b [moe]: 40L d_model=6144 48H (GQA kv=8) d_ff=10752 (per expert)
+# vocab=100352, 16 experts top-4 [hf:databricks/dbrx-base]
+DBRX_132B = ModelConfig(
+    name="dbrx-132b", family="moe", n_layers=40, d_model=6144, n_heads=48,
+    n_kv_heads=8, head_dim=128, d_ff=10752, vocab_size=100352,
+    rope_theta=5e5, moe=MoEConfig(n_experts=16, top_k=4, d_expert=10752),
+).validated()
+
+# llava-next-34b [vlm]: 60L d_model=7168 56H (GQA kv=8) d_ff=20480
+# vocab=64000 [hf:llava-hf/llava-v1.6 family]; the vision frontend is a
+# stub: callers pass patch embeddings (B, n_patches, d_model)
+LLAVA_NEXT_34B = ModelConfig(
+    name="llava-next-34b", family="vlm", n_layers=60, d_model=7168,
+    n_heads=56, n_kv_heads=8, head_dim=128, d_ff=20480, vocab_size=64000,
+    rope_theta=5e6, frontend="vision", n_patches=1152,
+).validated()
+
+# qwen3-moe-235b-a22b [moe]: 94L d_model=4096 64H (GQA kv=4) d_ff=1536
+# (per expert) vocab=151936, 128 experts top-8, qk_norm
+# [hf:Qwen/Qwen3-30B-A3B family]
+QWEN3_MOE_235B_A22B = ModelConfig(
+    name="qwen3-moe-235b-a22b", family="moe", n_layers=94, d_model=4096,
+    n_heads=64, n_kv_heads=4, head_dim=128, d_ff=1536, vocab_size=151936,
+    qk_norm=True, rope_theta=1e6,
+    moe=MoEConfig(n_experts=128, top_k=8, d_expert=1536),
 ).validated()
 
 # the paper's head_dim regimes as small trainable stand-ins
@@ -37,8 +90,9 @@ SMOL_D256 = ModelConfig(
     tie_embeddings=True,
 ).validated()
 
-_CONFIGS = {c.name: c for c in (INTERNLM2_1_8B, SMOL_D64, SMOL_D128,
-                                SMOL_D256)}
+_CONFIGS = {c.name: c for c in (
+    QWEN3_MOE_235B_A22B, DBRX_132B, QWEN3_14B, QWEN1_5_110B, GEMMA_7B,
+    INTERNLM2_1_8B, LLAVA_NEXT_34B, SMOL_D64, SMOL_D128, SMOL_D256)}
 ARCH_IDS = list(_CONFIGS)
 
 
@@ -50,10 +104,9 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """CPU-smoke variant of the same family: small layers/width (the
-    dense branch of the reference's ``reduced``)."""
-    out = dataclasses.replace(
-        cfg,
+    """CPU-smoke variant of the same family: small layers/width/experts
+    (the dense and MoE branches of the reference's ``reduced``)."""
+    kw = dict(
         name=cfg.name + "-reduced",
         n_layers=2,
         d_model=128,
@@ -63,4 +116,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=128,
     )
-    return out.validated()
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            n_experts=4, top_k=2, d_expert=64, group_size=32,
+            capacity_factor=cfg.moe.capacity_factor)
+        kw["d_ff"] = 64
+    return dataclasses.replace(cfg, **kw).validated()

@@ -1,19 +1,33 @@
-"""Model configuration dataclass (port of ``repro/configs/base.py:41-104``).
+"""Model configuration dataclasses (port of ``repro/configs/base.py:15-21``
+and ``:41-104``).
 
-The port's own copy: the dense-model fields the ported slice reads, with
-the same names and defaults as the reference, and ``validated()``.
+The port's own copy: ``MoEConfig`` and the fields of the families the port
+serves (dense, moe, vlm), with the same names and defaults as the
+reference, and ``validated()``.  The recurrent families' fields (``ssm``,
+``xlstm``, ``encoder_layers``, ``cross_attention``) come with their
+modules (ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
-__all__ = ["ModelConfig"]
+__all__ = ["MoEConfig", "ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int  # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    group_size: int = 512  # tokens per dispatch group (GShard G axis)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family the port serves so far)
+    family: str  # dense | moe | vlm (hybrid, ssm, audio: ROADMAP A11)
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +46,11 @@ class ModelConfig:
     rms_unit_offset: bool = False  # gemma-style (1 + w)
     embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
     tie_embeddings: bool = False
+    # MoE
+    moe: Optional[MoEConfig] = None
+    # modality frontend stub: None | "vision" | "audio"
+    frontend: Optional[str] = None
+    n_patches: int = 1152  # vlm: patch-embedding count inside the sequence
     # KV-cache quantization (the paper's technique)
     kv_quant: bool = True
     kv_group: int = 32

@@ -56,7 +56,9 @@
 //     4 at G = 1, 2 at G = 2 (8 lanes a token at d = 128: 4 tokens a
 //     step) and 1 above, so that q's and acc's 8*WPL coordinates of the
 //     lane's words for every head take <= 32 registers each (64 at G > 4;
-//     the kernel is instantiated for at most 1, 2, 4 or 8 heads).  The lane
+//     the kernel is instantiated for at most 1, 2, 4 or 8 heads; 9 to 16
+//     heads run the 8-head code once per group of 8 along the grid's z,
+//     since 16 heads' q and acc would spill).  The lane
 //     dots q with its codes, scales by the token's group scale (per
 //     coordinate in a second instantiation, where group % 8 != 0 and a
 //     word straddles groups) and sums over the slot's lanes by xor
@@ -100,7 +102,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                  // tokens per tile
-constexpr int kMaxG = 8;                   // query heads per kv head
+constexpr int kMaxG = 16;                  // query heads per kv head
+constexpr int kGroupG = 8;                 // of them, per pass-1 block
 constexpr int kMaxD = 256;                 // head dim: 32 words a row at most
 constexpr float kNeg = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
@@ -183,23 +186,29 @@ struct PagedRows {  // B2: (n_pages*H, ps, .) pools behind a (B, MP) table
   }
 };
 
-// Pass 1: grid (BH, n_splits).  Writes part_ml[bh][split][g] = (m, l) and
-// part_acc[bh][split][g][d].  S is the logical length of every row.  MG >=
-// G bounds the per-lane arrays, WPL is the words a lane, NW the warps; OG:
-// every word lies in one scale group (group % 8 == 0).
-template <class Rows, int MG, int WPL, int NW, bool OG>
+// Pass 1: grid (BH, n_splits), or (BH, n_splits, ceil(G_row / MG)) with
+// HG.  Writes part_ml[bh][split][g] = (m, l) and part_acc[bh][split][g][d]
+// for the row's G_row query heads.  S is the logical length of every row.
+// MG >= G bounds the per-lane arrays, WPL is the words a lane, NW the
+// warps; OG: every word lies in one scale group (group % 8 == 0).  HG (head
+// groups, G_row > kGroupG): block z takes heads z*MG .. z*MG + G - 1 of its
+// row, so each K/V tile is read once per head group; without HG, g0 = 0
+// and G = G_row fold away and the code is the one-group kernel's.
+template <class Rows, int MG, int WPL, int NW, bool OG, bool HG>
 __global__ void __launch_bounds__(NW * 32)
 qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
                  const float* __restrict__ ks, const uint8_t* __restrict__ vp,
                  const float* __restrict__ vs, const int* __restrict__ plen_rows,
                  int plen_all, float* __restrict__ part_ml,
-                 float* __restrict__ part_acc, int S, int G, int d, int group,
+                 float* __restrict__ part_acc, int S, int G_row, int d, int group,
                  int tiles_per_split, int code_vec, int scale_vec, Rows rows) {
   extern __shared__ __align__(16) float smem[];
   // split-major order: every row's first splits, which hold its tokens,
   // reach the SMs before the empty splits past shorter rows' ends
   const int bh = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g0 = HG ? blockIdx.z * MG : 0;           // the block's first head
+  const int G = HG ? min(MG, G_row - g0) : G_row;    // and its head count
   const int wpr = d / 8;  // 4-byte words per packed row
   const int ng = d / group;
   int sw = 1;  // lanes per token slot
@@ -266,7 +275,7 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         qr[g][k][i] = g < G && live_w[k]
-                          ? q[((size_t)bh * G + g) * d + 8 * (w0 + k) + i]
+                          ? q[((size_t)bh * G_row + g0 + g) * d + 8 * (w0 + k) + i]
                           : 0.0f;
   float m[MG], l[MG], acc[MG][WPL][8];
 #pragma unroll
@@ -425,7 +434,7 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
   }
   __syncthreads();
   // merge the warps: the split's (m, l, acc), one output per thread
-  const size_t base = ((size_t)bh * n_splits + split) * G;
+  const size_t base = ((size_t)bh * n_splits + split) * G_row + g0;
   for (int p = tid; p < G * d; p += NW * 32) {
     const int g = p / d, e = p % d;
     float mx = kNeg;
@@ -562,10 +571,11 @@ int copy_width(int bytes, const void* a, const void* b) {
   return 4;
 }
 
-// Pass 1 for at most MG query heads, WPL words a lane, NW warps.  Its
-// shared memory: each warp's two buffers of kTile/NW unpadded K and V
-// code and scale rows, then the warps' (acc, m, l) for the merge.
-template <class Rows, int MG, int WPL, int NW, bool OG>
+// Pass 1 for at most MG query heads a block, WPL words a lane, NW warps;
+// HG: ceil(G / MG) head groups along the grid's z.  Its shared memory: each
+// warp's two buffers of kTile/NW unpadded K and V code and scale rows, then
+// the warps' (acc, m, l) for the merge.
+template <class Rows, int MG, int WPL, int NW, bool OG, bool HG>
 cudaError_t launch_split(const float* q, const uint8_t* kp, const float* ks,
                          const uint8_t* vp, const float* vs,
                          const int* plen_rows, int plen, float* part_ml,
@@ -574,14 +584,15 @@ cudaError_t launch_split(const float* q, const uint8_t* kp, const float* ks,
                          Rows rows, cudaStream_t st) {
   static int smem_have = 0;  // the one record of this instantiation
   const int wpr = d / 8, ng = d / group;
+  const int gb = HG ? MG : G;  // heads a block merges
   const size_t words = 2 * (size_t)kTile * (2 * wpr + 2 * ng) +
-                       (size_t)NW * G * (d + 2);
+                       (size_t)NW * gb * (d + 2);
   const int smem = (int)(words * sizeof(float));
-  cudaError_t err =
-      allow_smem(qda_split_kernel<Rows, MG, WPL, NW, OG>, smem, &smem_have);
+  cudaError_t err = allow_smem(qda_split_kernel<Rows, MG, WPL, NW, OG, HG>,
+                               smem, &smem_have);
   if (err != cudaSuccess) return err;
-  qda_split_kernel<Rows, MG, WPL, NW, OG>
-      <<<dim3(BH, n_splits), NW * 32, smem, st>>>(
+  qda_split_kernel<Rows, MG, WPL, NW, OG, HG>
+      <<<dim3(BH, n_splits, HG ? (G + MG - 1) / MG : 1), NW * 32, smem, st>>>(
           q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, S, G, d,
           group, tiles_per_split, copy_width(d / 2, kp, vp),
           copy_width(ng * 4, ks, vs), rows);
@@ -591,7 +602,7 @@ cudaError_t launch_split(const float* q, const uint8_t* kp, const float* ks,
 // A split of one tile (batch 1) runs 4 warps, so that four blocks share an
 // SM; a longer split runs 8, halving the chain of tiles each warp walks.
 // B1 on B2's gathered view plans the same splits, so picks the same code.
-template <class Rows, int MG, int WPL>
+template <class Rows, int MG, int WPL, bool HG>
 cudaError_t launch_split_nw(const float* q, const uint8_t* kp,
                             const float* ks, const uint8_t* vp,
                             const float* vs, const int* plen_rows, int plen,
@@ -600,10 +611,10 @@ cudaError_t launch_split_nw(const float* q, const uint8_t* kp,
                             int tiles_per_split, Rows rows, cudaStream_t st) {
   const bool og = group % 8 == 0;
   auto split = tiles_per_split > 1
-                   ? (og ? launch_split<Rows, MG, WPL, 8, true>
-                         : launch_split<Rows, MG, WPL, 8, false>)
-                   : (og ? launch_split<Rows, MG, WPL, 4, true>
-                         : launch_split<Rows, MG, WPL, 4, false>);
+                   ? (og ? launch_split<Rows, MG, WPL, 8, true, HG>
+                         : launch_split<Rows, MG, WPL, 8, false, HG>)
+                   : (og ? launch_split<Rows, MG, WPL, 4, true, HG>
+                         : launch_split<Rows, MG, WPL, 4, false, HG>);
   return split(q, kp, ks, vp, vs, plen_rows, plen, part_ml, part_acc, BH, S,
                G, d, group, n_splits, tiles_per_split, rows, st);
 }
@@ -622,10 +633,12 @@ int launch_passes(const float* q, const uint8_t* kp, const float* ks,
   if (G < 1 || G > kMaxG || d > kMaxD || d % 8 || group <= 0 || d % group ||
       n_splits < 1 || W < 0)
     return (int)cudaErrorInvalidValue;
-  auto split = G <= 1   ? launch_split_nw<Rows, 1, 4>
-               : G <= 2 ? launch_split_nw<Rows, 2, 2>
-               : G <= 4 ? launch_split_nw<Rows, 4, 1>
-                        : launch_split_nw<Rows, kMaxG, 1>;
+  // G > 8: the 8-head code, once per head group (grid z)
+  auto split = G <= 1         ? launch_split_nw<Rows, 1, 4, false>
+               : G <= 2       ? launch_split_nw<Rows, 2, 2, false>
+               : G <= 4       ? launch_split_nw<Rows, 4, 1, false>
+               : G <= kGroupG ? launch_split_nw<Rows, kGroupG, 1, false>
+                              : launch_split_nw<Rows, kGroupG, 1, true>;
   cudaError_t err = split(q, kp, ks, vp, vs, plen_rows, plen, part_ml,
                           part_acc, BH, S, G, d, group, n_splits,
                           tiles_per_split, rows, st);

@@ -31,9 +31,10 @@ from repro_torch.kernels.quant_attention.ref import (
 
 __all__ = ["quant_decode_attention", "quant_decode_attention_paged",
            "decode_attention_kernel", "decode_attention_kernel_paged",
-           "launches", "paged_launches", "TILE", "ARGTYPES"]
+           "launches", "paged_launches", "TILE", "MAX_G", "ARGTYPES"]
 
 TILE = 64  # tokens per tile in csrc/quant_attention.cu (kTile)
+MAX_G = 16  # query heads per KV head (kMaxG; above 8, two head groups)
 launches = 0  # B1 launches since the caller last set this to 0
 paged_launches = 0  # B2 launches since the caller last set this to 0
 _FNS: dict = {}
@@ -93,8 +94,10 @@ def _plan(q_eff, kr, n_tiles, group):
     (part_ml, part_acc, out, n_splits, tiles_per_split)."""
     BH, G, d = q_eff.shape
     W, dev = kr.shape[1], q_eff.device
-    if G > 8 or d > 256 or d % 8 or d % group:
-        raise ValueError(f"unsupported G={G} d={d} group={group}")
+    if not 1 <= G <= MAX_G or d > 256 or d % 8 or d % group:
+        raise ValueError(f"unsupported G={G} d={d} group={group}: B1/B2 "
+                         f"take 1 to {MAX_G} query heads per KV head, d <= "
+                         f"256, d % 8 == 0 and d % group == 0")
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count

@@ -37,8 +37,9 @@ seconds while the server runs.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card and
 without that flag it raises before building anything.  ``--mesh`` (a
-sharded server) is ROADMAP A12; the port's registry serves the dense
-family, and any other family raises (ROADMAP A11).
+sharded server) is ROADMAP A12.  The dense, moe and vlm families go
+through the ragged ``BatchEngine`` (a vlm's requests are text only, as the
+reference's are); the hybrid, ssm and audio families raise (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -190,11 +191,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family={cfg.family} is not ported yet (ROADMAP A11); the port "
-            f"serves the dense family")
-    model = LM(cfg, device=dev)
+    model = LM(cfg, device=dev)  # raises on the families of ROADMAP A11
     params = model.init(model.generator(args.seed))
     if args.ckpt_dir:
         from repro_torch.optim.adam import adam_init

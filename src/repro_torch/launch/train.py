@@ -32,18 +32,23 @@ __all__ = ["smoke_config", "main"]
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """CPU-trainable reduction of a dense config (the reference's dense
-    branch; its other families are ROADMAP A11)."""
-    if cfg.family != "dense":
+    """CPU-trainable reduction preserving the family structure (the
+    reference's dense, moe and vlm branches: a MoE keeps its expert width
+    and group size, with 4 experts, top 2; the hybrid, ssm and audio
+    families are ROADMAP A11)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"smoke_config reduces the dense family only (got {cfg.family}); "
-            "the other families are ROADMAP A11")
-    return dataclasses.replace(
-        cfg, n_layers=min(cfg.n_layers, 4), d_model=min(cfg.d_model, 256),
+            f"smoke_config reduces dense, moe and vlm (got {cfg.family}); "
+            "the hybrid, ssm and audio families are ROADMAP A11")
+    kw = dict(
+        n_layers=min(cfg.n_layers, 4), d_model=min(cfg.d_model, 256),
         n_heads=min(cfg.n_heads, 4), n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=min(cfg.head_dim, 64),
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
-        vocab_size=min(cfg.vocab_size, 512)).validated()
+        vocab_size=min(cfg.vocab_size, 512))
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
+    return dataclasses.replace(cfg, **kw).validated()
 
 
 def main(argv: Optional[list[str]] = None, *,

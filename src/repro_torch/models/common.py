@@ -28,6 +28,7 @@ __all__ = [
     "dot_mode",
     "dot_operand",
     "matmul",
+    "einsum_f32",
     "dense_init",
     "dense",
     "rmsnorm_init",
@@ -62,17 +63,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (dot_operand(a) @ dot_operand(b)).float()
 
 
+def einsum_f32(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` on the active dot dtype, fp32 accumulation, fp32
+    result (ref ``common.py:53-58``); in bf16 mode the product is rounded
+    to bf16 once, as :func:`matmul`'s."""
+    return torch.einsum(spec, *(dot_operand(o) for o in ops)).float()
+
+
 def _randn(generator: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=device)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out, *,
-               bias: bool = False, device="cpu"):
-    """He-ish init; d_out may be a tuple for fused multi-head weights.
-    Layout (d_in, *d_out), as the reference."""
+               bias: bool = False, scale: float | None = None, device="cpu"):
+    """He-ish init (std ``scale`` if given); d_out may be a tuple for fused
+    multi-head weights.  Layout (d_in, *d_out), as the reference."""
     d_out_t = (d_out,) if isinstance(d_out, int) else tuple(d_out)
-    std = d_in ** -0.5
+    std = scale if scale is not None else d_in ** -0.5
     p = {"w": (_randn(generator, (d_in, *d_out_t), device) * std).to(
         PARAM_DTYPE)}
     if bias:

@@ -1,11 +1,17 @@
-"""Decoder-only LM, dense family (port of the dense branch of
-``repro/models/lm.py``): ``init``, ``init_rotations`` (:132),
-``init_cache`` (:155-217), the teacher-forced ``forward`` (:352-402),
+"""Decoder-only LM, the pure-attention families: dense, moe and vlm (port
+of their branch of ``repro/models/lm.py``): ``init``, ``init_rotations``
+(:132), ``init_cache`` (:155-217), the teacher-forced ``forward`` (:352-402),
 ``collect_kv`` (:404) and ``loss`` (:501) for training and the quality
 measurements, and ``prefill``, ``prefill_chunk`` (:560-599, with
 ``_block_prefill_chunk``, :301), ``decode_step`` (:731-768),
 ``decode_body``, and the speculative ``decode_verify`` / ``truncate_cache``
 (:678-729, with ``_block_verify``, :334) for serving.
+
+A moe block's FFN is ``models/moe.py``'s routed experts; its
+load-balancing loss comes out of :meth:`LM.forward_aux` (``forward`` keeps
+returning the logits alone) and into :meth:`LM.loss`.  A vlm prompt may
+start with patch embeddings (``patches=`` on ``forward``, ``collect_kv``
+and ``prefill``), placed before the tokens; decode is text only.
 
 The reference's ``lax.scan`` over stacked layers becomes a Python loop
 over a list of per-layer parameter dicts and a list of per-layer cache
@@ -27,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache_api
 from repro_torch.core.hooks import make_roundtrip
 from repro_torch.core.transforms import Rotation, make_rotation
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, moe
 
 __all__ = ["LM"]
 
@@ -39,9 +45,11 @@ class LM:
     pass ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"the port serves the dense family so far (got {cfg.family})")
+                f"family={cfg.family} is not ported yet (ROADMAP A11: the "
+                f"hybrid, ssm and audio families); the port serves dense, "
+                f"moe and vlm")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -52,13 +60,17 @@ class LM:
 
     def _block_init(self, g: torch.Generator) -> dict:
         cfg, dev = self.cfg, self.device
-        return {
+        p = {
             "ln_attn": common.rmsnorm_init(cfg.d_model, dev),
             "attn": attention.attention_init(g, cfg, dev),
             "ln_ffn": common.rmsnorm_init(cfg.d_model, dev),
-            "ffn": ffn.ffn_init(g, cfg.d_model, cfg.d_ff, cfg.ffn_activation,
-                                dev),
         }
+        if cfg.moe is not None:
+            p["moe"] = moe.moe_init(g, cfg.d_model, cfg.moe, dev)
+        else:
+            p["ffn"] = ffn.ffn_init(g, cfg.d_model, cfg.d_ff,
+                                    cfg.ffn_activation, dev)
+        return p
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters; ``params["blocks"]`` is a per-layer list."""
@@ -134,11 +146,16 @@ class LM:
         return {"pos": pos, "attn": attn}
 
     # ------------------------------------------------------------- embedding
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor,
+               patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (B, S, d) bf16; a vlm's ``patches`` (B, P, d)
+        go first (prefill and training; decode steps are text only)."""
         cfg = self.cfg
         x = params["embed"]["embedding"][tokens].to(common.COMPUTE_DTYPE)
         if cfg.embed_scale:
             x = x * torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype)
+        if cfg.family == "vlm" and patches is not None:
+            x = torch.cat([patches.to(common.COMPUTE_DTYPE), x], dim=1)
         return x
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -150,25 +167,31 @@ class LM:
 
     # ---------------------------------------------------------- block bodies
     def _ffn(self, p, x):
-        h_in = common.rmsnorm(p["ln_ffn"], x, eps=self.cfg.norm_eps)
-        return x + ffn.ffn_apply(p["ffn"], h_in, self.cfg.ffn_activation)
+        """The block's FFN half: (x + FFN(norm(x)), aux), aux the MoE
+        load-balancing loss (0.0 for a dense FFN)."""
+        cfg = self.cfg
+        h_in = common.rmsnorm(p["ln_ffn"], x, eps=cfg.norm_eps)
+        if cfg.moe is not None:
+            h, aux = moe.moe_apply(p["moe"], h_in, cfg.moe)
+            return x + h, aux
+        return x + ffn.ffn_apply(p["ffn"], h_in, cfg.ffn_activation), 0.0
 
     def _block_full(self, p, x, cache=None, *, kv_roundtrip=None,
                     kv_block=1024, return_kv=False):
-        """Full-sequence block (train, eval, prefill): (x, cache), plus the
-        layer's (k, v) with ``return_kv``."""
+        """Full-sequence block (train, eval, prefill): (x, aux, cache),
+        plus the layer's (k, v) with ``return_kv``."""
         out = attention.attention_forward(
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
             self.cfg, cache=cache, kv_block=kv_block,
             kv_roundtrip=kv_roundtrip, return_kv=return_kv)
-        return (self._ffn(p, x + out[0]), *out[1:])
+        return (*self._ffn(p, x + out[0]), *out[1:])
 
     def _block_prefill_chunk(self, p, x, cache, raw_k, raw_v, *, offset,
                              kv_block=1024):
         h, cache = attention.attention_prefill_chunk(
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
             self.cfg, cache, raw_k, raw_v, offset=offset, kv_block=kv_block)
-        return self._ffn(p, x + h), cache
+        return self._ffn(p, x + h)[0], cache
 
     def _block_decode(self, p, x, cache, *, position, kv_block=512,
                       backend=None, active=None):
@@ -176,7 +199,7 @@ class LM:
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
             self.cfg, cache, position=position, kv_block=kv_block,
             backend=backend, active=active)
-        return self._ffn(p, x + h), cache
+        return self._ffn(p, x + h)[0], cache
 
     def _block_verify(self, p, x, cache, *, position, kv_block=512,
                       backend=None, active=None, snap=None):
@@ -184,63 +207,91 @@ class LM:
             p["attn"], common.rmsnorm(p["ln_attn"], x, eps=self.cfg.norm_eps),
             self.cfg, cache, position=position, kv_block=kv_block,
             backend=backend, active=active, snap=snap)
-        return self._ffn(p, x + h), cache, snap
+        return self._ffn(p, x + h)[0], cache, snap
 
     # ------------------------------------------------------- full sequence
     def forward(self, params, tokens: torch.Tensor, *,
+                patches: Optional[torch.Tensor] = None,
                 rots: Optional[list[tuple[Rotation, Rotation]]] = None,
                 kv_quant_cfg: Optional[dict] = None, remat: bool = False,
                 kv_block: int = 1024) -> torch.Tensor:
-        """Teacher-forced logits (B, S, V) fp32.  ``kv_quant_cfg`` =
-        {bits, scheme, group} with ``rots`` (one (k, v) pair per layer)
-        turns on the paper's KV round-trip hook.  ``remat`` recomputes
-        each block in the backward pass (``torch.utils.checkpoint``)."""
+        """Teacher-forced logits (B, P + S, V) fp32 (P patches, vlm only).
+        ``kv_quant_cfg`` = {bits, scheme, group} with ``rots`` (one (k, v)
+        pair per layer) turns on the paper's KV round-trip hook.
+        ``remat`` recomputes each block in the backward pass
+        (``torch.utils.checkpoint``).  :meth:`forward_aux` also returns
+        the MoE load-balancing loss."""
+        return self.forward_aux(params, tokens, patches=patches, rots=rots,
+                                kv_quant_cfg=kv_quant_cfg, remat=remat,
+                                kv_block=kv_block)[0]
+
+    def forward_aux(self, params, tokens: torch.Tensor, *,
+                    patches: Optional[torch.Tensor] = None,
+                    rots: Optional[list[tuple[Rotation, Rotation]]] = None,
+                    kv_quant_cfg: Optional[dict] = None, remat: bool = False,
+                    kv_block: int = 1024):
+        """:meth:`forward`'s (logits, aux): aux is the sum over layers of
+        the MoE load-balancing loss, a 0-d fp32 tensor (0 without MoE),
+        as the reference's ``forward`` returns it (``lm.py:352-402``)."""
         hook = kv_quant_cfg is not None and rots is not None
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patches)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(params["blocks"]):
             rt = make_roundtrip(*rots[i], **kv_quant_cfg) if hook else None
 
             def block(p_, x_, rt=rt):
                 return self._block_full(p_, x_, kv_roundtrip=rt,
-                                        kv_block=kv_block)[0]
+                                        kv_block=kv_block)[:2]
 
-            x = (torch.utils.checkpoint.checkpoint(block, p, x,
-                                                   use_reentrant=False)
-                 if remat else block(p, x))
-        return self._unembed(params, x)
+            x, a = (torch.utils.checkpoint.checkpoint(block, p, x,
+                                                      use_reentrant=False)
+                    if remat else block(p, x))
+            aux = aux + a
+        return self._unembed(params, x), aux
 
     def collect_kv(self, params, tokens: torch.Tensor, *,
+                   patches: Optional[torch.Tensor] = None,
                    kv_block: int = 1024):
         """Per-layer raw K/V activations, (k, v) each (L, B, Hkv, S, d):
         the calibration-data pass."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patches)
         ks, vs = [], []
         for p in params["blocks"]:
-            x, _, (k, v) = self._block_full(p, x, kv_block=kv_block,
-                                            return_kv=True)
+            x, _, _, (k, v) = self._block_full(p, x, kv_block=kv_block,
+                                               return_kv=True)
             ks.append(k)
             vs.append(v)
         return torch.stack(ks), torch.stack(vs)
 
     def loss(self, params, batch: dict, *, remat: bool = False):
-        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S):
-        (loss, {"ce": loss})."""
+        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S) over
+        the text positions (a vlm's ``batch["patches"]`` (B, P, d) are
+        dropped from the logits) plus 0.01 x the MoE aux loss: (total,
+        {"ce", "aux"}) (ref ``lm.py:501-524``, without its loss mask, which
+        no data pipeline here produces)."""
         tokens = batch["tokens"]
-        logits = self.forward(params, tokens, remat=remat)
+        patches = batch.get("patches")
+        logits, aux = self.forward_aux(params, tokens, patches=patches,
+                                       remat=remat)
+        if self.cfg.family == "vlm" and patches is not None:
+            logits = logits[:, patches.shape[1]:]
         lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
         nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
         loss = nll.mean()
-        return loss, {"ce": loss}
+        total = loss if self.cfg.moe is None else loss + 0.01 * aux
+        return total, {"ce": loss, "aux": aux}
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, tokens: torch.Tensor, cache: dict, *,
+                patches: Optional[torch.Tensor] = None,
                 kv_block: int = 1024):
-        """tokens (B, S) -> (last-token logits (B, 1, V) fp32, cache)."""
-        x = self._embed(params, tokens)
+        """tokens (B, S) -> (last-token logits (B, 1, V) fp32, cache).  A
+        vlm's ``patches`` (B, P, d) fill the first P positions."""
+        x = self._embed(params, tokens, patches)
         for i, p in enumerate(params["blocks"]):
-            x, cache["attn"][i] = self._block_full(p, x, cache["attn"][i],
-                                                   kv_block=kv_block)
-        S = tokens.shape[1]
+            x, _, cache["attn"][i] = self._block_full(
+                p, x, cache["attn"][i], kv_block=kv_block)
+        S = x.shape[1]
         pos = cache["pos"]
         cache["pos"] = S if isinstance(pos, int) else pos.fill_(S)
         return self._unembed(params, x[:, -1:]), cache

@@ -237,11 +237,13 @@ def test_b1_kernel_matches_plain_at_warp_and_tile_edges(dev, d, G, group, S):
 
 # every head dim the lane mapping handles differently (the tokens a warp
 # step scores change with d and G; d = 112 leaves lanes of a slot idle) by
-# every group that divides it (group 28 straddles words) by G = 1, 2, 4, 8
+# every group that divides it (group 28 straddles words) by G = 1, 2, 4, 8,
+# the served configs' 5, 6, 7 (the 8-head code with idle heads) and 16
+# (two head groups of the 8-head code)
 B1_SHAPES = [(d, group, G)
              for d, groups in ((64, (16, 32, 64)), (112, (16, 28)),
                                (128, (16, 32, 64)), (256, (16, 32, 64)))
-             for group in groups for G in (1, 2, 4, 8)]
+             for group in groups for G in (1, 2, 4, 5, 6, 7, 8, 16)]
 
 
 @pytest.mark.parametrize("d,group,G", B1_SHAPES)
@@ -254,6 +256,60 @@ def test_b1_kernel_matches_plain_across_shapes(dev, d, group, G):
     want = qa_ref.quant_decode_attention_ref(*args, plen, tlen, group=group)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+
+
+def test_b1_and_b2_refuse_more_than_16_heads_per_kv_head(dev):
+    """G = 17 (above the two head groups of 8) raises, naming the limit."""
+    args = _b1_args(dev, 17, 2, 17, 128, 64, 16, 32)
+    with pytest.raises(ValueError, match="1 to 16 query heads"):
+        qa_ops.quant_decode_attention(*args, 48, 50, group=32)
+    table = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    pool = [a.reshape(-1, 16, a.shape[-1])[:8] for a in args[1:5]]
+    L = torch.full((2,), 50, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="1 to 16 query heads"):
+        qa_ops.quant_decode_attention_paged(
+            args[0], *pool, args[5], args[6], L - L % 16, L, table,
+            group=32, page_size=16, n_kv_heads=1)
+
+
+def test_moe_engine_graph_equals_eager_at_16_heads_per_kv_head(dev):
+    """A reduced qwen3-moe with 16 query heads over 1 KV head (G = 16, B1's
+    two head groups) decoding through its routed experts: the captured
+    step equals the eager loop (tokens up to a near-tie, logits within
+    1e-5 of the largest), and a replay launches B1 once and B3 twice a
+    layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.engine import GRAPH_KEY, Engine
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(reduced(get_config("qwen3-moe-235b-a22b")),
+                              n_heads=16, n_kv_heads=1)
+    model = LM(cfg, device=dev)
+    params = model.init(model.generator(0))
+    prompt = torch.randint(0, cfg.vocab_size, (1, 47),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    out = {}
+    for graph in (False, True):
+        cache = model.init_cache(1, 128, policy="int4-srft", ragged=True,
+                                 generator=torch.Generator().manual_seed(3))
+        eng = Engine(model, backend="kernel", graph=graph)
+        toks, lg, cache = eng.generate(params, prompt, cache, 24,
+                                       return_logits=True)
+        out[graph] = (toks.cpu(), lg.cpu(), cache)
+    (t_e, l_e, _), (t_g, l_g, cache) = out[False], out[True]
+    assert torch.isfinite(l_g).all()
+    diff = (t_e != t_g).nonzero()
+    n = t_e.shape[1]
+    if len(diff):
+        n = int(diff[:, 1].min()) + 1
+        top2 = l_e[0, n - 1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 0.05 * l_e.abs().max().item()
+    err = (l_g[:, :n] - l_e[:, :n]).abs().max().item()
+    assert err <= 1e-5 * l_e.abs().max().item(), err
+    assert cache[GRAPH_KEY].step.counts == (cfg.n_layers, 0,
+                                            2 * cfg.n_layers, 0)
 
 
 def test_int4_cache_kernel_read_matches_gather_on_card(dev):
@@ -319,6 +375,14 @@ B2_CASES = [
     ((0, 47, 49, 130, 300), 2, 2, 128, 32, 48, 336),
     ((0, 79, 81, 170, 639), 2, 4, 64, 16, 80, 640),
     ((517, 1031, 2055, 4093, 0), 8, 2, 128, 32, 48, 4608),
+    # the served configs' grouping: gemma-7b (16 kv heads, G 1, d 256),
+    # qwen3-14b (G 5), dbrx-132b (G 6), llava-next-34b (G 7, pages of 48),
+    # qwen3-moe-235b-a22b (4 kv heads, G 16: two head groups)
+    ((512, 2048, 2055, 1024, 0), 16, 1, 256, 32, 16, 2064),
+    ((300, 1000, 17), 8, 5, 128, 32, 16, 1024),
+    ((300, 1000, 17, 0), 8, 6, 128, 32, 16, 1024),
+    ((300, 1000, 17), 8, 7, 128, 32, 48, 1056),
+    ((512, 2048, 2055, 1024, 0), 4, 16, 128, 32, 16, 2064),
 ]
 
 

@@ -30,7 +30,7 @@ def test_port_sources_import_neither_jax_nor_repro():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for sub in ("checkpoint/manager.py", "distributed/fault_tolerance.py",
                 "launch/train.py", "core/calibrate.py", "launch/serve.py",
-                "examples/serve_int4.py",
+                "examples/serve_int4.py", "models/moe.py",
                 *(f"launch/server/{m}.py" for m in (
                     "__init__", "tracing", "stats", "trace", "admission",
                     "pipeline", "http"))):

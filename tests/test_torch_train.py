@@ -264,7 +264,7 @@ def test_train_cli_resume_is_exact(tmp_path, capsys):
 def test_train_cli_mesh_and_other_families_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         train.main(["--mesh", "1x1", "--device", "cpu"])
-    cfg = dataclasses.replace(get_config("smol-d64"), family="moe")
+    cfg = dataclasses.replace(get_config("smol-d64"), family="hybrid")
     with pytest.raises(NotImplementedError, match="A11"):
         train.smoke_config(cfg)
 
