@@ -26,7 +26,8 @@ Phases (any failure exits non-zero):
      from s_max;
   4. check the served model (a graph decode) against the port's plain
      CPU path on a small input, under int4-srft KERNEL and int8-per-token;
-  5. the main path: internlm2-1.8b at full width and depth, random weights
+  5. the main path: internlm2-1.8b at full width, its depth cut to
+     MAIN_LAYERS = 8 of 24 layers (the script's time limit), random weights
      from a seed, bf16-operand / fp32-accumulate dots, answering requests
      of 517, 2055 and 4093 prompt tokens (64 new tokens each) through
      ``Engine``'s captured decode step (a CUDA graph replayed per token,
@@ -64,7 +65,7 @@ Phases (any failure exits non-zero):
      stream of a request that reused nothing (and, under bf16, of the
      one that did) equals the monolithic run's up to a near-tie; the
      paged int4 run reuses the 1,024-token prefix once, launching B4 2 x
-     24 times for it, and the int4 reuser's agreement with a no-reuse run
+     MAIN_LAYERS times for it, and the int4 reuser's agreement with a no-reuse run
      is printed.  For each layout: the longest gap between two tokens of
      a live stream while the 4093-token request is admitted, monolithic
      against chunked, that request's time to first token, the chunks per
@@ -91,8 +92,8 @@ Phases (any failure exits non-zero):
      verify reads with GATHER's numerics: B1/B2 are single-query) and
      bf16, each held to the plain graph stream (int4: KERNEL and GATHER)
      up to a near-tie, with the bit-equal prefix printed; the counters
-     zeroed just before the timed decode and read just after: B3 2 x 24 x
-     k launches a pass and no B1 / B2; ms per emitted token spec against
+     zeroed just before the timed decode and read just after: B3 2 x
+     MAIN_LAYERS x k launches a pass and no B1 / B2; ms per emitted token spec against
      plain, acceptance, tokens and ms per verify pass, the pass graph's
      capture time and, on the random prompt, its idle share (profiler
      busy over events); graph spec == eager spec bit for bit over 16
@@ -122,10 +123,11 @@ Phases (any failure exits non-zero):
      tokens and computes a 1-row chunk; that stream is printed beside the
      restore's with ``last_chunk_report`` and held to it up to a
      near-tie.  The counters are zeroed just before the
-     int4 re-admission and read just after: B4 2 x 24 launches (the raw
-     view of the restored tokens), B2 and B3 for its decode.  No page
-     leaks.  Then: a 128 MiB tier keeps all 128 int4 and int8 pages and
-     the newest 85 bf16 ones (the first page evicted: nothing restores);
+     int4 re-admission and read just after: B4 2 x MAIN_LAYERS launches
+     (the raw view of the restored tokens), B2 and B3 for its decode.  No
+     page leaks.  Then: a tier of DEPTH_BYTES (128 MiB at 24 layers, scaled
+     with the depth) keeps all 128 int4 and int8 pages and the newest 85
+     bf16 ones (the first page evicted: nothing restores);
      the int4 disk tier (RAM budget 0) restores the RAM restore's stream
      bit for bit; in OFFLOAD_ROUNDS interleaved rounds, by the host clock,
      the re-admitted request's time to first token after a host restore,
@@ -139,7 +141,8 @@ Phases (any failure exits non-zero):
  12. training, checkpoints and learned rotations (TRAIN_ARGV, CALIB_KW;
      lines tagged with the card's name and power limit).  (a)
      ``repro_torch.launch.train.main`` in-process on internlm2-1.8b at
-     full width and depth, 4 steps of 4 x 256 tokens, bf16 operands: ms
+     full width, MAIN_LAYERS layers (``--layers``), 4 steps of 4 x 256
+     tokens, bf16 operands: ms
      per step by CUDA events, each step's loss (finite), peak memory;
      ``(params, opt)`` saved with ``CheckpointManager`` under
      ``build/phase12`` and restored onto the card into a fresh tree,
@@ -217,6 +220,33 @@ Phases (any failure exits non-zero):
      tokens, then 16 eager steps, KERNEL against GATHER within LOGIT_TOL.
      Phase 3 also holds B1 and B2 at these configs' (kv heads, G, d)
      and times B3 at gemma-7b's prefill write (32,768 rows x d 256).
+ 15. the hybrid, ssm and audio families (``P15_CONFIGS``, lines tagged
+     with the card's name and power limit).  (a) reduced zamba2 (at d 112,
+     B1 needing d % 8 == 0), xlstm and whisper on the card against the
+     CPU plain path, as phase 4, on fp32 operands (xlstm on fp32
+     activations too: at random weights its first mLSTM step turns a bf16
+     ulp into a different token).  (b) each at
+     full width and depth, one resident at a time, random weights from
+     SEED, bf16 operands, int4-srft: zamba2-7b (81 Mamba2 blocks and one
+     shared attention block firing 13 times) and xlstm-1.3b on a
+     2048-token prompt (a multiple of the SSD chunk), whisper-large-v3 on
+     1500 stub frames and 256 tokens; ``Engine`` at batch 1, 32 new
+     tokens under the graph on a cache that keeps its lengths on the
+     device: ms per token (events), prefill ms, capture s, device busy and
+     idle share (profiler), peak GB, KV-cache and recurrent-state bytes,
+     compression; B3 and B1 counted (> 0 for zamba2 and whisper, 0 for
+     xlstm); graph == eager within GRAPH_TOL, KERNEL vs GATHER within
+     LOGIT_TOL.  (c) ``python -m repro_torch.launch.serve`` on zamba2-7b
+     and xlstm-1.3b ``--smoke`` in subprocesses: exit 0; ``--spec-k 4`` on
+     the hybrid ends in the reference's SystemExit.  (d) two steps of the
+     training CLI on the card for both ``--smoke``: finite losses; the
+     hybrid's (params, opt) checkpoint restored bit for bit.  Phase 3
+     also holds B1 at zamba2's (32 KV heads, G 1, d 112, group 28) over
+     its 2079-token last step and at whisper's cross cache (20, 1, 64)
+     over 1500 frames (1488 packed, 12 in the window), and B3 at their
+     prefill writes (65,536 rows x d 112, 29,760 rows x d 64, bf16).
+The seconds of each phase are printed on one line (``phase seconds``)
+before the kernels' JSON line.
 Prints one JSON line describing every kernel, then, last, the line
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it exits
 non-zero before building anything.
@@ -225,6 +255,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -257,6 +288,11 @@ GRAPH_TOL = 1e-5  # graph vs eager logits, relative to the largest logit
 # phases 6, 11 and 13 were cut (2, 2, 3 before phase 14) to keep the script
 # inside its time limit
 ENGINE_ROUNDS = 1
+# the main path's depth (internlm2-1.8b has 24 layers): phases 5-13 run it
+# at full width and this depth, and so does 12a's training CLI; cut from 24
+# to keep the script well inside its time limit (phase 14 and 15 models
+# stay at their depths)
+MAIN_LAYERS = 8
 PREFILL_CHUNK = PREFILL_BUDGET = 256  # chunked admission (phase 8)
 # the preempting pool's budget: the 4093-token admission must end while the
 # 517-token stream still decodes (at 256 a quantum that stream retires
@@ -275,7 +311,7 @@ SPEC_BATCH_RUNS = (("int4-srft", "kernel", True),
 # the RAM budgets, the interleaved timing rounds and the policies
 OFFLOAD_PROMPT, OFFLOAD_NEW = 2055, 32
 OFFLOAD_BYTES = 256 * 2**20
-DEPTH_BYTES = 128 * 2**20
+DEPTH_BYTES = 128 * 2**20 * MAIN_LAYERS // 24  # 128 MiB at all 24 layers
 OFFLOAD_ROUNDS = 1
 OFFLOAD_RUNS = (("int4-srft", "kernel"), ("bf16", None),
                 ("int8-per-token", None))
@@ -586,6 +622,26 @@ def kernel_phase(flush):
                                    | {"H": h})
         b1["max_abs_err"] = max(b1["max_abs_err"], r1["max_abs_err"])
         b2["max_abs_err"] = max(b2["max_abs_err"], r2["max_abs_err"])
+    # phase 15's served shapes: zamba2-7b's shared block and whisper's
+    # cross cache (G 1), and their prefill writes through B3
+    for h, dd, grp, S, total, what in P15_B1_SHAPES:
+        r1 = check_b1_at(flush, g, h, dd, grp, S, total, W, what)
+        b1["served_shapes"].append(r1)
+        b1["max_abs_err"] = max(b1["max_abs_err"], r1["max_abs_err"])
+    for rows, dd, grp, what in P15_B3_SHAPES:
+        rot_s = make_rotation("srft", g, dd, "cuda")
+        rot_s.lam = torch.exp(0.3 * torch.randn(dd, generator=g,
+                                                device="cuda"))
+        xs = torch.randn((rows, dd), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        shapes.append(b3_shape(sq_ops, xs, rot_s, grp, flush, plain=True)
+                      | {"what": what, "d": dd, "group": grp})
+        log(f"[{CARD}] B3 at {what} ({rows} rows x d {dd}, group {grp}, "
+            f"bf16): {shapes[-1]['ms']:.4f} ms, plain "
+            f"{shapes[-1]['plain_ms']:.4f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.5f} ms ({shapes[-1]['bound_by']})")
+        del xs
+    b3["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
     out.append(b1)
     # pages of 48 tokens: neither a divisor nor a multiple of B2's tile
     b2_48 = check_b2(flush, g, Hkv, G, d, group, W, ps=48, label=None)
@@ -725,6 +781,64 @@ def check_b1(flush, g, Hkv, G, d, group, W, label="B1", by_prompt=True):
                 wall_ms=ms_wall, graph_ms=ms_graph,
                 graph_ms_by_prompt=by_length, sdpa_context_ms=sdpa,
                 Hkv=Hkv, G=G, d=d)
+
+
+# (kv heads, d, group, s_max, total length, what) of phase 15's reads: the
+# shared block of zamba2-7b at its 2048 + 32-token request's last step, and
+# whisper-large-v3's cross cache over 1500 frames (1488 packed + 12)
+P15_B1_SHAPES = ((32, 112, 28, 2096, 2079, "zamba2-7b's shared block"),
+                 (20, 64, 32, 1520, 1500, "whisper's cross cache"))
+# (rows, d, group, what) of phase 15's prefill writes, per layer and side
+P15_B3_SHAPES = ((2048 * 32, 112, 28, "zamba2-7b's prefill write"),
+                 (1488 * 20, 64, 32, "whisper's cross-cache write"))
+
+
+def check_b1_at(flush, g, BH, d, group, S, total, W, what) -> dict:
+    """B1 at one served shape with G = 1 (scalar and per-row lengths, the
+    latter what a graph decode passes), against its plain version
+    (B1_ATOL); timed by events and as a graph replay, beside its bound and
+    the plain version's time."""
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.quant_attention import ref as qa_ref
+
+    plen = total - total % W
+    q = torch.randn((BH, 1, d), generator=g, device="cuda") * 0.1
+
+    def u8():
+        return torch.randint(0, 256, (BH, S, d // 2), generator=g,
+                             device="cuda", dtype=torch.uint8)
+
+    def sc():
+        return torch.rand((BH, S, d // group), generator=g,
+                          device="cuda") * 0.3
+
+    args = (q, u8(), sc(), u8(), sc(),
+            torch.randn((BH, W, d), generator=g, device="cuda"),
+            torch.randn((BH, W, d), generator=g, device="cuda"))
+    rows_p = torch.full((BH,), plen, dtype=torch.int32, device="cuda")
+    rows_t = torch.full((BH,), total, dtype=torch.int32, device="cuda")
+    err = 0.0
+    for pl, tl in ((plen, total), (rows_p, rows_t)):
+        got = qa_ops.quant_decode_attention(*args, pl, tl, group=group)
+        want = qa_ref.quant_decode_attention_ref(*args, pl, tl, group=group)
+        e = (got - want).abs().max().item()
+        assert torch.isfinite(got).all() and e <= B1_ATOL, f"B1 {what} {e}"
+        err = max(err, e)
+    call = lambda: qa_ops.quant_decode_attention(  # noqa: E731
+        *args, rows_p, rows_t, group=group)
+    ms, ms_graph = device_ms(call, flush), graph_ms(call, flush)
+    plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
+        *args, rows_p, rows_t, group=group), flush, iters=5, warmup=1)
+    nbytes = (BH * d * 4 * 2 + 2 * BH * plen * (d // 2 + d // group * 4)
+              + 2 * BH * W * d * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * BH * d * (plen + W))
+    log(f"[{CARD}] B1 at {what} (Hkv={BH} G=1 d={d} group={group}, "
+        f"{plen} packed + {total - plen} in the window): max abs err "
+        f"{err:.3e}; {ms:.4f} ms (events), {ms_graph:.4f} ms (graph "
+        f"replay), plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(Hkv=BH, G=1, d=d, group=group, S=S, plen=plen, total=total,
+                what=what, max_abs_err=err, ms=ms, graph_ms=ms_graph,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_b4(flush, g, n, group, b3_call):
@@ -1044,13 +1158,15 @@ def main_path_phase():
 
     assert common.BF16_DOTS, "expected REPRO_BF16_DOTS=1"
     log("dot mode: bf16 operands, fp32 accumulate (REPRO_BF16_DOTS=1)")
-    cfg = get_config("internlm2-1.8b")
+    full = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(full, n_layers=MAIN_LAYERS)
     model = LM(cfg)
     t0 = time.perf_counter()
     params = model.init(model.generator(SEED))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"{cfg.name}: {cfg.n_layers}/{full.n_layers} layers, d_model "
+        f"{cfg.d_model}, "
         f"{n_params / 1e9:.3f}B params, init {time.perf_counter() - t0:.1f}s")
     # warm-up requests (first-call allocations, cuBLAS handles), not counted
     for graph in (True, False):
@@ -2661,8 +2777,9 @@ def quality_reference_phase():
 # ----------------------------- phase 12: training, checkpoints, calibration
 
 # 12a: the training CLI at full width (bf16 operands, fp32 accumulation)
-TRAIN_ARGV = ("--arch", "internlm2-1.8b", "--steps", "4", "--batch", "4",
-              "--seq", "256", "--log-every", "1")
+TRAIN_ARGV = ("--arch", "internlm2-1.8b", "--layers", str(MAIN_LAYERS),
+              "--steps", "4", "--batch", "4", "--seq", "256",
+              "--log-every", "1")
 # 12b: train_lm's run A and run B's first leg, both inside its 20-step
 # warmup, where the cosine schedule does not depend on --steps
 TRAIN_LM_STEPS = (12, 6)
@@ -2711,7 +2828,7 @@ def _free_cuda():
 
 def train_phase() -> dict:
     """12a: ``launch.train.main`` in-process on internlm2-1.8b at full
-    width and depth (TRAIN_ARGV), then ``(params, opt)`` saved with
+    width and the main path's depth (TRAIN_ARGV), then ``(params, opt)`` saved with
     ``CheckpointManager`` and restored into a fresh tree on the card, every
     leaf compared bit for bit; the directory is deleted and the state
     freed."""
@@ -2770,7 +2887,8 @@ def train_phase() -> dict:
                peak_bytes=peak, disk_free_bytes=free, ckpt_disk_bytes=disk,
                save_s=save_s, restore_s=restore_s)
     log("train " + json.dumps(rec))
-    log(f"[{CARD}] 12a internlm2-1.8b training, 4 x 256 tokens a step, bf16 "
+    log(f"[{CARD}] 12a internlm2-1.8b training ({MAIN_LAYERS}/24 layers), "
+        f"4 x 256 tokens a step, bf16 "
         f"operands: {n_params:,} params, ms/step (events, steps 2-4) "
         + ", ".join(f"{m:.1f}" for m in step_ms)
         + f"; losses {losses}; peak {peak / 1e9:.2f} GB allocated; "
@@ -4079,6 +4197,295 @@ def p14_phase() -> dict:
     _free_cuda()
     return launches
 
+# ------------------------- phase 15: the hybrid, ssm and audio families
+# (arch, prompt tokens, audio frames): each at its full width and depth
+# (bf16 weights: zamba2-7b ~13.5 GB, xlstm-1.3b ~6.7, whisper ~3.4); the
+# prompts are a multiple of the SSD chunk (256), which Mamba2 needs, and
+# of the xlstm chunk (64), which selects the chunkwise mLSTM
+P15_CONFIGS = (("zamba2-7b", 2048, None), ("xlstm-1.3b", 2048, None),
+               ("whisper-large-v3", 256, 1500))
+P15_NEW = 32
+P15_SMALL = (("zamba2-7b", 32), ("xlstm-1.3b", 32), ("whisper-large-v3", 32))
+P15_SMALL_FRAMES, P15_SMALL_NEW = 40, 24
+P15_SERVE_CLI = ("--smoke", "--max-batch", "2", "--requests", "2",
+                 "--prompt-len", "64", "--new-tokens", "8", "--policy",
+                 "int4-srft", "--backend", "kernel")
+P15_TRAIN_ARGV = ("--smoke", "--steps", "2", "--batch", "2", "--seq", "64",
+                  "--log-every", "1")
+P15_DIR = ROOT / "build" / "phase15"  # a checkpoint, deleted after use
+
+
+def _p15_prompt(model, n_tokens, n_frames, device="cuda"):
+    """The seeded prompt: tokens (1, n), with (1, n_frames, d_model) stub
+    frame embeddings first for the audio family."""
+    g = torch.Generator().manual_seed(SEED + n_tokens)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, n_tokens),
+                         generator=g).to(device)
+    if n_frames is None:
+        return toks
+    frames = torch.randn((1, n_frames, model.cfg.d_model), generator=g)
+    return (frames.to(device), toks)
+
+
+def _p15_cache(model, prompt, new, policy, ragged=True):
+    n = prompt[-1].shape[1] if isinstance(prompt, tuple) else prompt.shape[1]
+    s_max = n + new + 16
+    s_max += (-s_max) % 16
+    gen = torch.Generator().manual_seed(SEED)
+    if isinstance(prompt, tuple):
+        return model.init_cache(1, s_max, prompt[0].shape[1], policy=policy,
+                                ragged=ragged, generator=gen)
+    return model.init_cache(1, s_max, policy=policy, ragged=ragged,
+                            generator=gen)
+
+
+def _kv_states(cache) -> list:
+    return list(cache.get("attn", ())) + list(cache.get("self", ())) + \
+        list(cache.get("cross", ()))
+
+
+def p15_serve(model, params, prompt, backend, graph=True, keep=False,
+              new=P15_NEW, policy="int4-srft"):
+    """``serve`` for any family: one request through ``Engine`` on a cache
+    that keeps its lengths on the device; the first decode call makes one
+    step (a capture under the graph), the other ``new`` - 2 are timed by
+    CUDA events.  Returns (row, tokens, logits) [+ (engine, cache)]."""
+    from repro_torch.launch.engine import GRAPH_KEY, Engine
+
+    cache = _p15_cache(model, prompt, new, policy)
+    eng = Engine(model, backend=backend, graph=graph)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = eng.prefill(params, prompt, cache)
+    tok = lg[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok1, l1, cache = eng.decode(params, tok, cache, 1, return_logits=True)
+    torch.cuda.synchronize()
+    a.record()
+    toks, step_logits, cache = eng.decode(params, tok1, cache, new - 2,
+                                          return_logits=True)
+    b.record()
+    torch.cuda.synchronize()
+    toks = torch.cat([tok, tok1, toks], dim=1)
+    logits = torch.cat([lg[:, -1:].float(), l1, step_logits], dim=1)
+    assert torch.isfinite(logits).all(), "non-finite logits"
+    n = prompt[-1].shape[1] if isinstance(prompt, tuple) else prompt.shape[1]
+    assert int(cache["pos"][0]) == n + new - 1
+    kv = _kv_states(cache)
+    rec_bytes = sum(t.numel() * t.element_size()
+                    for st in getattr(model, "recurrent_states",
+                                      lambda c: [])(cache) for t in st)
+    row = dict(backend=backend or "gather", graph=graph,
+               prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_tok=a.elapsed_time(b) / (new - 2),
+               capture_s=cache[GRAPH_KEY].step.capture_s if graph else None,
+               kv_cache_bytes=sum(st.nbytes() for st in kv),
+               recurrent_state_bytes=rec_bytes,
+               compression=(kv[0].policy.compression_ratio(kv[0])
+                            if kv else None))
+    out = (row, toks.cpu(), logits.cpu())
+    return out + (eng, cache) if keep else out
+
+
+def p15_small():
+    """(a): each reduced config on the card (graph) against the CPU plain
+    path, fp32 operands; xlstm also on fp32 activations."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import build_model, common
+
+    for arch, n in P15_SMALL:
+        cfg = reduced(get_config(arch))
+        if cfg.head_dim % 8:
+            # B1 reads d % 8 == 0: reduced zamba2's d 28 becomes the full
+            # config's d 112 (kv_group 28 again)
+            cfg = dataclasses.replace(cfg, head_dim=112).validated()
+        frames = P15_SMALL_FRAMES if cfg.family == "audio" else None
+        saved = common.COMPUTE_DTYPE
+        if cfg.family == "ssm":
+            common.COMPUTE_DTYPE = torch.float32
+        try:
+            res = {}
+            cpu = build_model(cfg, device="cpu")
+            params = cpu.init(cpu.generator(SEED))
+            for name, model, p in (("cpu", cpu, params),
+                                   ("cuda", build_model(cfg),
+                                    _to(params, "cuda"))):
+                prompt = _p15_prompt(model, n, frames, model.device)
+                cache = _p15_cache(model, prompt, P15_SMALL_NEW, None)
+                res[name] = Engine(model, backend="kernel").generate(
+                    p, prompt, cache, P15_SMALL_NEW, return_logits=True)
+        finally:
+            common.COMPUTE_DTYPE = saved
+        lc, lg = res["cpu"][1], res["cuda"][1].cpu()
+        assert torch.isfinite(lg).all()
+        n_same = _agree_until(res["cpu"][0], res["cuda"][0].cpu(), lc)
+        err = (lc[:, :n_same] - lg[:, :n_same]).abs().max().item()
+        tol = LOGIT_TOL * lc.abs().max().item()
+        assert err <= tol, f"15a {arch}: card vs CPU {err} > {tol}"
+        log(f"15a reduced {arch} ({cfg.family}; {n} tokens"
+            + (f" + {frames} frames" if frames else "") + f", "
+            f"{P15_SMALL_NEW} new, "
+            + ("no KV cache, fp32 activations" if cfg.family == "ssm" else
+               f"int4-srft KERNEL, d {cfg.head_dim} group {cfg.kv_group}")
+            + f"): card (graph) vs CPU plain max logit err {err:.3e} (tol "
+            f"{tol:.3e}), tokens agree for {n_same}/{P15_SMALL_NEW} steps")
+
+
+def p15_model(arch, prompt_len, n_frames, launches) -> dict:
+    """(b) for one config: the graph run counted and profiled, the eager
+    loop (graph == eager) and, with a KV cache, GATHER (KERNEL vs
+    GATHER)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(model.generator(SEED))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    rec = dict(arch=arch, family=cfg.family, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+               head_dim=cfg.head_dim, kv_group=cfg.kv_group,
+               attn_layers=getattr(model, "n_attn_layers", 2 * cfg.n_layers),
+               params_b=sum(t.numel() for t in leaves) / 1e9,
+               weight_gb=sum(t.numel() * t.element_size()
+                             for t in leaves) / 1e9,
+               init_s=time.perf_counter() - t_start, prompt=prompt_len,
+               frames=n_frames)
+    del leaves
+    log(f"15 {arch}: {cfg.n_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, heads {rec['heads']} (d "
+        f"{cfg.head_dim}, kv_group {cfg.kv_group}), {rec['params_b']:.2f}B "
+        f"params, {rec['weight_gb']:.1f} GB bf16, init {rec['init_s']:.1f} s")
+    prompt = _p15_prompt(model, prompt_len, n_frames)
+    kv = cfg.kv_applicable
+    backend = "kernel" if kv else None
+    _zero_counters()
+    row, t_k, l_k, eng, cache = p15_serve(model, params, prompt, backend,
+                                          keep=True)
+    launches[f"p15_{arch}_engine"] = c = _counters()
+    if kv:
+        assert c["srft_quant"] > 0 and c["quant_decode_attention"] > 0, c
+    else:
+        assert not any(c.values()), c
+    rec["profile"] = _p14_profile(eng, params, cache, t_k[:, -1:].cuda())
+    del eng, cache
+    rec["kernel"] = row
+    row_e, t_e, l_e = p15_serve(model, params, prompt, backend, graph=False)
+    rec["eager"] = row_e
+    _graph_agrees((t_e, l_e), (t_k, l_k), f"15 {arch}")
+    if kv:
+        row_g, t_g, l_g = p15_serve(model, params, prompt, "gather")
+        rec["gather"] = row_g
+        n_same = _agree_until(t_k, t_g, l_k)
+        err = (l_k[:, :n_same] - l_g[:, :n_same]).abs().max().item()
+        tol = LOGIT_TOL * l_k.abs().max().item()
+        assert err <= tol, f"15 {arch}: GATHER vs KERNEL {err} > {tol}"
+        rec["gather_agree"], rec["gather_err"] = n_same, err
+        log(f"  15 {arch}: GATHER vs KERNEL max logit diff {err:.3e} (tol "
+            f"{tol:.3e}), tokens agree for {n_same}/{P15_NEW} steps")
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t_start
+    prof = rec["profile"]
+    log(f"[{CARD}] 15 {arch} Engine, {prompt_len} tokens"
+        + (f" + {n_frames} frames" if n_frames else "")
+        + f" + {P15_NEW} new, graph: {row['decode_ms_per_tok']:.3f} ms/token"
+        f" (events; eager {row_e['decode_ms_per_tok']:.3f}"
+        + (f", GATHER {rec['gather']['decode_ms_per_tok']:.3f}" if kv
+           else "") + f"), prefill {row['prefill_ms']:.1f} ms, capture "
+        f"{row['capture_s']:.3f} s, device busy "
+        f"{prof['device_busy_ms_per_step']:.3f} of "
+        f"{prof['events_ms_per_step']:.3f} ms a step (idle "
+        f"{prof['idle_share']:.3f}), peak {rec['peak_gb']:.1f} GB, KV cache "
+        f"{row['kv_cache_bytes']} B, recurrent state "
+        f"{row['recurrent_state_bytes']} B, compression "
+        f"{row['compression']}; launches {c}; {rec['seconds']:.1f} s")
+    del model, params
+    return rec
+
+
+def _p15_cli(arch, *extra) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         *P15_SERVE_CLI, *extra], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+
+
+def p15_cli_and_train() -> dict:
+    """(c) the serve CLI's single-stream path in subprocesses; (d) two
+    training steps of each ``--smoke`` and the hybrid's checkpoint."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import tree_leaves
+
+    out = {}
+    for arch in ("zamba2-7b", "xlstm-1.3b"):
+        t0 = time.perf_counter()
+        r = _p15_cli(arch)
+        assert r.returncode == 0, f"15c serve {arch}: {r.stderr[-2000:]}"
+        lines = [ln for ln in r.stdout.splitlines() if "decode:" in ln]
+        assert lines and "one CUDA graph per step" in r.stdout, r.stdout
+        out[f"serve_{arch}_s"] = time.perf_counter() - t0
+        log(f"15c serve CLI {arch} --smoke: exit 0 in "
+            f"{out[f'serve_{arch}_s']:.1f} s; {lines[0].strip()}")
+    r = _p15_cli("zamba2-7b", "--spec-k", "4")
+    assert r.returncode != 0 and "--spec-k requires" in r.stderr, r.stderr
+    log(f"15c serve CLI zamba2-7b --spec-k 4: exit {r.returncode}, "
+        f"{r.stderr.strip().splitlines()[-1][:100]}...")
+    for arch in ("zamba2-7b", "xlstm-1.3b"):
+        losses = []
+        shutil.rmtree(P15_DIR, ignore_errors=True)
+        argv = ["--arch", arch, *P15_TRAIN_ARGV]
+        if arch == "zamba2-7b":
+            argv += ["--ckpt-dir", str(P15_DIR)]
+        state = train.main(argv, on_step=lambda s, m: losses.append(
+            float(m["loss"])))
+        assert len(losses) == 2 and all(map(math.isfinite, losses)), losses
+        out[f"train_{arch}_losses"] = losses
+        log(f"15d train CLI {arch} --smoke on the card: losses {losses}")
+        if arch == "zamba2-7b":
+            mgr = CheckpointManager(str(P15_DIR))
+            got, _ = mgr.restore(mgr.latest_step(), state)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(state)))
+            assert same, "15d hybrid checkpoint differs"
+            n = len(tree_leaves(state))
+            log(f"15d hybrid (params, opt) checkpoint: {n} leaves restored "
+                f"bit for bit")
+            shutil.rmtree(P15_DIR, ignore_errors=True)
+        del state
+    return out
+
+
+def p15_phase() -> dict:
+    """Phase 15 (see the module doc).  Returns launches by path."""
+    from repro_torch.models import common
+
+    t0 = time.perf_counter()
+    with common.dot_mode(False):
+        p15_small()
+    log(f"15a {time.perf_counter() - t0:.1f}s")
+    launches = {}
+    for arch, n, frames in P15_CONFIGS:
+        _free_cuda()
+        rec = p15_model(arch, n, frames, launches)
+        log("15 summary " + json.dumps(rec))
+    _free_cuda()
+    t0 = time.perf_counter()
+    cli = p15_cli_and_train()
+    log(f"15 cli and train {time.perf_counter() - t0:.1f}s " +
+        json.dumps(cli))
+    _free_cuda()
+    return launches
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -4094,6 +4501,8 @@ def _leaves(tree):
 def main() -> int:
     global CARD
     require_card()
+    t_start = time.perf_counter()
+    secs = {}  # phase -> seconds
     os.environ["REPRO_BF16_DOTS"] = "1"  # read when repro_torch.models loads
     sys.path.insert(0, str(ROOT / "src"))
     card = CARD = card_line()
@@ -4107,15 +4516,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"kernels built in {time.perf_counter() - t0:.1f}s")
+    secs["build"] = time.perf_counter() - t0
+    log(f"kernels built in {secs['build']:.1f}s")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     flush = L2Flush()
     with ClockSampler() as clock:
         kernels = kernel_phase(flush)
+    secs["kernels"] = time.perf_counter() - t0
     log("SM clock during the kernel timings (nvidia-smi, 50 ms polls):")
     mhz = {}
     for label, ms, t0, t1 in TIMED:
@@ -4128,7 +4540,9 @@ def main() -> int:
             mhz[f"B4 round {i}"] for i in range(B4_ROUNDS)]
     kernels[-1]["raw_view"]["sm_mhz"] = mhz["B4 raw view"]
     kernels[-1]["restore_view"]["sm_mhz"] = mhz["B4 raw view (restored)"]
+    t0 = time.perf_counter()
     small_reference_phase()
+    secs["small_reference"] = time.perf_counter() - t0
     from repro_torch.models import common
 
     t0 = time.perf_counter()
@@ -4136,35 +4550,41 @@ def main() -> int:
         log("dot mode for the quality path: fp32 operands, TF32 off")
         quality = quality_phase()
         quality_reference_phase()
-    log(f"quality phase {time.perf_counter() - t0:.1f}s")
+    secs["quality"] = time.perf_counter() - t0
+    log(f"quality phase {secs['quality']:.1f}s")
+    t0 = time.perf_counter()
     launches, model, params = main_path_phase()
-    t0 = time.perf_counter()
-    batch, mono, pre_mono = batch_phase(model, params)
-    log(f"batch phase {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    chunked = chunked_phase(model, params, mono, pre_mono)
-    log(f"chunked phase {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    spec = spec_phase(model, params, mono, pre_mono)
-    log(f"spec phase {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    offload = offload_phase(model, params)
-    log(f"offload phase {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    learned = learned_phase(model, params)
-    log(f"learned phase {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    served = serve_phase(model, params)
-    log(f"serve phase {time.perf_counter() - t0:.1f}s")
+    secs["main_path"] = time.perf_counter() - t0
+    log(f"main path phase {secs['main_path']:.1f}s")
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t
+        log(f"{name} phase {secs[name]:.1f}s")
+        return out
+
+    batch, mono, pre_mono = timed("batch", batch_phase, model, params)
+    chunked = timed("chunked", chunked_phase, model, params, mono, pre_mono)
+    spec = timed("spec", spec_phase, model, params, mono, pre_mono)
+    offload = timed("offload", offload_phase, model, params)
+    learned = timed("learned", learned_phase, model, params)
+    served = timed("serve", serve_phase, model, params)
     del model, params, mono, pre_mono  # their engines hold ~10 GB
     _free_cuda()
     log(f"before phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated")
     t0 = time.perf_counter()
     configs = p14_phase()
-    log(f"[{card}] phase 14 {time.perf_counter() - t0:.1f}s")
+    secs["p14"] = time.perf_counter() - t0
+    log(f"[{card}] phase 14 {secs['p14']:.1f}s")
+    t0 = time.perf_counter()
+    families = p15_phase()
+    secs["p15"] = time.perf_counter() - t0
+    log(f"[{card}] phase 15 {secs['p15']:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
-               "quality": quality, **learned, **served, **configs}
+               "quality": quality, **learned, **served, **configs,
+               **families}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:
@@ -4173,6 +4593,9 @@ def main() -> int:
         k["launches"] = k["launches_by_path"][own_path.get(k["name"],
                                                            "engine")]
         assert k["launches"] > 0, f"{k['name']} never launched on its path"
+    secs["total"] = time.perf_counter() - t_start
+    log(f"[{card}] phase seconds " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

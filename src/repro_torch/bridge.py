@@ -18,7 +18,8 @@ import torch
 from repro_torch.core.calibrate import CalibParams
 from repro_torch.core.transforms import Rotation
 
-__all__ = ["to_torch", "lm_params", "rotation", "rotations", "calib_params"]
+__all__ = ["to_torch", "lm_params", "rotation", "rotations",
+           "encdec_rotations", "calib_params"]
 
 
 def to_torch(x: Any, device="cpu") -> Any:
@@ -38,15 +39,37 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _n_stacked(tree: Any) -> int:
+    """The leading (stacked) axis of a tree's leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def _unstack(tree: dict, depth: int, device) -> list:
+    """Leaves stacked over ``depth`` leading axes -> nested per-layer
+    lists of dicts (``depth`` 2: (n_super, P, ...) -> lists of lists)."""
+    n = _n_stacked(tree)
+    if depth == 1:
+        return [to_torch(_layer(tree, i), device) for i in range(n)]
+    return [_unstack(_layer(tree, i), depth - 1, device) for i in range(n)]
+
+
+# the layer-stacked subtrees of the reference's trees and their depth:
+# ``blocks`` (dense, moe, vlm), the hybrid's ``mamba_super`` (n_super, P)
+# and ``mamba_rem``, the ssm's ``mlstm_super`` (n_super, P - 1) and
+# ``slstm``, the encoder-decoder's ``enc_layers`` and ``dec_layers``; any
+# other subtree (``shared_attn``, the embeddings, the finals) is one copy
+_STACKED = {"blocks": 1, "mamba_super": 2, "mamba_rem": 1, "mlstm_super": 2,
+            "slstm": 1, "enc_layers": 1, "dec_layers": 1}
+
+
 def lm_params(tree: dict, device="cpu") -> dict:
-    """A reference ``LM.init`` tree -> the port's params: the layer-stacked
-    ``blocks`` leaves are split into one dict per layer."""
-    out = {k: to_torch(v, device) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    n_layers = len(np.asarray(blocks["ln_attn"]["scale"]))
-    out["blocks"] = [to_torch(_layer(blocks, i), device)
-                     for i in range(n_layers)]
-    return out
+    """A reference ``LM.init`` or ``EncDec.init`` tree -> the port's
+    params: each layer-stacked subtree is split into per-layer dicts
+    (nested lists for the hybrid's and the ssm's groups)."""
+    return {k: (_unstack(v, _STACKED[k], device) if k in _STACKED
+                else to_torch(v, device)) for k, v in tree.items()}
 
 
 def rotation(tree: dict, kind: str = "srft", device="cpu") -> Rotation:
@@ -66,6 +89,15 @@ def rotations(tree: dict, kind: str = "srft", device="cpu"
 
     n_layers = np.asarray(tree["k"]["matrix"]).shape[0]
     return [(one("k", i), one("v", i)) for i in range(n_layers)]
+
+
+def encdec_rotations(tree: dict, kind: str = "srft", device="cpu"):
+    """The reference's ``EncDecRotations`` as ``{"self_kv": {"k", "v"},
+    "cross_kv": {"k", "v"}}`` of numpy leaves -> the port's."""
+    from repro_torch.models.encdec import EncDecRotations
+
+    return EncDecRotations(self_kv=rotations(tree["self_kv"], kind, device),
+                           cross_kv=rotations(tree["cross_kv"], kind, device))
 
 
 def calib_params(tree: Any, device="cpu"):

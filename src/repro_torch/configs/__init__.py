@@ -1,14 +1,20 @@
 """Config registry (port of ``repro/configs/__init__.py``,
-``paper_models.py`` and the per-arch modules): the dense, MoE and VLM
-models the port serves, plus ``reduced()`` for CPU-sized variants of the
-same family."""
+``paper_models.py`` and the per-arch modules): the ten architectures of
+the reference (dense, moe, hybrid, ssm, vlm, audio) and the paper's
+stand-ins, plus ``reduced()`` for CPU-sized variants of the same family."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    XLSTMConfig,
+)
 
-__all__ = ["ModelConfig", "MoEConfig", "ARCH_IDS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig", "ARCH_IDS",
+           "get_config", "reduced"]
 
 # internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
 # vocab=92544 [arXiv:2403.17297]
@@ -70,6 +76,39 @@ QWEN3_MOE_235B_A22B = ModelConfig(
     moe=MoEConfig(n_experts=128, top_k=8, d_expert=1536),
 ).validated()
 
+# zamba2-7b [hybrid]: 81 Mamba2 blocks d_model=3584 + one shared attention
+# block (32H, kv=32, d_ff=14336) applied after every 6 of them, vocab=32000,
+# ssm_state=64 [arXiv:2411.15242].  head_dim = 3584/32 = 112, the paper's
+# mixed-radix SRFT case: validated() sets kv_group to 28, the largest even
+# divisor of 112 that is at most 32.
+ZAMBA2_7B = ModelConfig(
+    name="zamba2-7b", family="hybrid", n_layers=81, d_model=3584,
+    n_heads=32, n_kv_heads=32, head_dim=112, d_ff=14336, vocab_size=32000,
+    ssm=SSMConfig(d_state=64, d_conv=4, expand=2, chunk=256),
+    shared_attn_period=6, rope_theta=10000.0,
+).validated()
+
+# xlstm-1.3b [ssm]: 48 blocks d_model=2048 4H vocab=50304, an sLSTM block
+# after every 7 mLSTM blocks [arXiv:2405.04517]; no attention KV cache
+XLSTM_1_3B = ModelConfig(
+    name="xlstm-1.3b", family="ssm", n_layers=48, d_model=2048, n_heads=4,
+    n_kv_heads=4, head_dim=512, d_ff=0, vocab_size=50304,
+    xlstm=XLSTMConfig(slstm_period=8, expand=2, qk_dim_factor=0.5),
+    kv_quant=False,
+).validated()
+
+# whisper-large-v3 [audio]: encoder-decoder, 32 + 32 layers d_model=1280
+# 20H (MHA) d_ff=5120 vocab=51866 [arXiv:2212.04356]; the conv frontend is
+# a stub (callers pass frame embeddings (B, S_enc, d_model)); the decoder's
+# self-attention cache and its read-only cross-attention cache are both
+# served by the policy; absolute positions, no RoPE
+WHISPER_LARGE_V3 = ModelConfig(
+    name="whisper-large-v3", family="audio", n_layers=32, d_model=1280,
+    n_heads=20, n_kv_heads=20, head_dim=64, d_ff=5120, vocab_size=51866,
+    ffn_activation="gelu", encoder_layers=32, cross_attention=True,
+    frontend="audio", rope_theta=0.0,
+).validated()
+
 # the paper's head_dim regimes as small trainable stand-ins
 SMOL_D64 = ModelConfig(
     name="smol-d64", family="dense", n_layers=4, d_model=256, n_heads=4,
@@ -91,8 +130,9 @@ SMOL_D256 = ModelConfig(
 ).validated()
 
 _CONFIGS = {c.name: c for c in (
-    QWEN3_MOE_235B_A22B, DBRX_132B, QWEN3_14B, QWEN1_5_110B, GEMMA_7B,
-    INTERNLM2_1_8B, LLAVA_NEXT_34B, SMOL_D64, SMOL_D128, SMOL_D256)}
+    ZAMBA2_7B, QWEN3_MOE_235B_A22B, DBRX_132B, QWEN3_14B, QWEN1_5_110B,
+    GEMMA_7B, INTERNLM2_1_8B, LLAVA_NEXT_34B, WHISPER_LARGE_V3, XLSTM_1_3B,
+    SMOL_D64, SMOL_D128, SMOL_D256)}
 ARCH_IDS = list(_CONFIGS)
 
 
@@ -105,7 +145,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke variant of the same family: small layers/width/experts
-    (the dense and MoE branches of the reference's ``reduced``)."""
+    (the reference's ``reduced``)."""
     kw = dict(
         name=cfg.name + "-reduced",
         n_layers=2,
@@ -121,4 +161,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             n_experts=4, top_k=2, d_expert=64, group_size=32,
             capacity_factor=cfg.moe.capacity_factor)
         kw["d_ff"] = 64
+    if cfg.xlstm is not None:
+        kw["n_layers"] = cfg.xlstm.slstm_period  # one sLSTM + mLSTMs
+        kw["head_dim"] = 32
+    if cfg.shared_attn_period:
+        kw["n_layers"] = cfg.shared_attn_period + 1  # one shared firing
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
     return dataclasses.replace(cfg, **kw).validated()

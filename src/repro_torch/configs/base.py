@@ -1,18 +1,21 @@
-"""Model configuration dataclasses (port of ``repro/configs/base.py:15-21``
-and ``:41-104``).
+"""Model configuration dataclasses (port of ``repro/configs/base.py:15-104``).
 
-The port's own copy: ``MoEConfig`` and the fields of the families the port
-serves (dense, moe, vlm), with the same names and defaults as the
-reference, and ``validated()``.  The recurrent families' fields (``ssm``,
-``xlstm``, ``encoder_layers``, ``cross_attention``) come with their
-modules (ROADMAP A11).
+The port's own copy: ``MoEConfig``, ``SSMConfig``, ``XLSTMConfig`` and the
+fields of every family the port serves (dense, moe, vlm, hybrid, ssm,
+audio), with the same names and defaults as the reference,
+``kv_applicable`` and ``validated()``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["MoEConfig", "ModelConfig"]
+__all__ = ["MoEConfig", "SSMConfig", "XLSTMConfig", "ModelConfig",
+           "ATTENTION_FAMILIES"]
+
+# the families without recurrent state: the only ones with per-row cache
+# lengths (continuous batching, paged caches, chunked prefill, spec)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +28,26 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 256  # SSD chunk length of the parallel (prefill) form
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_period: int = 8  # every Nth block is sLSTM, the rest mLSTM
+    expand: int = 2
+    qk_dim_factor: float = 0.5
+    chunk: int = 64  # chunkwise-parallel mLSTM / chunked sLSTM length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm (hybrid, ssm, audio: ROADMAP A11)
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +68,14 @@ class ModelConfig:
     tie_embeddings: bool = False
     # MoE
     moe: Optional[MoEConfig] = None
+    # SSM / hybrid
+    ssm: Optional[SSMConfig] = None
+    shared_attn_period: int = 0  # zamba2: shared attn block every P blocks
+    # xLSTM
+    xlstm: Optional[XLSTMConfig] = None
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    cross_attention: bool = False
     # modality frontend stub: None | "vision" | "audio"
     frontend: Optional[str] = None
     n_patches: int = 1152  # vlm: patch-embedding count inside the sequence
@@ -56,6 +84,11 @@ class ModelConfig:
     kv_group: int = 32
     kv_window: int = 16  # fp32 residual window (paper §8)
     rotation: str = "srft"  # srft | srht | identity
+
+    @property
+    def kv_applicable(self) -> bool:
+        """Does the arch keep an attention KV cache?  (xlstm does not.)"""
+        return self.family != "ssm"
 
     def validated(self) -> "ModelConfig":
         if self.head_dim % 2:

@@ -137,6 +137,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend, CacheState
 from repro_torch.core.paged import NULL_PAGE
 from repro_torch.launch.engine import GREEDY, Sampler, verify_pass
@@ -252,6 +253,11 @@ class BatchEngine:
             raise NotImplementedError(
                 "BatchEngine(mesh=...) is not ported yet (ROADMAP A12: "
                 "multi-device serving)")
+        if model.cfg.family not in ATTENTION_FAMILIES:
+            raise NotImplementedError(
+                f"ragged slot caches need a pure-attention family (got "
+                f"{model.cfg.family}: recurrent state has no per-row length "
+                f"semantics); serve it single-stream through Engine")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if chunk < 1:

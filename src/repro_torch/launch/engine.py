@@ -14,6 +14,16 @@ device: the single stream runs on a ragged cache,
 int length, branched on by the host) raises.  The graph lives in the
 cache (``cache["decode_graph"]``) and is freed with it.
 
+Every family takes this path.  The recurrent ones (hybrid, ssm) and the
+encoder-decoder (audio) accept ``ragged=True`` with every row at one
+length, so their caches keep ``pos`` and their KV lengths on the device,
+and their recurrent states (SSM, conv, mLSTM, sLSTM) and the read-only
+cross-attention cache sit at fixed addresses that each step updates in
+place; the capture's warm-up step puts back everything a step advances
+(``model.step_state``).  An audio prompt is the tuple ``(frames,
+tokens)`` (ref ``engine.py:36-39``), for a cache built with
+``init_cache(batch, s_max_dec, s_enc)``.
+
 ``Engine(graph=False)``, and every CPU model, runs the eager loop: the
 same step, one Python call after another, on either kind of cache.  It
 is the oracle the graph is held against, as the reference's per-step
@@ -28,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.launch.graphs import StepGraph
 
@@ -204,6 +215,18 @@ class _Captured:
     length: Optional[int] = None
 
 
+def _s_max(cache: dict) -> Optional[int]:
+    """The room of the cache a decode step appends to (``attn``, or an
+    encoder-decoder's ``self``); None for a model without a KV cache."""
+    states = cache.get("attn") or cache.get("self")
+    return states[0].s_max if states else None
+
+
+def _view(cache: dict) -> dict:
+    """The cache without the graphs it holds."""
+    return {k: v for k, v in cache.items() if k not in (GRAPH_KEY, SPEC_KEY)}
+
+
 class Engine:
     """Generation for one (model, backend, sampler) configuration.
     ``graph`` (default: on a CUDA model) decodes through a captured CUDA
@@ -224,9 +247,15 @@ class Engine:
         self.graph = on_card if graph is None else graph
         self._pool = None  # the memory pool the engine's graphs share
 
-    def prefill(self, params, prompt: torch.Tensor, cache: dict):
-        """Returns (last-token logits (B, 1, V), cache filled in place)."""
-        out = self.model.prefill(params, prompt, cache)
+    def prefill(self, params, prompt, cache: dict):
+        """Returns (last-token logits (B, 1, V), cache filled in place).
+        ``prompt`` is tokens (B, S), or ``(frames, tokens)`` for the audio
+        family."""
+        if isinstance(prompt, tuple):
+            out = self.model.prefill(params, *prompt, cache)
+            prompt = prompt[-1]
+        else:
+            out = self.model.prefill(params, prompt, cache)
         if GRAPH_KEY in cache:
             cache[GRAPH_KEY].length = prompt.shape[1]
         return out
@@ -298,8 +327,8 @@ class Engine:
         # at the length, and a full cache's ragged write would clamp onto
         # its last token
         length = self._host_length(cache)
-        s_max = cache["attn"][0].s_max
-        if length + n_tokens > s_max:
+        s_max = _s_max(cache)
+        if s_max is not None and length + n_tokens > s_max:
             raise ValueError(f"cache full: {length} + {n_tokens} tokens > "
                              f"s_max={s_max}")
         B = tok.shape[0]
@@ -331,7 +360,7 @@ class Engine:
         s_tok = tok.clone()
         # the step sees the cache's buffers, not the dict that will hold
         # the graph (no reference cycle: the graph dies with the cache)
-        view = {"pos": cache["pos"], "attn": cache["attn"]}
+        view = _view(cache)
 
         def step():
             logits, _ = model.decode_step(params, s_tok, view,
@@ -342,7 +371,7 @@ class Engine:
 
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        state = [s_tok, cache["pos"], *(st.length for st in cache["attn"])]
+        state = [s_tok, *model.step_state(cache)]
         graph = StepGraph(step, state, pool=self._pool,
                           generator=generator if sampler.temperature
                           else None)
@@ -351,10 +380,11 @@ class Engine:
         cache[GRAPH_KEY] = cap
         return cap
 
-    def generate(self, params, prompt: torch.Tensor, cache: dict,
+    def generate(self, params, prompt, cache: dict,
                  n_tokens: int, *, generator: Optional[torch.Generator] = None,
                  return_logits: bool = False):
-        """Prefill + sample + (n_tokens - 1) decode steps.  The first token
+        """Prefill + sample + (n_tokens - 1) decode steps (``prompt`` as
+        :meth:`prefill` takes it).  The first token
         comes from the prefill logits; the last sampled token is returned
         but not appended to the cache.  Returns (tokens (B, n_tokens),
         cache), or (tokens, logits, cache) with ``return_logits``, where
@@ -375,7 +405,14 @@ class Engine:
     # ----------------------------------------------- speculative decoding
     def _check_spec(self, cache: dict, spec_k: int, batch: int) -> None:
         """The reference's validation (``engine.py:325-352``), made before
-        any prefill."""
+        any prefill.  The recurrent and audio families have no verify
+        pass (recurrent state cannot roll back), as the reference's."""
+        family = self.model.cfg.family
+        if family not in ATTENTION_FAMILIES:
+            raise NotImplementedError(
+                f"speculative verify needs a pure-attention family (got "
+                f"{family}: recurrent state has no per-row lengths and no "
+                f"rollback)")
         if self.sampler.temperature != 0.0:
             raise ValueError(
                 "speculative decoding requires greedy sampling "

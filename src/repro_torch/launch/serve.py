@@ -39,7 +39,14 @@ Runs on ``cuda`` unless ``--device cpu`` is given; without a card and
 without that flag it raises before building anything.  ``--mesh`` (a
 sharded server) is ROADMAP A12.  The dense, moe and vlm families go
 through the ragged ``BatchEngine`` (a vlm's requests are text only, as the
-reference's are); the hybrid, ssm and audio families raise (ROADMAP A11).
+reference's are).  The hybrid, ssm and audio families are served
+single-stream (ref ``serve.py:259-267``, ``_serve_single_stream``): one
+batch of equal-length prompts through ``Engine`` (a CUDA graph per step
+on a card), where ``--spec-k`` exits with the reference's error and
+``--http``, ``--paged`` and ``--prefill-chunk`` print the reference's
+notes and are ignored.  An audio prompt is AUDIO_FRAMES stub frame
+embeddings drawn from ``--seed`` plus the tokens (the reference's CLI
+stops at its cache's missing ``s_enc`` there).
 """
 from __future__ import annotations
 
@@ -57,11 +64,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core import calibrate as C
 from repro_torch.core.cache_api import AttendBackend, available_policies
 from repro_torch.data import DataIterator, SyntheticCorpus
 from repro_torch.launch.batch_engine import BatchEngine
-from repro_torch.launch.engine import Sampler
+from repro_torch.launch.engine import Engine, Sampler
 from repro_torch.launch.server import (
     CompletionServer,
     ServingPipeline,
@@ -70,9 +78,11 @@ from repro_torch.launch.server import (
 from repro_torch.launch.server.stats import cache_report_data
 from repro_torch.launch.server.trace import make_requests
 from repro_torch.launch.train import smoke_config
-from repro_torch.models.lm import LM
+from repro_torch.models import build_model
 
 __all__ = ["calibrate_lambdas", "main"]
+
+AUDIO_FRAMES = 1500  # whisper's 30 s window of encoder frames
 
 
 def calibrate_lambdas(model, params, tokens, rots):
@@ -191,7 +201,10 @@ def main(argv: Optional[list[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    model = LM(cfg, device=dev)  # raises on the families of ROADMAP A11
+    model = build_model(cfg, device=dev)
+    if not cfg.kv_applicable:
+        print(f"[note] {cfg.name} has no attention KV cache "
+              f"(family={cfg.family}); running its recurrent-state path")
     params = model.init(model.generator(args.seed))
     if args.ckpt_dir:
         from repro_torch.optim.adam import adam_init
@@ -205,11 +218,16 @@ def main(argv: Optional[list[str]] = None) -> None:
             print(f"[load] checkpoint step {last}")
 
     policy_name = "bf16" if args.no_quant else args.policy
-    policy = model.cache_policy(policy_name)
+    policy = model.cache_policy(policy_name) if cfg.kv_applicable else None
     backend = AttendBackend.parse(args.backend)
+    attention_only = cfg.family in ATTENTION_FAMILIES
 
     rots = None
-    if args.calibrate and hasattr(policy, "rotation"):
+    if args.calibrate and hasattr(policy, "rotation") and not attention_only:
+        # collect_kv, the calibration pass, runs pure-attention families
+        print(f"[calibrate] skipped: family={cfg.family} has no "
+              f"KV-collection pass")
+    elif args.calibrate and hasattr(policy, "rotation"):
         it = DataIterator(SyntheticCorpus(args.seed + 1), batch_per_shard=4,
                           seq_len=args.prompt_len, device=dev)
         calib = it.next()["tokens"]
@@ -220,6 +238,12 @@ def main(argv: Optional[list[str]] = None) -> None:
         print(f"[calibrate] per-channel lambda in {time.time() - t0:.1f}s")
 
     sampler = Sampler(temperature=args.temperature, top_k=args.top_k)
+    if not attention_only:
+        it = DataIterator(SyntheticCorpus(args.seed + 1),
+                          batch_per_shard=max(args.requests, 1),
+                          seq_len=args.prompt_len, device=dev)
+        return _serve_single_stream(cfg, model, params, it.next()["tokens"],
+                                    policy, backend, sampler, args, rots)
     window = getattr(policy, "window", 1)
     s_max = args.s_max
     if s_max is None:
@@ -406,6 +430,93 @@ def _serve_http(cfg, engine: BatchEngine, policy, args) -> None:
         _write_trace_out(engine.trace, args)
 
 
+def _serve_single_stream(cfg, model, params, prompt, policy, backend,
+                         sampler, args, rots=None) -> None:
+    """The recurrent and audio families (ref ``serve.py:551-625``): one
+    batch of equal-length prompts through ``Engine``, prefill then decode
+    (one CUDA graph per step on a card, on a cache that keeps its lengths
+    on the device)."""
+    if args.spec_k:
+        raise SystemExit(
+            f"error: --spec-k requires the continuous-batching engine, "
+            f"but family={cfg.family} is served single-stream: recurrent "
+            f"state (ssm/hybrid/audio) has no truncate_rows rollback "
+            f"path, so a rejected draft could not be rewound.  Drop "
+            f"--spec-k or serve a pure-attention arch (dense/moe/vlm).")
+    if args.http:
+        print(f"[note] --http needs a pure-attention family "
+              f"(got {cfg.family}); serving the closed-loop path")
+    if args.paged:
+        print(f"[note] --paged needs a pure-attention family "
+              f"(got {cfg.family}); serving dense single-stream")
+    if args.prefill_chunk:
+        print(f"[note] --prefill-chunk needs the continuous-batching "
+              f"engine (family={cfg.family} is served single-stream); "
+              f"running one monolithic prefill")
+    dev = model.device
+    window = getattr(policy, "window", 1) if policy is not None else 1
+    s_max = args.prompt_len + args.new_tokens + window
+    s_max += (-s_max) % max(window, 1)
+    batch = min(args.max_batch, prompt.shape[0])
+    prompt = prompt[:batch]
+    graph = dev.type == "cuda"  # a graph replays device lengths
+    init = torch.Generator().manual_seed(7)
+    if cfg.family == "audio":
+        frames = torch.randn((batch, AUDIO_FRAMES, cfg.d_model),
+                             generator=torch.Generator().manual_seed(
+                                 args.seed + 3)).to(dev)
+        cache = model.init_cache(batch, s_max, AUDIO_FRAMES, policy=policy,
+                                 generator=init, ragged=graph)
+        prompt = (frames, prompt)
+    else:
+        cache = model.init_cache(batch, s_max, policy=policy, rots=rots,
+                                 generator=init, ragged=graph)
+    engine = Engine(model, backend=backend, sampler=sampler, graph=graph)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+
+    def sync():
+        if graph:
+            torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        t0 = time.time()
+        logits, cache = engine.prefill(params, prompt, cache)
+        sync()
+        t_prefill = time.time() - t0
+        tok = sampler.sample(logits[:, -1], gen)[:, None]
+        n_steps = args.new_tokens - 1
+        t0 = time.time()
+        rest, cache = engine.decode(params, tok, cache, n_steps,
+                                    generator=gen)
+        sync()
+        t_decode = time.time() - t0
+    gen_toks = torch.cat([tok, rest], dim=1).cpu()
+
+    pname = policy.name if policy is not None else "-"
+    ms_tok = t_decode * 1e3 / max(n_steps, 1)
+    step = "one CUDA graph per step" if graph else "eager steps"
+    print(f"[serve] arch={cfg.name} policy={pname} "
+          f"backend={backend.value} batch={batch} "
+          f"prompt={args.prompt_len} new={args.new_tokens} "
+          f"({step}; single-stream family)")
+    print(f"  prefill: {t_prefill * 1e3:.0f} ms "
+          f"({batch * args.prompt_len / max(t_prefill, 1e-9):.0f} prompt "
+          f"tok/s)")
+    print(f"  decode:  {ms_tok:.1f} ms/tok   "
+          f"{batch * n_steps / max(t_decode, 1e-9):.1f} tok/s decode-only "
+          f"on {dev}" + (" (first graph capture included)" if graph else ""))
+    states = (cache["self"] + cache["cross"] if cfg.family == "audio"
+              else cache.get("attn"))
+    data = _cache_report(policy, states)
+    _write_stats_json(args.stats_json, {
+        "mode": "single-stream", "cache": data,
+        "decode_ms_per_tok": ms_tok,
+    })
+    sample = "".join(chr(c) if 32 <= c < 127 else "?"
+                     for c in gen_toks[0].tolist())
+    print(f"  sample continuation (byte-decoded): {sample!r}")
+
+
 def _print_completion(comp) -> None:
     text = "".join(chr(c) if 32 <= c < 127 else "?"
                    for c in comp.tokens[:24].tolist())
@@ -427,6 +538,9 @@ def _cache_report(policy, state, *, engine=None, indent="  ") -> dict:
     (``server/stats.py:cache_report_data``, what ``--stats-json``
     writes)."""
     data = cache_report_data(policy, state, engine)
+    if not data["kv_applicable"]:
+        print(f"{indent}(no attention KV cache: recurrent-state family)")
+        return data
     is_paged = data["layout"] == "paged pool"
     extra = "residual+paging metadata" if is_paged else "transient state"
     print(f"{indent}{data['layout']} persistent KV: "

@@ -1,5 +1,5 @@
 """The training step: forward, backward, clip, AdamW (port of
-``repro/launch/steps.py:20-43``).
+``repro/launch/steps.py:20-43``), and the prefill step (``:46-59``).
 
 The reference differentiates with ``jax.value_and_grad``; here autograd
 runs through the port's plain modules (training has no Pallas kernel, so
@@ -19,7 +19,7 @@ from repro_torch.optim.adam import (
     tree_map,
 )
 
-__all__ = ["init_train_state", "make_train_step"]
+__all__ = ["init_train_state", "make_train_step", "make_prefill_step"]
 
 
 def init_train_state(model, generator: torch.Generator):
@@ -52,3 +52,21 @@ def make_train_step(model, *, lr=3e-4, clip: float = 1.0):
         return params, opt_state, out
 
     return train_step
+
+
+def make_prefill_step(model):
+    """``prefill_step(params, batch, cache) -> (logits, cache)``: an audio
+    batch carries ``frames`` and ``tokens``, a vlm batch may carry
+    ``patches``."""
+    family = model.cfg.family
+
+    def prefill_step(params, batch, cache):
+        if family == "audio":
+            return model.prefill(params, batch["frames"], batch["tokens"],
+                                 cache)
+        if family == "vlm":
+            return model.prefill(params, batch["tokens"], cache,
+                                 patches=batch.get("patches"))
+        return model.prefill(params, batch["tokens"], cache)
+
+    return prefill_step

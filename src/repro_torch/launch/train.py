@@ -1,16 +1,19 @@
 """Training CLI (port of ``repro/launch/train.py``).
 
     python -m repro_torch.launch.train --arch internlm2-1.8b --steps 200 \
-        --ckpt-dir DIR [--resume] [--smoke] [--device cpu]
+        --ckpt-dir DIR [--resume] [--smoke] [--layers N] [--device cpu]
 
 Wires the substrates together: config registry -> model -> synthetic data
 iterator -> train step (autograd through the plain modules, clip, AdamW)
 -> atomic checkpoints with the iterator's state, and exact resume from
 the latest one through ``TrainSupervisor``.  ``--smoke`` shrinks the arch
-to a CPU-trainable depth and width with the same wiring.  Runs on
+to a CPU-trainable depth and width with the same wiring; ``--layers N``
+cuts the depth alone (the reference's CLI has no such flag).  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card and without
 that flag it raises before building anything.  ``--mesh`` (a sharded
-train step) is ROADMAP A12.
+train step) is ROADMAP A12.  The data pipeline yields tokens only, so an
+audio arch (whose loss needs ``frames``) raises a ``ValueError`` that
+says so; the reference's CLI fails on the missing key inside its loss.
 """
 from __future__ import annotations
 
@@ -32,20 +35,25 @@ __all__ = ["smoke_config", "main"]
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """CPU-trainable reduction preserving the family structure (the
-    reference's dense, moe and vlm branches: a MoE keeps its expert width
-    and group size, with 4 experts, top 2; the hybrid, ssm and audio
-    families are ROADMAP A11)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"smoke_config reduces dense, moe and vlm (got {cfg.family}); "
-            "the hybrid, ssm and audio families are ROADMAP A11")
+    """CPU-trainable reduction preserving the family structure (ref
+    ``train.py:37-55``): a MoE keeps its expert width and group size, with
+    4 experts, top 2; a hybrid fires its shared block every 2 of 4 Mamba2
+    blocks; an ssm keeps one group of its sLSTM period; an audio model
+    keeps at most 2 encoder and 2 decoder layers."""
     kw = dict(
         n_layers=min(cfg.n_layers, 4), d_model=min(cfg.d_model, 256),
         n_heads=min(cfg.n_heads, 4), n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=min(cfg.head_dim, 64),
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512))
+    if cfg.family == "hybrid":
+        kw["shared_attn_period"] = 2
+        kw["n_layers"] = 4
+    if cfg.family == "ssm":
+        kw["n_layers"] = cfg.xlstm.slstm_period
+    if cfg.family == "audio":
+        kw["encoder_layers"] = min(cfg.encoder_layers, 2)
+        kw["n_layers"] = min(cfg.n_layers, 2)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
     return dataclasses.replace(cfg, **kw).validated()
@@ -70,6 +78,9 @@ def main(argv: Optional[list[str]] = None, *,
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="reduce the arch to CPU-trainable size")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers, its "
+                         "width kept (after --smoke)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -84,6 +95,14 @@ def main(argv: Optional[list[str]] = None, *,
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers).validated()
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the training CLI feeds tokens only (the synthetic "
+            f"data pipeline has no frames), and an audio model's loss needs "
+            f"batch['frames']; train it through EncDec.loss with frame "
+            f"embeddings")
     model = LM(cfg, device=dev)
     params = model.init(model.generator(args.seed))
     n_params = sum(t.numel() for t in tree_leaves(params))

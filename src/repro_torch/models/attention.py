@@ -5,12 +5,16 @@ serving paths behind the cache-policy protocol (port of
   * full sequence : blockwise flash attention on the raw bf16 K/V
                     (training and eval, optionally through the KV
                     round-trip hook); a prefill also writes K/V into the
-                    cache through its policy;
+                    cache through its policy; ``causal=False`` for an
+                    encoder, and ``cross_kv`` for a cross-attention (K/V
+                    from the encoder states, no RoPE, not causal);
   * prompt chunk  : one C-token slice of a prompt (chunked prefill): its
                     K/V go into raw bf16 side buffers, which its queries
                     attend, and into the cache through the policy;
   * decode        : one token -- append first, then attend, so the new
-                    token is read back from the residual window;
+                    token is read back from the residual window; with
+                    ``cross=True`` the cache is read-only (a
+                    cross-attention's, filled once at prefill);
   * verify        : k tokens of a speculative pass -- the same k appends
                     a sequential decode makes, then one k-query read.
 """
@@ -68,25 +72,34 @@ def _merge_heads(p, o):
 
 
 def attention_forward(p, x: torch.Tensor, cfg, *, q_offset: int = 0,
-                      kv_block: int = 1024,
+                      causal: bool = True, kv_block: int = 1024,
                       kv_roundtrip: Optional[Callable] = None,
                       cache: Optional[CacheState] = None,
+                      cross_kv: Optional[torch.Tensor] = None,
                       return_kv: bool = False):
     """Full-sequence attention (train, eval or prefill; ref
     ``attention.py:77-126``).  Returns (y, cache), or (y, cache, (k, v))
     with ``return_kv`` (activations for lambda calibration).  The cache,
     if given, is filled in place through its policy.  ``kv_roundtrip``
     maps (k, v) -> (k~, v~) before attention: the paper's hook
-    measurement, quantization error on every read."""
+    measurement, quantization error on every read.  ``cross_kv`` (B,
+    S_enc, d) makes it a cross-attention: queries from x, K/V projected
+    from ``cross_kv``, no RoPE, not causal."""
     S = x.shape[1]
-    positions = q_offset + torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if cross_kv is not None:
+        q = common.dense(p["wq"], x).permute(0, 2, 1, 3)
+        k = common.dense(p["wk"], cross_kv).permute(0, 2, 1, 3)
+        v = common.dense(p["wv"], cross_kv).permute(0, 2, 1, 3)
+        causal = False
+    else:
+        positions = q_offset + torch.arange(S, device=x.device)
+        q, k, v = _project_qkv(p, x, cfg, positions)
     if kv_roundtrip is not None:
         k, v = kv_roundtrip(k, v)
     if cache is not None:
         cache = cache.policy.prefill(cache, k, v)
-    o = flash_attention(q, k, v, q_offset=q_offset, kv_block=kv_block,
-                        scale=cfg.head_dim ** -0.5)
+    o = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                        kv_block=kv_block, scale=cfg.head_dim ** -0.5)
     if return_kv:
         return _merge_heads(p, o), cache, (k, v)
     return _merge_heads(p, o), cache
@@ -117,20 +130,25 @@ def attention_prefill_chunk(p, x: torch.Tensor, cfg, cache: CacheState,
 
 
 def attention_decode(p, x: torch.Tensor, cfg, cache: CacheState, *,
-                     position: "int | torch.Tensor", kv_block: int = 512,
+                     position: "int | torch.Tensor" = 0, cross: bool = False,
+                     kv_block: int = 512,
                      backend: "AttendBackend | str | None" = None,
                      active: Optional[torch.Tensor] = None):
     """One-token decode (x (B, 1, d)) against the cache (ref
     ``repro/models/attention.py:176-212``).  ``position`` is a shared int
     or, for a ragged cache, per-row (B,): each row RoPE-rotates at its own
     position; ``active`` (B,) bool keeps finished rows' lengths still.
-    Returns (y, cache)."""
-    if isinstance(position, int):
-        pos = torch.tensor([position], device=x.device)
+    ``cross=True`` reads a read-only cache (a cross-attention's, filled
+    at prefill): no projection of K/V, no append.  Returns (y, cache)."""
+    if cross:
+        q = common.dense(p["wq"], x).permute(0, 2, 1, 3)
     else:
-        pos = position[:, None]
-    q, k, v = _project_qkv(p, x, cfg, pos)
-    cache = cache.policy.update(cache, k, v, active=active)
+        if isinstance(position, int):
+            pos = torch.tensor([position], device=x.device)
+        else:
+            pos = position[:, None]
+        q, k, v = _project_qkv(p, x, cfg, pos)
+        cache = cache.policy.update(cache, k, v, active=active)
     o = cache.policy.attend(q, cache, scale=cfg.head_dim ** -0.5,
                             backend=backend, kv_block=kv_block)
     return _merge_heads(p, o), cache

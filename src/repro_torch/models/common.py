@@ -33,9 +33,12 @@ __all__ = [
     "dense",
     "rmsnorm_init",
     "rmsnorm",
+    "layernorm_init",
+    "layernorm",
     "embed_init",
     "rope_freqs",
     "apply_rope",
+    "sinusoidal_positions",
 ]
 
 
@@ -110,6 +113,21 @@ def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     return (y * (1.0 + p["scale"])).to(COMPUTE_DTYPE)
 
 
+def layernorm_init(d: int, device="cpu"):
+    return {"scale": torch.zeros(d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the (1 + w) parameterization and a bias (ref
+    ``common.py:120-131``): fp32 inside, compute dtype out."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return ((1.0 + p["scale"]) * y + p["bias"]).to(COMPUTE_DTYPE)
+
+
 def embed_init(generator: torch.Generator, vocab: int, d: int, device="cpu"):
     return {"embedding": (_randn(generator, (vocab, d), device) * 0.02).to(
         PARAM_DTYPE)}
@@ -135,3 +153,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal absolute positions (n, d) fp32 (ref
+    ``common.py:161-167``: computed in float64, then rounded)."""
+    pos = torch.arange(n, dtype=torch.float64)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float64)[None, :]
+    ang = pos / (10000 ** (2 * dim / d))
+    out = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return out.to(device=device, dtype=torch.float32)

@@ -16,11 +16,14 @@ _NEG_INF = -1e30
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int = 0, scale: Optional[float] = None,
+                    causal: bool = True, q_offset: int = 0,
+                    scale: Optional[float] = None,
                     kv_block: int = 1024) -> torch.Tensor:
-    """Causal attention: q (B, Hq, Sq, d), k/v (B, Hkv, Skv, d) ->
-    (B, Hq, Sq, d) in q.dtype; ``q_offset`` is the absolute position of
-    q[..., 0, :]."""
+    """Attention: q (B, Hq, Sq, d), k/v (B, Hkv, Skv, d) -> (B, Hq, Sq, d)
+    in q.dtype; ``q_offset`` is the absolute position of q[..., 0, :].
+    ``causal=False`` (an encoder, a cross-attention) lets every query see
+    every key; the padding of a length that is no multiple of
+    ``kv_block`` stays masked either way."""
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -43,7 +46,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vj = v[:, :, j * blk:(j + 1) * blk].float()
         kv_pos = j * blk + torch.arange(blk, device=dev)
         logits = torch.einsum("bhgqd,bhsd->bhgqs", qg, kj)
-        mask = (kv_pos[None, :] < Skv) & (kv_pos[None, :] <= q_pos[:, None])
+        mask = kv_pos[None, :] < Skv
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
         logits = torch.where(mask, logits, _NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])

@@ -42,8 +42,11 @@ def _gen(dev, seed):
 # the product's tile edges (32-row tiles at d 128 / 256, 64 at d 64) up to
 # the prefill write's 32,640 rows; the no-matrix route at the W-flush's 128
 # rows, the batch ring's 512, d 256 and group 16; bits 4 and 8; bf16 and
-# fp32 input; the generic routes (d 112, group 28)
+# fp32 input; the generic routes (d 112, group 28); the served writes of
+# zamba2-7b (65,536 rows x d 112, bf16) and whisper-large-v3 (30,000 x 64)
 B3_CASES = [
+    (112, 28, 4, 65536, torch.bfloat16, "rotate"),
+    (64, 32, 4, 30000, torch.bfloat16, "rotate"),
     (128, 32, 4, 1000, torch.bfloat16, "rotate"),
     (128, 32, 4, 128, torch.float32, "flush"),
     (64, 16, 4, 33, torch.float32, "rotate"),
@@ -209,6 +212,30 @@ def test_b1_kernel_matches_plain_scalar_lengths(dev, plen, tlen):
     args = _b1_args(dev, plen, 8, 2, 128, 4608, 16, 32)
     got = qa_ops.quant_decode_attention(*args, plen, tlen, group=32)
     want = qa_ref.quant_decode_attention_ref(*args, plen, tlen, group=32)
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+
+
+# the shapes the hybrid and the audio family serve: zamba2-7b's shared
+# block (32 KV heads, G 1, d 112, group 28: words straddle groups) over a
+# 2048-token prompt and its decode, and whisper-large-v3's cross cache (20
+# heads, G 1, d 64) over 1500 frames: 1488 packed, 12 in the window
+SERVED_SHAPES = [(32, 112, 28, 2096, 2064, 2079),
+                 (20, 64, 32, 1520, 1488, 1500)]
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("BH,d,group,S,plen,tlen", SERVED_SHAPES)
+def test_b1_kernel_matches_plain_at_the_served_shapes(dev, BH, d, group, S,
+                                                     plen, tlen, per_row):
+    args = _b1_args(dev, d + S, BH, 1, d, S, 16, group)
+    if per_row:  # a cache that keeps its lengths on the device
+        plen = torch.full((BH,), plen, dtype=torch.int32, device=dev)
+        tlen = torch.full((BH,), tlen, dtype=torch.int32, device=dev)
+    before = qa_ops.launches
+    got = qa_ops.quant_decode_attention(*args, plen, tlen, group=group)
+    assert qa_ops.launches == before + 1
+    want = qa_ref.quant_decode_attention_ref(*args, plen, tlen, group=group)
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
 
 
