@@ -245,6 +245,40 @@ Phases (any failure exits non-zero):
      its 2079-token last step and at whisper's cross cache (20, 1, 64)
      over 1500 frames (1488 packed, 12 in the window), and B3 at their
      prefill writes (65,536 rows x d 112, 29,760 rows x d 64, bf16).
+ 16. sharded serving (ROADMAP A12a; runs after phase 13, on phase 5's
+     model): the KV cache split by head over (1, m) meshes of cuda:0
+     repeated (``launch/mesh.py``, ``launch/sharded_cache.py``).  (a)
+     ``BatchEngine`` (capacity 4, pages of 16, graph on) on two sharers
+     of a 256-token prefix and four requests of 259 / 317 / 389 / 509
+     tokens (phase 13's 256-512 range; phase 7's new tokens), sharded
+     against the unsharded engine on the same backend: int4-srft through
+     KERNEL, dense and paged, at m = 2 and m = 8 (B1 / B2 run on each
+     shard's heads with the unsplit read's split-K plan), bf16 dense and
+     paged and int8-per-token dense through GATHER at m = 2.  Every
+     cache leaf gathered from the shards bit-equal just before the first
+     decode (the admissions' and prefills' writes, B3's bytes) and at
+     the end, every stream and finish reason bit-equal, every page back,
+     the two sharers at refcount 2 on every shard, per-shard KV bytes =
+     global / m with the paging metadata in full, and every kernel's
+     launches = m x the unsharded run's (counters zeroed before each
+     run).  At the first decode, int4: layer 0's sharded KERNEL read of
+     a seeded fp32 query equals the unsharded one bit for bit and the
+     sharded BLOCKWISE read within B1_ATOL x max(1, its largest value).
+     Also at m = 2: the undersized pool (preemptions) against the
+     unsharded pool, streams and cache, and spec k = 4 against the plain
+     unsharded stream up to a near-tie.  Logged: ms/step sharded vs
+     unsharded (events), per-shard bytes.  (b) ``Engine(mesh=)``,
+     KERNEL, at batch 1 on a 509-token request, 32 new, m = 2: graph ==
+     eager (P16_EAGER_NEW tokens), tokens and cache leaves equal the
+     unsharded graph run's, B1 and B3 launched twice as often.
+     (c) ``pipeline_forward``: the 8 blocks in 2 and 4 stages on a
+     ("pod",) mesh == the blocks run in order, 4 microbatches of 256
+     tokens, bit for bit.  (d) the serve CLI on internlm2-1.8b
+     ``--smoke``: ``--mesh 1`` exits 0 (a subprocess), ``--mesh 2`` ends
+     in a SystemExit naming the one visible device (in this process: it
+     exits before building anything).  Where a stream parts, the phase
+     fails naming the first differing op of one decode step
+     (``p16_op_report``, with the prefill's cache bytes held equal).
 The seconds of each phase are printed on one line (``phase seconds``)
 before the kernels' JSON line.
 Prints one JSON line describing every kernel, then, last, the line
@@ -277,8 +311,10 @@ SHARED_PREFIX, SHARER_TAIL, SHARER_NEW = 1024, 8, 24
 PAGE_SIZE, CAPACITY, CHUNK = 16, 4, 8
 DEV = "cuda"  # the batch phase and the B2 check place everything here
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (data sheet)
-FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# the card's data-sheet rates, read from repro_torch.launch.mesh.HW by
+# main() (the H100 SXM's HBM bytes/s and fp32 FLOP/s outside the tensor
+# cores)
+HBM_BYTES_PER_S = FP32_FLOP_PER_S = None
 LOGIT_TOL = 0.05  # GATHER vs KERNEL, relative to the largest logit
 B1_ATOL = 1e-4  # fp32 sums in another order (split-K) over ~4K tokens
 B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
@@ -473,6 +509,14 @@ class ClockSampler:
 
     def mhz(self, t0, t1) -> list[int]:
         return [m for t, m in self.samples if t0 <= t <= t1]
+
+
+def _read_card_rates() -> None:
+    global HBM_BYTES_PER_S, FP32_FLOP_PER_S
+    from repro_torch.launch.mesh import HW
+
+    HBM_BYTES_PER_S = HW.DATASHEET_HBM_BYTES_PER_S
+    FP32_FLOP_PER_S = HW.DATASHEET_FP32_FLOP_PER_S
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -1334,7 +1378,8 @@ def batch_requests(vocab):
 
 def serve_batch(model, params, policy, backend, paged, reqs, *,
                 capacity=CAPACITY, n_pages=None, after_first_step=None,
-                graph=True, s_max=S_MAX, **chunking):
+                before_first_decode=None, graph=True, s_max=S_MAX,
+                **chunking):
     """Run ``reqs`` through a BatchEngine (the captured step, or the eager
     loop; ``chunking`` takes ``prefill_chunk``, ``prefill_budget`` and
     ``prefix_reuse``).  Returns (engine, completions by rid, report):
@@ -1345,7 +1390,10 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
     of the other streams feels while it is admitted (``admission``: the
     longest gap between two token events of a live stream, host clock,
     and its time to first token from the start of its admission), plus
-    each request's reused tokens (``reused``)."""
+    each request's reused tokens (``reused``).  ``before_first_decode``
+    is called with the engine just before its first decode chunk (after
+    the first admissions and prefills); ``after_first_step`` after its
+    first step."""
     from repro_torch.launch.batch_engine import BatchEngine
 
     eng = BatchEngine(model, params, capacity=capacity, s_max=s_max,
@@ -1366,6 +1414,8 @@ def serve_batch(model, params, policy, backend, paged, reqs, *,
 
     def timed(n):
         first = not chunks
+        if first and before_first_decode is not None:
+            before_first_decode(eng)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
@@ -4487,6 +4537,478 @@ def p15_phase() -> dict:
     return launches
 
 
+# ----------------------------------------- phase 16: sharded serving (A12a)
+
+P16_MESHES = (2, 8)  # 'model' sizes; internlm2-1.8b has 8 KV heads
+# phase 13's prompt range (256-512 tokens), ragged, with phase 7's new
+# tokens; two sharers of a page-aligned prefix are submitted first
+P16_PROMPTS, P16_PREFIX = (259, 317, 389, 509), 256
+P16_S_MAX = 576  # the longest prompt and its new tokens, tile-aligned
+P16_ENGINE_PROMPT, P16_ENGINE_NEW = 509, 32
+P16_EAGER_NEW = 8  # the eager run's tokens, held to the graph run's first
+# (policy, backend, layout, m): the unsharded reference runs the same
+# backend; an int4 KERNEL read runs B1 / B2 on each shard's heads
+P16_RUNS = (("int4-srft", "kernel", False, 2),
+            ("int4-srft", "kernel", True, 2),
+            ("int4-srft", "kernel", False, 8),
+            ("int4-srft", "kernel", True, 8),
+            ("bf16", None, False, 2), ("bf16", None, True, 2),
+            ("int8-per-token", None, False, 2))
+P16_CLI = ("--smoke", "--max-batch", "2", "--requests", "2",
+           "--prompt-len", "64", "--new-tokens", "8")
+
+
+def _p16_mesh(m, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+
+    dims = (1, m) if len(axes) == 2 else (m,)
+    return make_mesh(dims, axes, devices=["cuda:0"] * m)
+
+
+def p16_requests(vocab):
+    """Two sharers of a P16_PREFIX-token page-aligned prefix, then four
+    ragged requests of 259-509 tokens."""
+    from repro_torch.launch.batch_engine import Request
+
+    g = torch.Generator().manual_seed(SEED + 16)
+    prefix = torch.randint(0, vocab, (P16_PREFIX,), generator=g)
+    reqs = [Request(i, torch.cat([prefix, torch.randint(
+        0, vocab, (SHARER_TAIL,), generator=g)]).numpy(), SHARER_NEW)
+        for i in range(2)]
+    reqs += [Request(2 + i, torch.randint(0, vocab, (n,), generator=g)
+                     .numpy(), m)
+             for i, (n, m) in enumerate(zip(P16_PROMPTS, BATCH_NEW))]
+    return reqs
+
+
+def _p16_flat(states) -> list:
+    """Every layer's leaves, gathered from the shards, copied:
+    [(path, tensor), ...] a layer."""
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.launch import sharded_cache as sc
+
+    return [[(p, t.clone()) for p, t in
+             pt.flatten_with_path(sc.gather_state(st))] for st in states]
+
+
+def _p16_same_leaves(ref, got, what) -> int:
+    """``_p16_flat`` lists bit-equal, leaf by leaf; returns the leaves
+    compared.  A page pool is compared without its null page: retired
+    rows' masked appends all land there, at once, and which of those
+    racing writes a card keeps is not defined (its bytes are never read,
+    ``core/paged.py``)."""
+    from repro_torch.core.paged import NULL_PAGE
+
+    n = 0
+    for i, (la, lb) in enumerate(zip(ref, got, strict=True)):
+        assert [p for p, _ in la] == [p for p, _ in lb], what
+        for (pth, x), (_, y) in zip(la, lb):
+            if "pools" in pth:
+                keep = torch.arange(x.shape[0], device=x.device) != NULL_PAGE
+                x, y = x[keep], y[keep]
+            if not torch.equal(x, y):
+                rows = (x != y).reshape(x.shape[0], -1).any(1).nonzero()
+                raise AssertionError(f"{what}: layer {i} leaf {pth}, "
+                                     f"index {rows[:8, 0].tolist()} on dim 0")
+            n += 1
+    return n
+
+
+def _p16_reads(eng) -> dict:
+    """Layer 0's attention read of a seeded fp32 query on the engine's
+    int4 cache, through KERNEL (B1 / B2, per shard on a mesh) and
+    BLOCKWISE.  These comparison launches are taken off the counts."""
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+
+    counts = qa_ops.launches, qa_ops.paged_launches
+    st = eng.cache["attn"][0]
+    cfg = eng.model.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    q = torch.randn((eng.capacity, cfg.n_heads, 1, cfg.head_dim),
+                    generator=g, device=DEV)
+    out = {b: st.policy.attend(q, st, backend=b)
+           for b in ("kernel", "blockwise")}
+    qa_ops.launches, qa_ops.paged_launches = counts
+    return out
+
+
+def _p16_parted(ref, got) -> list:
+    """(rid, first step) of every stream that parts from the unsharded
+    one; finish reasons must match."""
+    bad = []
+    for rid, c in ref.items():
+        g = got[rid]
+        assert g.finish_reason == c.finish_reason, (rid, g.finish_reason)
+        if not (len(g.tokens) == len(c.tokens)
+                and (g.tokens == c.tokens).all()):
+            bad.append((rid, _first_divergence(list(c.tokens),
+                                               list(g.tokens))))
+    return bad
+
+
+def p16_op_report(model, params, m, rows, backend) -> dict:
+    """Where a sharded stream first computes something else than the
+    unsharded one, on the card: ``rows`` rows of a 512-token prompt
+    (shifted by the row, as ``spec_op_report``) prefilled into an
+    unsharded and into a sharded int4 cache, every prefill-written leaf
+    compared (B3's bytes), then one decode step each through ``backend``
+    with every norm, projection, RoPE and attention read recorded, op by
+    op: the first that differs is named."""
+    from repro_torch.core.cache_api import Int4SRFTPolicy
+    from repro_torch.launch import sharded_cache as sc
+    from repro_torch.models import common
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, 512), generator=g,
+                           device="cuda")
+    prompt = (prompt + torch.arange(rows, device="cuda")[:, None]) \
+        % model.cfg.vocab_size
+    caches, taps = {}, {}
+    for name, mesh in (("unsharded", None), ("sharded", _p16_mesh(m))):
+        cache = sc.shard_cache(model.init_cache(
+            rows, P16_S_MAX, policy="int4-srft", ragged=True,
+            generator=torch.Generator().manual_seed(SEED)), mesh)
+        lg, cache = model.prefill(params, prompt, cache)
+        caches[name] = _p16_flat(cache["attn"])
+        tok = lg[:, -1].argmax(-1)[:, None]
+        owner = sc.ShardedPolicy if mesh is not None else Int4SRFTPolicy
+        hooks = [(common, "rmsnorm"), (common, "dense"),
+                 (common, "apply_rope"), (owner, "attend")]
+        saved = [(o, n, getattr(o, n)) for o, n in hooks]
+        rec = []
+        for o, n, fn in saved:
+            def wrapped(*a, _fn=fn, **kw):
+                y = _fn(*a, **kw)
+                rec.append(y.detach().clone())
+                return y
+            setattr(o, n, wrapped)
+        try:
+            model.decode_step(params, tok, cache, backend=backend)
+        finally:
+            for o, n, fn in saved:
+                setattr(o, n, fn)
+        taps[name] = rec
+    _p16_same_leaves(caches["unsharded"], caches["sharded"],
+                     f"16 m={m}: the prefill's cache bytes")
+    per = len(BLOCK_OPS)
+    first = next((i for i, (x, y) in enumerate(zip(taps["unsharded"],
+                                                   taps["sharded"]))
+                  if not torch.equal(x, y)), None)
+    rep = dict(m=m, rows=rows, backend=backend, prefill_bytes_equal=True,
+               first_op=None)
+    if first is not None and first < per * model.cfg.n_layers:
+        rep["first_op"] = f"layer {first // per} {BLOCK_OPS[first % per]}"
+    elif first is not None:
+        rep["first_op"] = "final norm or unembedding"
+    log(f"[{CARD}] 16 op report m={m}, {rows} rows, {backend}: prefill "
+        f"cache bytes (B3's writes) equal; one decode step op by op: "
+        + (f"first differing op {rep['first_op']}" if rep["first_op"]
+           else "every output equal"))
+    return rep
+
+
+def _p16_streams(model, params, ref, got, what, m, rows, backend) -> None:
+    """Every stream and finish reason bit-equal; where one parts, the
+    first differing op of one decode step is named in the failure."""
+    bad = _p16_parted(ref, got)
+    if bad:
+        rep = p16_op_report(model, params, m, rows, backend)
+        raise AssertionError(f"{what}: streams part from the unsharded "
+                             f"ones {bad}; {rep}")
+
+
+def _p16_bytes(eng, m) -> dict:
+    """Global and per-shard bytes: K/V / m per shard, replicated paging
+    metadata in full."""
+    from repro_torch.core import paged as paged_mod
+
+    states = eng.cache["attn"]
+    glob = sum(st.nbytes() for st in states)
+    per = sum(st.nbytes(per_shard=True) for st in states)
+    assert per * m == glob, (per, glob, m)
+    tot = sum(st.nbytes(persistent_only=False) for st in states)
+    tot_per = sum(st.nbytes(persistent_only=False, per_shard=True)
+                  for st in states)
+    meta = 0
+    if eng.paged:
+        meta = sum(paged_mod.meta_nbytes(st.data.kv if hasattr(
+            st.data, "kv") else st.data) for st in states)
+    assert (tot - meta) == m * (tot_per - meta), (tot, tot_per, meta)
+    return dict(kv_bytes=glob, kv_bytes_per_shard=per, total_bytes=tot,
+                total_bytes_per_shard=tot_per, replicated_meta_bytes=meta)
+
+
+def p16_batch(model, params) -> tuple[dict, dict]:
+    """(a) ``BatchEngine`` over (1, m) meshes of cuda:0 against the
+    unsharded engine on the same backend."""
+    from repro_torch.core.cache_api import AttendBackend
+
+    reqs = p16_requests(model.cfg.vocab_size)
+    n_prefix_pages = P16_PREFIX // PAGE_SIZE
+    launches, rows, refs = {}, [], {}
+
+    def run(policy, backend, paged, mesh, reqs_=reqs, **kw):
+        """(engine, done, report, launch counts, at the first decode: the
+        cache leaves and, int4, layer 0's reads)."""
+        at = []
+
+        def first_decode(eng):
+            at.append((_p16_flat(eng.cache["attn"]),
+                       _p16_reads(eng) if policy == "int4-srft" else None))
+
+        _zero_counters()
+        eng, done, rep = serve_batch(
+            model, params, policy, backend, paged, reqs_, mesh=mesh,
+            s_max=P16_S_MAX, before_first_decode=first_decode, **kw)
+        return eng, done, rep, _counters(), at[0]
+
+    def cow(eng):
+        slot = next(s for s, r in enumerate(eng._slot_req)
+                    if r is not None and r.rid == 0)
+        rc = eng._refcount_host[eng._ptab_host[slot, :n_prefix_pages]]
+        assert (rc == 2).all(), f"sharded COW refcounts {set(rc.tolist())}"
+        for st in eng.cache["attn"]:
+            for s in st.shards:
+                assert torch.equal(s.data.kv.pool.refcount
+                                   if hasattr(s.data, "kv")
+                                   else s.data.pool.refcount,
+                                   st.data.kv.pool.refcount
+                                   if hasattr(st.data, "kv")
+                                   else st.data.pool.refcount)
+
+    for policy, backend, paged, m in P16_RUNS:
+        key = (policy, backend, paged)
+        int4 = policy == "int4-srft"
+        layout = "paged" if paged else "dense"
+        if key not in refs:
+            refs[key] = run(policy, backend, paged, None)
+        ref_eng, ref_done, ref_rep, ref_counts, ref_at = refs[key]
+        eng, done, rep, counts, at = run(
+            policy, backend, paged, _p16_mesh(m),
+            after_first_step=cow if paged else None)
+        what = f"16a {policy} {layout} m={m}"
+        assert eng.backend is ref_eng.backend is (
+            AttendBackend.KERNEL if int4 else None), (what, eng.backend)
+        n_first = _p16_same_leaves(ref_at[0], at[0],
+                                   f"{what}, at the first decode")
+        _p16_streams(model, params, ref_done, done, what, m, CAPACITY,
+                     backend or "gather")
+        n_leaves = _p16_same_leaves(_p16_flat(ref_eng.cache["attn"]),
+                                    _p16_flat(eng.cache["attn"]), what)
+        if paged:
+            assert eng.pool_stats()["pages_used"] == 0, f"{what}: pages"
+        assert all(counts[k] == m * ref_counts[k] for k in counts), \
+            (what, counts, ref_counts)
+        row = dict(policy=policy, backend=(eng.backend
+                                           or AttendBackend.GATHER).value,
+                   layout=layout, m=m,
+                   ms_per_step=rep["decode_ms_per_step"],
+                   unsharded_ms_per_step=ref_rep["decode_ms_per_step"],
+                   host_ms_per_step=rep["host_ms_per_step"],
+                   capture_s=rep["capture_s"], launches=counts,
+                   launches_unsharded=ref_counts, leaves=n_leaves,
+                   leaves_at_first_decode=n_first, **_p16_bytes(eng, m))
+        if int4:
+            read = "quant_decode_attention" + ("_paged" if paged else "")
+            assert counts[read] > 0 and counts["srft_quant"] > 0, counts
+            launches[f"p16_{layout}_m{m}"] = counts
+            reads, ref_reads = at[1], ref_at[1]
+            assert torch.equal(reads["kernel"], ref_reads["kernel"]), what
+            err = float((reads["kernel"] - reads["blockwise"]).abs().max())
+            scale = max(1.0, float(reads["blockwise"].abs().max()))
+            assert err <= B1_ATOL * scale, (what, err, scale)
+            row["kernel_vs_blockwise_max_abs"] = err
+        rows.append(row)
+        log("16a " + json.dumps(row))
+        log(f"[{CARD}] {what}: streams, {n_first} cache leaves at the "
+            f"first decode and {n_leaves} at the end equal the unsharded "
+            f"{row['backend']} engine's; {row['ms_per_step']:.3f} ms/step "
+            f"vs {row['unsharded_ms_per_step']:.3f} unsharded (events; the "
+            f"m shards run one after another on one card); KV "
+            f"{row['kv_bytes_per_shard']} B a shard of {row['kv_bytes']}"
+            + (f"; launches {m} x the unsharded run's, B3 "
+               f"{counts['srft_quant']}, "
+               f"{'B2' if paged else 'B1'} {counts[read]}; layer 0's "
+               f"sharded KERNEL read == the unsharded one, "
+               f"{err:.3e} from BLOCKWISE" if int4 else ""))
+        del eng, done
+    # the undersized pool: preemptions on the mesh as off it
+    small = [r for r in reqs if len(r.prompt) in (P16_PROMPTS[0],
+                                                  P16_PROMPTS[-1])]
+    pools = {}
+    for mesh in (None, _p16_mesh(2)):
+        pools[mesh is None] = run("int4-srft", "kernel", True, mesh, small,
+                                  capacity=2,
+                                  n_pages=P16_S_MAX // PAGE_SIZE + 1)
+        assert pools[mesh is None][0].n_preemptions > 0, \
+            "16a: the pool did not preempt"
+    what = "16a preempting pool m=2"
+    ref_pool, pool = pools[True], pools[False]
+    _p16_streams(model, params, ref_pool[1], pool[1], what, 2, 2, "kernel")
+    _p16_same_leaves(_p16_flat(ref_pool[0].cache["attn"]),
+                     _p16_flat(pool[0].cache["attn"]), what)
+    log(f"[{CARD}] {what}: {pool[0].n_preemptions} preemptions (unsharded "
+        f"{ref_pool[0].n_preemptions}); streams and cache equal the "
+        f"unsharded pool's")
+    # spec k = 4 on the mesh against the plain unsharded stream
+    four = reqs[2:]
+    eng, spec, _, _, _ = run("int4-srft", "kernel", True, _p16_mesh(2),
+                             four, spec_k=SPEC_K)
+    plain = refs["int4-srft", "kernel", True][1]
+    agree = {r.rid: _first_divergence(list(plain[r.rid].tokens),
+                                      list(spec[r.rid].tokens))
+             for r in four}
+    for r in four:
+        if agree[r.rid] < r.max_new_tokens:
+            _tie_check(plain[r.rid].tokens, spec[r.rid].tokens,
+                       forced_logits(model, params, "int4-srft", "kernel",
+                                     r.prompt, plain[r.rid].tokens,
+                                     eng._rots),
+                       f"16a spec m=2 request {r.rid}")
+    log(f"[{CARD}] 16a spec k={SPEC_K} m=2: drafted {eng.n_drafted}, "
+        f"accepted {eng.n_accepted}; tokens equal to the plain unsharded "
+        f"stream for {agree} of {[r.max_new_tokens for r in four]}")
+    return launches, dict(rows=rows, spec_agree=agree)
+
+
+def p16_engine(model, params) -> tuple[dict, dict]:
+    """(b) ``Engine(mesh=)`` at batch 1, KERNEL: graph == eager ==
+    unsharded, B1 and B3 launched m times as often as unsharded."""
+    out, launches = {}, {}
+    mesh = _p16_mesh(2)
+
+    def run(mesh_, graph, n_new=P16_ENGINE_NEW):
+        from repro_torch.launch.engine import Engine
+
+        g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        prompt = torch.randint(0, model.cfg.vocab_size,
+                               (1, P16_ENGINE_PROMPT), generator=g,
+                               device="cuda")
+        eng = Engine(model, backend="kernel", graph=graph, mesh=mesh_)
+        cache = eng.shard_cache(model.init_cache(
+            1, P16_S_MAX, policy="int4-srft", ragged=True,
+            generator=torch.Generator().manual_seed(SEED)))
+        p = eng.shard_params(params)
+        _zero_counters()
+        lg, cache = eng.prefill(p, prompt, cache)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        tok1, cache = eng.decode(p, tok, cache, 1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        rest, cache = eng.decode(p, tok1, cache, n_new - 2)
+        b.record()
+        torch.cuda.synchronize()
+        toks = torch.cat([tok, tok1, rest], dim=1).cpu()
+        return toks, cache, a.elapsed_time(b) / (n_new - 2), _counters()
+
+    ref_t, ref_c, ref_ms, ref_n = run(None, True)
+    t, c, ms, n = run(mesh, True)
+    eager_t, _, eager_ms, _ = run(mesh, False, P16_EAGER_NEW)
+    what = "16b Engine m=2"
+    assert torch.equal(eager_t, t[:, :P16_EAGER_NEW]), f"{what}: graph != eager"
+    if not torch.equal(t, ref_t):
+        rep = p16_op_report(model, params, 2, 1, "kernel")
+        raise AssertionError(f"{what}: tokens part from the unsharded "
+                             f"run's at {_first_divergence(ref_t[0], t[0])}"
+                             f"; {rep}")
+    n_leaves = _p16_same_leaves(_p16_flat(ref_c["attn"]),
+                                _p16_flat(c["attn"]), what)
+    assert all(n[k] == 2 * ref_n[k] for k in n) and \
+        n["quant_decode_attention"] > 0, (what, n, ref_n)
+    launches["p16_engine_m2"] = n
+    out.update(graph=ms, eager=eager_ms, unsharded=ref_ms, launches=n)
+    log(f"[{CARD}] {what}: graph == eager over {P16_EAGER_NEW} tokens; "
+        f"{P16_ENGINE_NEW} tokens and {n_leaves} cache leaves equal the "
+        f"unsharded graph run's; B1 {n['quant_decode_attention']}, B3 "
+        f"{n['srft_quant']} (2 x unsharded); {ms:.3f} ms/token graph, "
+        f"{eager_ms:.3f} eager, {ref_ms:.3f} unsharded (events)")
+    return launches, out
+
+
+def p16_pipeline(model, params) -> dict:
+    """(c) the GPipe forward over the model's blocks, 2 and 4 stages on a
+    ("pod",) mesh of cuda:0, against the blocks run in order."""
+    from repro_torch.distributed.pipeline import pipeline_forward
+
+    blocks = params["blocks"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x = torch.randn((4, 1, 256, model.cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+
+    def layer_fn(p, h):
+        return model._block_full(p, h)[0]
+
+    with torch.inference_mode():
+        ref = torch.empty_like(x)
+        for mb in range(x.shape[0]):
+            h = x[mb]
+            for p in blocks:
+                h = layer_fn(p, h)
+            ref[mb] = h
+        out = {}
+        for stages in (2, 4):
+            got = pipeline_forward(layer_fn, blocks, x,
+                                   mesh=_p16_mesh(stages, ("pod",)),
+                                   axis="pod", n_layers=len(blocks))
+            assert torch.equal(got, ref), f"16c {stages} stages"
+            out[stages] = True
+    log(f"[{CARD}] 16c pipeline_forward: {len(blocks)} blocks in 2 and 4 "
+        f"stages equal the sequential loop bit for bit (4 microbatches "
+        f"of 256 tokens)")
+    return out
+
+
+def p16_cli() -> dict:
+    """(d) the serve CLI: ``--mesh 1`` serves; ``--mesh 2`` on one card
+    exits naming the one visible device."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cli(*extra):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "internlm2-1.8b", *P16_CLI, *extra], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+
+    from repro_torch.launch import serve as serve_cli
+
+    t0 = time.perf_counter()
+    r = cli("--mesh", "1")
+    assert r.returncode == 0, f"16d --mesh 1: {r.stderr[-2000:]}"
+    assert r.stdout.count("[done]") == 2 and "mesh-sharded" not in r.stdout
+    t1 = time.perf_counter()
+    # the same argv with --mesh 2 exits before it builds anything: run
+    # in this process (a subprocess's start would be most of its time)
+    try:
+        serve_cli.main(["--arch", "internlm2-1.8b", *P16_CLI, "--mesh", "2"])
+        raise AssertionError("16d --mesh 2 did not exit")
+    except SystemExit as e:
+        msg = str(e.code)
+    assert "than the 1 visible" in msg, msg
+    log(f"[{CARD}] 16d serve CLI --mesh 1: exit 0 in {t1 - t0:.1f} s; "
+        f"--mesh 2: SystemExit, {msg[:90]}...")
+    return dict(mesh1_s=t1 - t0, mesh2_s=time.perf_counter() - t1)
+
+
+def p16_phase(model, params) -> dict:
+    """Phase 16 (see the module doc).  Returns launches by path."""
+    t0 = time.perf_counter()
+    launches, batch = p16_batch(model, params)
+    t1 = time.perf_counter()
+    engine_launches, engine = p16_engine(model, params)
+    launches.update(engine_launches)
+    t2 = time.perf_counter()
+    p16_pipeline(model, params)
+    t3 = time.perf_counter()
+    cli = p16_cli()
+    t4 = time.perf_counter()
+    log("16 summary " + json.dumps(dict(
+        batch=batch, engine=engine, cli=cli, seconds=dict(
+            batch=t1 - t0, engine=t2 - t1, pipeline=t3 - t2,
+            cli=t4 - t3))))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4505,6 +5027,7 @@ def main() -> int:
     secs = {}  # phase -> seconds
     os.environ["REPRO_BF16_DOTS"] = "1"  # read when repro_torch.models loads
     sys.path.insert(0, str(ROOT / "src"))
+    _read_card_rates()
     card = CARD = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4570,6 +5093,7 @@ def main() -> int:
     offload = timed("offload", offload_phase, model, params)
     learned = timed("learned", learned_phase, model, params)
     served = timed("serve", serve_phase, model, params)
+    sharded = timed("p16", p16_phase, model, params)
     del model, params, mono, pre_mono  # their engines hold ~10 GB
     _free_cuda()
     log(f"before phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -4584,7 +5108,7 @@ def main() -> int:
     log(f"[{card}] phase 15 {secs['p15']:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
                "quality": quality, **learned, **served, **configs,
-               **families}
+               **families, **sharded}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

@@ -143,8 +143,14 @@ class CacheState:
         """True when K/V live in a page pool (paged states are ragged)."""
         return isinstance(getattr(self.data, "kv", self.data), PagedData)
 
-    def nbytes(self, *, persistent_only: bool = True) -> int:
-        return self.policy.nbytes(self, persistent_only=persistent_only)
+    def nbytes(self, *, persistent_only: bool = True,
+               per_shard: bool = False) -> int:
+        """Cache bytes, global-logical: the same figure whether or not the
+        state is sharded over a mesh (``launch/sharded_cache.py``).
+        ``per_shard=True`` counts one shard's resident bytes; on a plain
+        state it changes nothing."""
+        return self.policy.nbytes(self, persistent_only=persistent_only,
+                                  per_shard=per_shard)
 
 
 _REGISTRY: dict[str, type] = {}
@@ -422,16 +428,23 @@ class BF16Policy:
         kvcache.set_length(state.data, new_length)
         return state
 
-    def nbytes(self, state, *, persistent_only: bool = True):
+    def nbytes(self, state, *, persistent_only: bool = True,
+               per_shard: bool = False):
         """Cache bytes; for a paged state the whole pool (the allocation),
-        plus the page table and refcounts unless ``persistent_only``."""
+        plus the page table and refcounts unless ``persistent_only``.
+        ``per_shard`` is a no-op on a plain state (a sharded state's
+        policy counts one shard)."""
         d = state.data
         if state.is_paged:
             n = _leaf_bytes(*d.pools)
             return n if persistent_only else n + paged.meta_nbytes(d)
         return _leaf_bytes(d.k, d.v)
 
-    def compression_ratio(self, state) -> float:
+    def bf16_equiv_bytes(self, state) -> int:
+        """The bytes of the same K/V in bf16 (the ratio's numerator)."""
+        return self.nbytes(state)
+
+    def compression_ratio(self, state, *, per_shard: bool = False) -> float:
         return 1.0
 
 
@@ -657,7 +670,9 @@ class Int4SRFTPolicy:
         return QuantKVCache(kp, ks, vp, vs, *pd.residual, pd.length)
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
-               sliding_window=None):
+               sliding_window=None, plan_rows=None):
+        """``plan_rows``: B1/B2's split-K plan's row count (the kernel
+        wrappers' ``plan_rows``); the other reads ignore it."""
         backend = AttendBackend.parse(backend)
         d = state.data
         if backend is AttendBackend.KERNEL and sliding_window is not None:
@@ -670,10 +685,12 @@ class Int4SRFTPolicy:
             )
 
             if state.is_paged:
-                return decode_attention_kernel_paged(q, d.kv, d.rot_k,
-                                                     d.rot_v, scale=scale)
+                return decode_attention_kernel_paged(
+                    q, d.kv, d.rot_k, d.rot_v, scale=scale,
+                    plan_rows=plan_rows)
             return decode_attention_kernel(q, d.kv, d.rot_k, d.rot_v,
-                                           scale=scale, blk=kv_block)
+                                           scale=scale, blk=kv_block,
+                                           plan_rows=plan_rows)
         kv = self._dense_kv_view(d.kv) if state.is_paged else d.kv
         if backend is AttendBackend.BLOCKWISE:
             return decode_attention_quant_blockwise(
@@ -724,11 +741,13 @@ class Int4SRFTPolicy:
             kvcache.truncate_rows(kv, new_length, snap_k, snap_v, base_len)
         return state
 
-    def nbytes(self, state, *, persistent_only: bool = True):
+    def nbytes(self, state, *, persistent_only: bool = True,
+               per_shard: bool = False):
         """Persistent bytes: packed codes + scales (for a paged state the
         whole pool: that is the allocation).  ``persistent_only=False``
         adds the O(W) fp32 residual window and, paged, the page table and
-        refcounts.  The rotations (model constants) are never counted."""
+        refcounts.  The rotations (model constants) are never counted.
+        ``per_shard`` is a no-op on a plain state."""
         kv = state.data.kv
         if state.is_paged:
             n = _leaf_bytes(*kv.pools)
@@ -740,13 +759,17 @@ class Int4SRFTPolicy:
             n += _leaf_bytes(kv.k_residual, kv.v_residual)
         return n
 
-    def compression_ratio(self, state) -> float:
-        """bf16-equivalent bytes / persistent bytes (paper §4.5)."""
+    def bf16_equiv_bytes(self, state) -> int:
+        """The bytes of the same K/V vectors in bf16."""
         kv = state.data.kv
         k_packed = kv.pools[0] if state.is_paged else kv.k_packed
         d = k_packed.shape[-1] * 2
         n_vectors = k_packed.numel() // (d // 2)
-        return 2 * 2 * n_vectors * d / self.nbytes(state)
+        return 2 * 2 * n_vectors * d
+
+    def compression_ratio(self, state, *, per_shard: bool = False) -> float:
+        """bf16-equivalent bytes / persistent bytes (paper §4.5)."""
+        return self.bf16_equiv_bytes(state) / self.nbytes(state)
 
 
 # ---------------------------------------------------------------------------
@@ -974,17 +997,23 @@ class Int8PerTokenPolicy:
         kvcache.set_length(state.data, new_length)
         return state
 
-    def nbytes(self, state, *, persistent_only: bool = True):
+    def nbytes(self, state, *, persistent_only: bool = True,
+               per_shard: bool = False):
         """Codes + scales; for a paged state the whole pool, plus the page
-        table and refcounts unless ``persistent_only``."""
+        table and refcounts unless ``persistent_only``.  ``per_shard`` is
+        a no-op on a plain state."""
         d = state.data
         if state.is_paged:
             n = _leaf_bytes(*d.pools)
             return n if persistent_only else n + paged.meta_nbytes(d)
         return _leaf_bytes(*d.leaves())
 
-    def compression_ratio(self, state) -> float:
-        """bf16-equivalent bytes / persistent bytes."""
+    def bf16_equiv_bytes(self, state) -> int:
+        """The bytes of the same K/V elements in bf16."""
         k_codes = state.data.pools[0] if state.is_paged \
             else state.data.k_codes
-        return 2 * 2 * k_codes.numel() / self.nbytes(state)
+        return 2 * 2 * k_codes.numel()
+
+    def compression_ratio(self, state, *, per_shard: bool = False) -> float:
+        """bf16-equivalent bytes / persistent bytes."""
+        return self.bf16_equiv_bytes(state) / self.nbytes(state)

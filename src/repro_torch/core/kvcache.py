@@ -103,6 +103,15 @@ class BF16KVCache:
         return self.k.shape[-2]
 
 
+# the rows a write rotates, as indices into its (B, H, S, d) K or V
+# (``Rotation.forward_at``): a decode token's, or a prompt's tail
+TOKEN = (slice(None), slice(None), 0)
+
+
+def tail_from(n: int) -> tuple:
+    return (..., slice(n, None), slice(None))
+
+
 def _zero_length(batch: int, ragged: bool, device) -> Length:
     if ragged:
         return torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -166,8 +175,8 @@ def prefill(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
         cache.v_packed[:, :, :plen] = vp
         cache.v_scales[:, :, :plen] = vs
     if S - plen:
-        cache.k_residual[:, :, :S - plen] = rot_k.forward(k[..., plen:, :])
-        cache.v_residual[:, :, :S - plen] = rot_v.forward(v[..., plen:, :])
+        cache.k_residual[:, :, :S - plen] = rot_k.forward_at(k, tail_from(plen))
+        cache.v_residual[:, :, :S - plen] = rot_v.forward_at(v, tail_from(plen))
     cache.length = all_rows_at(cache.length, S)
     return cache
 
@@ -180,8 +189,8 @@ def decode_update(cache: QuantKVCache, rot_k: Rotation, rot_v: Rotation,
     W, g = cache.window, cache.group
     _check_room(cache, cache.length + 1)
     idx = cache.length % W
-    cache.k_residual[:, :, idx] = rot_k.forward(k[:, :, 0])
-    cache.v_residual[:, :, idx] = rot_v.forward(v[:, :, 0])
+    cache.k_residual[:, :, idx] = rot_k.forward_at(k, TOKEN)
+    cache.v_residual[:, :, idx] = rot_v.forward_at(v, TOKEN)
     cache.length += 1
     if idx == W - 1:
         off = cache.length - W  # first token index of the window
@@ -234,8 +243,8 @@ def decode_update_ragged(cache: QuantKVCache, rot_k: Rotation,
     idx = L % W
     # rotated as (B, H, d), the plain update's shape: the same product,
     # so a ragged single stream writes the plain one's bytes
-    ring_write(cache.k_residual, rot_k.forward(k[:, :, 0]), idx)
-    ring_write(cache.v_residual, rot_v.forward(v[:, :, 0]), idx)
+    ring_write(cache.k_residual, rot_k.forward_at(k, TOKEN), idx)
+    ring_write(cache.v_residual, rot_v.forward_at(v, TOKEN), idx)
     flush = idx == W - 1
     off = (L + 1 - W).clamp(min=0)
     kp, ks = quantize_rotated(cache.k_residual, group=g)
@@ -280,10 +289,10 @@ def prefill_chunk_ragged(cache: QuantKVCache, rot_k: Rotation,
                          (cache.v_packed, vp), (cache.v_scales, vs)):
             chunk_write(buf, val, L)
     if C - packed_c:
-        cache.k_residual[:, :, :C - packed_c] = rot_k.forward(
-            k[..., packed_c:, :])
-        cache.v_residual[:, :, :C - packed_c] = rot_v.forward(
-            v[..., packed_c:, :])
+        cache.k_residual[:, :, :C - packed_c] = rot_k.forward_at(
+            k, tail_from(packed_c))
+        cache.v_residual[:, :, :C - packed_c] = rot_v.forward_at(
+            v, tail_from(packed_c))
     L.add_(C)
     return cache
 

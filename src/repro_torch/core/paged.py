@@ -408,8 +408,8 @@ def int4_update_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
     g = k_res.shape[-1] // pd.pools[1].shape[-1]
     L = pd.length
     idx = L % W
-    kvcache.ring_write(k_res, rot_k.forward(k[:, :, 0]), idx)
-    kvcache.ring_write(v_res, rot_v.forward(v[:, :, 0]), idx)
+    kvcache.ring_write(k_res, rot_k.forward_at(k, kvcache.TOKEN), idx)
+    kvcache.ring_write(v_res, rot_v.forward_at(v, kvcache.TOKEN), idx)
     kp, ks = quantize_rotated(k_res, group=g)
     vp, vs = quantize_rotated(v_res, group=g)
     write_slab(pd, (kp, ks, vp, vs), (L + 1 - W).clamp(min=0), idx == W - 1)
@@ -434,8 +434,10 @@ def int4_prefill_chunk_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
         vp, vs = rotate_quantize(v[..., :packed_c, :], rot_v, group=g)
         write_chunk(pd, (kp, ks, vp, vs), pd.length)
     if C - packed_c:
-        k_res[:, :, :C - packed_c] = rot_k.forward(k[..., packed_c:, :])
-        v_res[:, :, :C - packed_c] = rot_v.forward(v[..., packed_c:, :])
+        k_res[:, :, :C - packed_c] = rot_k.forward_at(
+            k, kvcache.tail_from(packed_c))
+        v_res[:, :, :C - packed_c] = rot_v.forward_at(
+            v, kvcache.tail_from(packed_c))
     pd.length.add_(C)
     return pd
 
@@ -444,9 +446,11 @@ def int4_prefill_chunk_paged(pd: PagedData, rot_k, rot_v, k: torch.Tensor,
 # Accounting
 # ---------------------------------------------------------------------------
 
-def meta_nbytes(pd: PagedData) -> int:
+def meta_nbytes(pd: PagedData, *, per_shard: bool = False) -> int:
     """Bytes of paging metadata: page table + allocator refcounts (the
     device table; its host copy and the host refcounts are the same
-    size)."""
+    size).  Under a mesh every shard holds the same copy, so the
+    ``per_shard`` figure (one shard's) equals the global one; the flag
+    exists so that a per-device sum never books a "shard" of it."""
     return (pd.page_table.numel() * pd.page_table.element_size()
             + pd.pool.refcount.numel() * pd.pool.refcount.element_size())

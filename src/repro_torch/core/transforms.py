@@ -115,6 +115,13 @@ class Rotation:
         """x (..., d) -> rotated-and-rescaled (..., d), fp32."""
         return (x.float() @ self.matrix.T) * self.lam
 
+    def forward_at(self, x: torch.Tensor, index) -> torch.Tensor:
+        """``forward(x[index])``: a cache write names the rows it rotates
+        by an index into its input, so that a cache split by KV head can
+        rotate them once at full width, as the unsplit write does
+        (``launch/sharded_cache.py``)."""
+        return self.forward(x[index])
+
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         lam = self.lam.clamp_min(1e-6)  # paper: clamp at 1e-6
         return (y.float() / lam) @ self.matrix

@@ -11,7 +11,7 @@
    steps slower than ``straggler_factor`` x EWMA are recorded and the
    loop moves on.
 
-Elastic re-meshing (the reference's ``sharding_fn``) is ROADMAP A12; on
+Elastic re-meshing (the reference's ``sharding_fn``) is ROADMAP A12b; on
 one device ``device_fn`` places the restored leaves.
 """
 from __future__ import annotations

@@ -13,7 +13,10 @@ runs its plain version (``ref.py``); on a CUDA tensor it launches
 ``csrc/quant_attention.cu`` (B1 or B2: the same split-K pass 1 with
 another token address, and the same combine pass) or raises.
 ``launches`` and ``paged_launches`` count the wrapper calls that
-launched B1 and B2.
+launched B1 and B2.  ``plan_rows`` sizes the split-K plan for another
+row count than the call's own: a read split by head over shards passes
+the unsplit read's ``B·Hkv``, so each row is reduced in the same order
+and the shards' outputs equal the unsplit read's bit for bit.
 """
 from __future__ import annotations
 
@@ -89,9 +92,10 @@ def _check(dev, expect: dict) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _plan(q_eff, kr, n_tiles, group):
-    """Checks shared by B1 and B2, then the split plan and the scratch:
-    (part_ml, part_acc, out, n_splits, tiles_per_split)."""
+def _plan(q_eff, kr, n_tiles, group, plan_rows=None):
+    """Checks shared by B1 and B2, then the split plan (for ``plan_rows``
+    rows, default the call's) and the scratch: (part_ml, part_acc, out,
+    n_splits, tiles_per_split)."""
     BH, G, d = q_eff.shape
     W, dev = kr.shape[1], q_eff.device
     if not 1 <= G <= MAX_G or d > 256 or d % 8 or d % group:
@@ -103,7 +107,8 @@ def _plan(q_eff, kr, n_tiles, group):
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     max_splits = max(1, (_COMBINE_WORDS - 2 * W * d - G * W - 3 * G)
                      // (G * (d + 3)))
-    n_splits, tps = split_plan(BH, n_tiles, _SMS[idx], max_splits)
+    n_splits, tps = split_plan(plan_rows or BH, n_tiles, _SMS[idx],
+                               max_splits)
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty((BH, n_splits, G, 2), **f32),
             torch.empty((BH, n_splits, G, d), **f32),
@@ -114,7 +119,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group):
+def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
+            plan_rows=None):
     global launches
     BH, G, d = q_eff.shape
     S, W = kp.shape[1], kr.shape[1]
@@ -133,7 +139,8 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group):
     # per-row lengths plan from S: B2 plans the same way, so a paged read
     # equals this one bitwise on the gathered view
     n_tiles = -(-(plen if plen_rows is None else S) // TILE)
-    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group)
+    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group,
+                                                  plan_rows)
     lib, fn = _fn("quant_decode_attention_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -148,7 +155,7 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group):
 
 
 def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
-                  page_table, group, page_size, H):
+                  page_table, group, page_size, H, plan_rows=None):
     global paged_launches
     ps = page_size
     BH, G, d = q_eff.shape
@@ -171,7 +178,8 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
     plen_rows = row_lengths(packed_len, BH, dev).contiguous()
     tlen_rows = row_lengths(total_len, BH, dev).contiguous()
     n_tiles = -(-(MP * ps) // TILE)  # B1's plan at S = MP * page_size
-    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group)
+    part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group,
+                                                  plan_rows)
     lib, fn = _fn("quant_decode_attention_paged_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -188,7 +196,8 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
 
 def quant_decode_attention(q_eff, k_packed, k_scales, v_packed, v_scales,
                            k_residual, v_residual, packed_len, total_len, *,
-                           group: int = 32, blk: int = 256) -> torch.Tensor:
+                           group: int = 32, blk: int = 256,
+                           plan_rows: int | None = None) -> torch.Tensor:
     """out_rot (BH, G, d) f32; arguments as ``ref.quant_decode_attention_ref``.
 
     ``blk`` is the plain version's tile (the reference kernel's); the CUDA
@@ -201,13 +210,14 @@ def quant_decode_attention(q_eff, k_packed, k_scales, v_packed, v_scales,
         raise ValueError(f"quant_decode_attention runs on cpu or cuda, not "
                          f"{q_eff.device}")
     return _launch(q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
-                   v_residual, packed_len, total_len, group)
+                   v_residual, packed_len, total_len, group, plan_rows)
 
 
 def quant_decode_attention_paged(q_eff, k_packed, k_scales, v_packed,
                                  v_scales, k_residual, v_residual, packed_len,
                                  total_len, page_table, *, group: int = 32,
-                                 page_size: int = 16, n_kv_heads: int = 1
+                                 page_size: int = 16, n_kv_heads: int = 1,
+                                 plan_rows: int | None = None
                                  ) -> torch.Tensor:
     """out_rot (BH, G, d) f32 over flattened pools ``(n_pages*H, page_size,
     ·)``; arguments as ``ref.quant_decode_attention_paged_ref``."""
@@ -221,7 +231,8 @@ def quant_decode_attention_paged(q_eff, k_packed, k_scales, v_packed,
                          f"not {q_eff.device}")
     return _launch_paged(q_eff, k_packed, k_scales, v_packed, v_scales,
                          k_residual, v_residual, packed_len, total_len,
-                         page_table, group, page_size, n_kv_heads)
+                         page_table, group, page_size, n_kv_heads,
+                         plan_rows)
 
 
 def _fold_query(q, rot_k, n_kv_heads, scale):
@@ -240,8 +251,8 @@ def _per_kv_row(x, n_kv_heads):
 
 
 def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,
-                            scale: float | None = None, blk: int = 256
-                            ) -> torch.Tensor:
+                            scale: float | None = None, blk: int = 256,
+                            plan_rows: int | None = None) -> torch.Tensor:
     """(B, Hq, 1, d) decode attention output in the original basis."""
     B, Hq, _, d = q.shape
     Hkv = cache.k_packed.shape[1]
@@ -256,12 +267,14 @@ def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,
         flat(cache.k_residual), flat(cache.v_residual),
         _per_kv_row(kvc.packed_len(cache), Hkv),
         _per_kv_row(cache.length, Hkv), group=cache.group, blk=blk,
+        plan_rows=plan_rows,
     )
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
 
 
 def decode_attention_kernel_paged(q: torch.Tensor, pd, rot_k, rot_v, *,
-                                  scale: float | None = None
+                                  scale: float | None = None,
+                                  plan_rows: int | None = None
                                   ) -> torch.Tensor:
     """(B, Hq, 1, d) decode attention over a paged int4 state
     (``core.paged.PagedData``: pools ``(k_packed, k_scales, v_packed,
@@ -281,5 +294,5 @@ def decode_attention_kernel_paged(q: torch.Tensor, pd, rot_k, rot_v, *,
         _fold_query(q, rot_k, Hkv, scale), *(flat(p) for p in pd.pools),
         flat(k_res), flat(v_res), _per_kv_row(plen, Hkv),
         _per_kv_row(L, Hkv), pd.page_table, group=group, page_size=ps,
-        n_kv_heads=Hkv)
+        n_kv_heads=Hkv, plan_rows=plan_rows)
     return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)

@@ -115,7 +115,20 @@ readback in ``_post_insert`` in both packages, so time to first token
 means the same in each.  Tracing adds no device sync.
 
 Sampling is greedy, or by temperature from the explicit ``generator``.
-Meshes (``mesh``) are not in this slice and raise.
+
+Multi-device serving (``mesh=``, a ``launch/mesh.py`` mesh; ref
+``batch_engine.py:185-201``, ``:326-340``, ``:494-528``, DESIGN.md §16):
+the slot cache, every staging row (monolithic, chunked, packed) and
+every restore target pass through ``_shard_cache_tree``, which splits
+each attention state by KV head over the 'model' axis
+(``launch/sharded_cache.py``); params and the token buffers pass through
+``_replicate_tree`` and stay on the lead device, where the scheduler,
+the projections and the sampler run once.  Every cache operation goes
+through the state's own policy (``st.policy``), which for a sharded state
+runs shard by shard, so each option works under a mesh unchanged, and
+streams and cache bytes equal the unsharded engine's.  A KERNEL read
+runs B1 or B2 on each shard's heads.  A mesh whose shards lie on more
+than one card steps eagerly.
 
     eng = BatchEngine(model, params, capacity=4, s_max=4608,
                       policy="int4-srft", backend="kernel", paged=True,
@@ -140,9 +153,20 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend, CacheState
 from repro_torch.core.paged import NULL_PAGE
-from repro_torch.launch.engine import GREEDY, Sampler, verify_pass
+from repro_torch.launch.engine import (
+    GREEDY,
+    Sampler,
+    mesh_allows_graph,
+    verify_pass,
+)
 from repro_torch.launch.graphs import StepGraph
+from repro_torch.launch.partitioning import replicate_tree
 from repro_torch.launch.prefix_store import PrefixStore
+from repro_torch.launch.sharded_cache import (
+    ShardedState,
+    shard_cache,
+    step_lengths,
+)
 
 __all__ = ["Request", "Completion", "BatchEngine"]
 
@@ -199,6 +223,9 @@ def _leaves(obj) -> Iterator[torch.Tensor]:
             yield from _leaves(v)
     elif isinstance(obj, CacheState):
         yield from _leaves(obj.data)
+    elif isinstance(obj, ShardedState):
+        for s in obj.shards:
+            yield from _leaves(s)
     elif dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             yield from _leaves(getattr(obj, f.name))
@@ -214,6 +241,8 @@ def _rebuild(obj, new: Iterator[torch.Tensor]):
         return type(obj)(_rebuild(v, new) for v in obj)
     if isinstance(obj, CacheState):
         return CacheState(obj.policy, _rebuild(obj.data, new))
+    if isinstance(obj, ShardedState):
+        return obj.map_shards(lambda s: _rebuild(s, new))
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
             f.name: _rebuild(getattr(obj, f.name), new)
@@ -234,7 +263,9 @@ class BatchEngine:
     ``spec_k`` (None: plain decode) turns on speculative decoding.
     ``offload_bytes`` (None: no host tier) bounds the host prefix tier's
     RAM, and ``offload_dir`` gives it a disk tier.  ``trace`` is a
-    ``TraceRecorder`` (default: a disabled one)."""
+    ``TraceRecorder`` (default: a disabled one).  ``mesh`` shards the KV
+    cache by head (see the module docstring); its lead device must be
+    ``device``."""
 
     def __init__(self, model, params, *, capacity: int, s_max: int,
                  policy=None, backend: "AttendBackend | str | None" = None,
@@ -249,10 +280,6 @@ class BatchEngine:
                  offload_bytes: Optional[int] = None,
                  offload_dir: Optional[str] = None, trace=None, mesh=None,
                  graph: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchEngine(mesh=...) is not ported yet (ROADMAP A12: "
-                "multi-device serving)")
         if model.cfg.family not in ATTENTION_FAMILIES:
             raise NotImplementedError(
                 f"ragged slot caches need a pure-attention family (got "
@@ -270,9 +297,11 @@ class BatchEngine:
         if graph and not on_card:
             raise ValueError(f"graph=True needs a CUDA engine (got "
                              f"{self.device}); the CPU steps eagerly")
+        on_card = on_card and mesh_allows_graph(mesh, graph)
         self.graph = on_card if graph is None else graph
+        self.mesh = mesh
         self.model = model
-        self.params = params
+        self.params = self._replicate_tree(params)
         self.capacity = capacity
         self.policy = model.cache_policy(policy)
         self.backend = None if backend is None else AttendBackend.parse(backend)
@@ -325,10 +354,10 @@ class BatchEngine:
         self.trace = trace
         self._slice_axes: Optional[tuple] = None
 
-        self.cache = model.init_cache(
+        self.cache = self._shard_cache_tree(model.init_cache(
             capacity, s_max, policy=self.policy, rots=rots, ragged=True,
             n_pages=self.n_pages if paged else None,
-            page_size=page_size if paged else None)
+            page_size=page_size if paged else None))
         # every admission row is built with the slot cache's rotations
         # (an insert_row requirement)
         first = self.cache["attn"][0].data
@@ -448,7 +477,7 @@ class BatchEngine:
                                  device=dev)
         self._hlen = torch.zeros((cap,), dtype=torch.long, device=dev)
         self._spec_counts = torch.zeros((2,), dtype=torch.long, device=dev)
-        self._snaps = [self.policy.snapshot_rows(st)
+        self._snaps = [st.policy.snapshot_rows(st)
                        for st in self.cache["attn"]]
         self._toks = torch.zeros((cap, self.chunk * k), dtype=torch.long,
                                  device=dev)
@@ -491,6 +520,17 @@ class BatchEngine:
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget must be >= 1, got {prefill_budget}")
+
+    # ---------------------------------------------------------- mesh layout
+    def _shard_cache_tree(self, cache: dict) -> dict:
+        """A fresh cache laid out over the mesh: each attention state split
+        by KV head over 'model' where divisible, else kept whole
+        (``serve_cache_specs``).  Identity without a mesh."""
+        return shard_cache(cache, self.mesh)
+
+    def _replicate_tree(self, tree):
+        """Every tensor on the mesh's lead device; identity without one."""
+        return replicate_tree(tree, self.mesh)
 
     # ------------------------------------------------------- paged pool state
     def _pd(self):
@@ -624,7 +664,7 @@ class BatchEngine:
         store = self.prefix_store
         fresh = [(k, p) for k, p in spill if k not in store]
         if fresh:
-            per_layer = [self.policy.export_pages(st, [p for _, p in fresh])
+            per_layer = [st.policy.export_pages(st, [p for _, p in fresh])
                          for st in self.cache["attn"]]
             for j, (k, _) in enumerate(fresh):
                 store.put(k, tuple(
@@ -640,7 +680,7 @@ class BatchEngine:
         """Retire the masked rows in every layer; their positions go to 0
         (in place, as every write between chunks)."""
         for st in self.cache["attn"]:
-            self.policy.reset_rows(st, mask)
+            st.policy.reset_rows(st, mask)
         pos = self.cache["pos"]
         pos.masked_fill_(torch.as_tensor(mask, device=pos.device), 0)
         if self.paged:
@@ -707,7 +747,7 @@ class BatchEngine:
                 if self._slot_req[s] is not None]
         mapped = int((self._ptab_host[live] != NULL_PAGE).sum()) if live \
             else 0
-        pool_bytes = sum(self.policy.nbytes(st) for st in self.cache["attn"])
+        pool_bytes = sum(st.nbytes() for st in self.cache["attn"])
         page_bytes = pool_bytes / self.n_pages
         # the host RAM the pool spends besides the device: the mirrors,
         # the prefix indexes and the host tier
@@ -817,8 +857,8 @@ class BatchEngine:
         t0p = time.perf_counter()
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
-        row = self.model.init_cache(1, self.s_max, policy=self.policy,
-                                    rots=self._rots, ragged=True)
+        row = self._shard_cache_tree(self.model.init_cache(
+            1, self.s_max, policy=self.policy, rots=self._rots, ragged=True))
         logits, row = self.model.prefill(self.params, prompt, row)
         tok0 = self._draw_tok0(req, logits)
         self._insert_row(req, slot, row, tok0, plen, plan)
@@ -851,8 +891,8 @@ class BatchEngine:
                                         rid=req.rid, tier="device",
                                         pages=len(shared))
             for st, r in zip(self.cache["attn"], row["attn"]):
-                self.policy.insert_row_paged(st, r, slot, shared,
-                                             len(shared), n_new)
+                st.policy.insert_row_paged(st, r, slot, shared, len(shared),
+                                           n_new)
             self._slot_seq[slot] = self._admit_seq
             self._admit_seq += 1
             self._orig.setdefault(req.rid, (prompt_len, req.max_new_tokens))
@@ -861,7 +901,7 @@ class BatchEngine:
         else:
             self._record_tier(req.rid, "none")
             for st, r in zip(self.cache["attn"], row["attn"]):
-                self.policy.insert_row(st, r, slot)
+                st.policy.insert_row(st, r, slot)
         self.cache["pos"][slot] = row["pos"][0]
         self.tok[slot] = tok0[0]
 
@@ -993,8 +1033,8 @@ class BatchEngine:
             device=self.device)
         L = int(prompts.shape[-1])
         t0p = time.perf_counter()
-        staged = self.model.init_cache(k, self.s_max, policy=self.policy,
-                                       rots=self._rots, ragged=True)
+        staged = self._shard_cache_tree(self.model.init_cache(
+            k, self.s_max, policy=self.policy, rots=self._rots, ragged=True))
         logits, staged = self.model.prefill(self.params, prompts, staged)
         tr.span_at("prefill.packed", t0p, cat="prefill", rows=k, tokens=L,
                    rids=[r.rid for r in reqs])
@@ -1052,6 +1092,8 @@ class BatchEngine:
         axes = self._row_slice_axes()
 
         def row(st):
+            if isinstance(st, ShardedState):
+                return st.map_shards(row)
             views = (t if ax is None else t.narrow(ax, j, 1)
                      for t, ax in zip(_leaves(st), axes))
             return _rebuild(st, views)
@@ -1110,15 +1152,15 @@ class BatchEngine:
         stacked = [torch.stack([pl[j] for pl in payloads], dim=1).to(
             self.device) for j in range(len(payloads[0]))]
         for i, r in enumerate(row["attn"]):
-            self.policy.import_pages(r, tuple(leaf[i] for leaf in stacked),
-                                     n_tok)
+            r.policy.import_pages(r, tuple(leaf[i] for leaf in stacked),
+                                  n_tok)
         row["pos"].fill_(n_tok)
 
     def _seed(self, row: dict, pages: np.ndarray, n_tok: int) -> None:
         """Adopt the donor pages' bytes into the staging row, every layer,
         and set its length and position to ``n_tok``."""
         for r, st in zip(row["attn"], self.cache["attn"]):
-            self.policy.adopt_prefix(r, st, pages, n_tok)
+            r.policy.adopt_prefix(r, st, pages, n_tok)
         row["pos"].fill_(n_tok)
 
     def _raw_view(self, row: dict, n_shared: int, raw_k: torch.Tensor,
@@ -1128,7 +1170,7 @@ class BatchEngine:
         inverse-rotates (B4), so the prompt's suffix attends the prefix
         every decode step reads."""
         for i, st in enumerate(row["attn"]):
-            k, v = self.policy.raw_kv_view(st, n_shared)
+            k, v = st.policy.raw_kv_view(st, n_shared)
             raw_k[i, :, :, :n_shared] = k.to(raw_k.dtype)
             raw_v[i, :, :, :n_shared] = v.to(raw_v.dtype)
 
@@ -1142,8 +1184,8 @@ class BatchEngine:
         tr.req_mark(req.rid, "admit")
         prompt = np.asarray(req.prompt, np.int32)
         n_total = int(prompt.shape[-1])
-        row = self.model.init_cache(1, self.s_max, policy=self.policy,
-                                    rots=self._rots, ragged=True)
+        row = self._shard_cache_tree(self.model.init_cache(
+            1, self.s_max, policy=self.policy, rots=self._rots, ragged=True))
         shared_t = 0
         if self.paged and self.prefix_reuse and req.resume_tok is None:
             # the deeper tier wins; a device hit wins a tie (no copy)
@@ -1365,7 +1407,8 @@ class BatchEngine:
             return body
         if self._step_graph is None:
             state = [self.tok, self._active, self._budget, self.cache["pos"],
-                     *(st.length for st in self.cache["attn"])]
+                     *(st.length for st in self.cache["attn"]),
+                     *step_lengths(self.cache)]
             if spec:
                 state += [self._hist, self._hlen, self._spec_counts,
                           *(t for st in self.cache["attn"]

@@ -29,6 +29,18 @@ same step, one Python call after another, on either kind of cache.  It
 is the oracle the graph is held against, as the reference's per-step
 loop is for its scan.  Sampling draws from an explicit
 ``torch.Generator``; greedy decoding never syncs with the device.
+
+``Engine(mesh=)`` (ref ``engine.py:69-94``, ``:184-240``): ``shard_params``
+keeps the params on the mesh's lead device (replicated: every projection
+runs once there, at full width) and ``shard_cache`` splits each attention
+state by KV head over the 'model' axis (``launch/sharded_cache.py``), so
+only the cache writes and the attend run per shard and the tokens and
+cache bytes equal the unsharded engine's.  A KERNEL read runs B1 or B2
+on each shard's heads (the reference, whose Pallas read GSPMD cannot
+partition, falls back to BLOCKWISE there with a warning).  When
+every shard lies on one card the step is captured and replayed as
+without a mesh; a mesh whose shards lie on more than one card runs the
+eager loop, since nothing here can test a capture across cards.
 """
 from __future__ import annotations
 
@@ -41,12 +53,27 @@ import torch
 from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.launch.graphs import StepGraph
+from repro_torch.launch.partitioning import replicate_tree
+from repro_torch.launch.sharded_cache import shard_cache, step_lengths
 
 __all__ = ["Sampler", "GREEDY", "Engine", "generate", "draft_tokens",
-           "verify_pass"]
+           "verify_pass", "mesh_allows_graph"]
 
 GRAPH_KEY = "decode_graph"  # where a cache keeps its captured step
 SPEC_KEY = "spec_graph"  # where a cache keeps its captured verify pass
+
+
+def mesh_allows_graph(mesh, graph: Optional[bool]) -> bool:
+    """False for a mesh whose shards lie on more than one card (it steps
+    eagerly: a capture across cards is untested); ``graph=True`` there
+    raises."""
+    if mesh is None or len(mesh.cards) <= 1:
+        return True
+    if graph:
+        raise ValueError(
+            f"graph=True on a mesh over {len(mesh.cards)} cards: the "
+            f"captured step is held on one card only; use graph=False")
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,21 +258,37 @@ class Engine:
     """Generation for one (model, backend, sampler) configuration.
     ``graph`` (default: on a CUDA model) decodes through a captured CUDA
     graph; ``graph=False`` runs the eager loop.  A CPU model has only the
-    eager loop and refuses ``graph=True``."""
+    eager loop and refuses ``graph=True``.  ``mesh`` serves a cache laid
+    out by :meth:`shard_cache` (see the module docstring)."""
 
     def __init__(self, model, *, backend: "AttendBackend | str | None" = None,
                  sampler: Optional[Sampler] = None, kv_block: int = 512,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, mesh=None):
         on_card = model.device.type == "cuda"
         if graph and not on_card:
             raise ValueError(f"graph=True needs a CUDA model (got "
                              f"{model.device}); the CPU runs the eager loop")
+        on_card = on_card and mesh_allows_graph(mesh, graph)
         self.model = model
+        self.mesh = mesh
         self.backend = None if backend is None else AttendBackend.parse(backend)
         self.sampler = sampler if sampler is not None else GREEDY
         self.kv_block = kv_block
         self.graph = on_card if graph is None else graph
         self._pool = None  # the memory pool the engine's graphs share
+
+    def shard_params(self, params):
+        """Params for the mesh: kept on its lead device (replicated; every
+        projection runs once there at full width).  Identity without a
+        mesh."""
+        return replicate_tree(params, self.mesh)
+
+    def shard_cache(self, cache: dict, *, allow_split_k: bool = False):
+        """``cache`` laid out over the mesh: each attention state split by
+        KV head over 'model' where divisible, else kept whole
+        (``partitioning.serve_cache_specs``).  ``allow_split_k=True``
+        raises (ROADMAP A12b).  Identity without a mesh."""
+        return shard_cache(cache, self.mesh, allow_split_k=allow_split_k)
 
     def prefill(self, params, prompt, cache: dict):
         """Returns (last-token logits (B, 1, V), cache filled in place).
@@ -371,7 +414,7 @@ class Engine:
 
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        state = [s_tok, *model.step_state(cache)]
+        state = [s_tok, *model.step_state(cache), *step_lengths(cache)]
         graph = StepGraph(step, state, pool=self._pool,
                           generator=generator if sampler.temperature
                           else None)

@@ -8,7 +8,7 @@
         [--backend {gather,blockwise,kernel}] [--paged] \
         [--temperature T] [--top-k K] [--chunk N] \
         [--http] [--port P] [--stats-json PATH] [--trace-out PATH] \
-        [--calibrate] [--ckpt-dir DIR]
+        [--calibrate] [--ckpt-dir DIR] [--mesh N|auto]
 
 Builds the arch (optionally smoke-reduced), loads params from a
 checkpoint or initializes them from ``--seed``, optionally calibrates
@@ -36,8 +36,15 @@ trace ring at exit, and SIGUSR1 dumps its last ``--flight-window``
 seconds while the server runs.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card and
-without that flag it raises before building anything.  ``--mesh`` (a
-sharded server) is ROADMAP A12.  The dense, moe and vlm families go
+without that flag it raises before building anything.  ``--mesh N``
+(ref ``serve.py:167-170``, ``:318-343``) shards the KV cache by head over
+a ``(1, N)`` ('data', 'model') mesh of the first N visible cards (params
+and the scheduler on the first; DESIGN.md §16): N = 1, or a host with
+one device, means no mesh, and an N above the visible cards exits with
+the reference's message.  A simulated mesh, one device repeated, is
+built from Python (``launch/mesh.py``) and passed to the engines.  The
+report and ``/healthz`` add one device's bytes (``per_shard_bytes``)
+where they differ from the global figure.  The dense, moe and vlm families go
 through the ragged ``BatchEngine`` (a vlm's requests are text only, as the
 reference's are).  The hybrid, ssm and audio families are served
 single-stream (ref ``serve.py:259-267``, ``_serve_single_stream``): one
@@ -69,7 +76,8 @@ from repro_torch.core import calibrate as C
 from repro_torch.core.cache_api import AttendBackend, available_policies
 from repro_torch.data import DataIterator, SyntheticCorpus
 from repro_torch.launch.batch_engine import BatchEngine
-from repro_torch.launch.engine import Engine, Sampler
+from repro_torch.launch.engine import Engine, Sampler, mesh_allows_graph
+from repro_torch.launch.mesh import make_mesh, visible_cards
 from repro_torch.launch.server import (
     CompletionServer,
     ServingPipeline,
@@ -158,7 +166,11 @@ def main(argv: Optional[list[str]] = None) -> None:
                     help="self-speculative decoding: K-token verify "
                          "passes, greedy only, output equal to plain "
                          "decode")
-    ap.add_argument("--mesh", default=None, help="ROADMAP A12; raises")
+    ap.add_argument("--mesh", default=None,
+                    help="N | auto: shard the KV cache by head over a "
+                         "(1, N) ('data', 'model') mesh of visible cards, "
+                         "params and scheduler on the first (N=1: no "
+                         "mesh)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -192,11 +204,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (a sharded server) is ROADMAP A12; the port serves on "
-            "one device")
     dev = resolve_device(args.device)
+    mesh = _build_mesh(args.mesh, dev)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -243,7 +252,8 @@ def main(argv: Optional[list[str]] = None) -> None:
                           batch_per_shard=max(args.requests, 1),
                           seq_len=args.prompt_len, device=dev)
         return _serve_single_stream(cfg, model, params, it.next()["tokens"],
-                                    policy, backend, sampler, args, rots)
+                                    policy, backend, sampler, args, rots,
+                                    mesh=mesh)
     window = getattr(policy, "window", 1)
     s_max = args.s_max
     if s_max is None:
@@ -263,7 +273,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         device=dev, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget,
         offload_bytes=args.offload_bytes, offload_dir=args.offload_dir,
-        spec_k=args.spec_k, trace=trace)
+        spec_k=args.spec_k, trace=trace, mesh=mesh)
     _install_flight_recorder(trace, args)
     offload = (f", host offload {args.offload_bytes / 2**20:.0f} MiB"
                + (f" (+disk {args.offload_dir})" if args.offload_dir else "")
@@ -275,6 +285,9 @@ def main(argv: Optional[list[str]] = None) -> None:
                  f"{engine.prefill_budget} tok/quantum"
                  if args.prefill_chunk else "monolithic prefill")
     mode = "http/sse pipeline" if args.http else "closed-loop queue"
+    if mesh is not None:
+        mode += (f"; mesh-sharded x{mesh.shape['model']} "
+                 f"(KV by head, bit-identical)")
     spec = (f" spec-k={args.spec_k} (self-speculative, equal to plain)"
             if args.spec_k else "")
     step = "one CUDA graph per step" if engine.graph else "eager steps"
@@ -287,6 +300,27 @@ def main(argv: Optional[list[str]] = None) -> None:
     if args.http:
         return _serve_http(cfg, engine, policy, args)
     return _serve_queue(engine, policy, args)
+
+
+def _build_mesh(arg, dev):
+    """--mesh N | auto -> a (1, N) ('data', 'model') mesh of the first N
+    visible devices (the cards; the CPU is one device), or None for N = 1
+    or a one-device host.  The serving mesh only shards over 'model' (KV
+    heads); 'data' is there so the partitioning rules apply unchanged."""
+    if arg is None:
+        return None
+    devs = visible_cards() if dev.type == "cuda" else [dev]
+    n = len(devs) if arg == "auto" else int(arg)
+    if n <= 1:
+        return None
+    if n > len(devs):
+        raise SystemExit(
+            f"error: --mesh {n} asks for more devices than the {len(devs)} "
+            f"visible (a simulated mesh repeats one device: build it from "
+            f"Python with repro_torch.launch.mesh.make_mesh((1, {n}), "
+            f"('data', 'model'), devices=['{devs[0]}'] * {n}) and pass it "
+            f"as BatchEngine(mesh=) or Engine(mesh=))")
+    return make_mesh((1, n), ("data", "model"), devs[:n])
 
 
 def _install_flight_recorder(trace: TraceRecorder, args) -> None:
@@ -431,7 +465,7 @@ def _serve_http(cfg, engine: BatchEngine, policy, args) -> None:
 
 
 def _serve_single_stream(cfg, model, params, prompt, policy, backend,
-                         sampler, args, rots=None) -> None:
+                         sampler, args, rots=None, mesh=None) -> None:
     """The recurrent and audio families (ref ``serve.py:551-625``): one
     batch of equal-length prompts through ``Engine``, prefill then decode
     (one CUDA graph per step on a card, on a cache that keeps its lengths
@@ -459,7 +493,8 @@ def _serve_single_stream(cfg, model, params, prompt, policy, backend,
     s_max += (-s_max) % max(window, 1)
     batch = min(args.max_batch, prompt.shape[0])
     prompt = prompt[:batch]
-    graph = dev.type == "cuda"  # a graph replays device lengths
+    # a graph replays device lengths; a mesh over several cards is eager
+    graph = dev.type == "cuda" and mesh_allows_graph(mesh, None)
     init = torch.Generator().manual_seed(7)
     if cfg.family == "audio":
         frames = torch.randn((batch, AUDIO_FRAMES, cfg.d_model),
@@ -471,7 +506,10 @@ def _serve_single_stream(cfg, model, params, prompt, policy, backend,
     else:
         cache = model.init_cache(batch, s_max, policy=policy, rots=rots,
                                  generator=init, ragged=graph)
-    engine = Engine(model, backend=backend, sampler=sampler, graph=graph)
+    engine = Engine(model, backend=backend, sampler=sampler, graph=graph,
+                    mesh=mesh)
+    params = engine.shard_params(params)
+    cache = engine.shard_cache(cache)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     def sync():
@@ -496,7 +534,7 @@ def _serve_single_stream(cfg, model, params, prompt, policy, backend,
     ms_tok = t_decode * 1e3 / max(n_steps, 1)
     step = "one CUDA graph per step" if graph else "eager steps"
     print(f"[serve] arch={cfg.name} policy={pname} "
-          f"backend={backend.value} batch={batch} "
+          f"backend={engine.backend.value} batch={batch} "
           f"prompt={args.prompt_len} new={args.new_tokens} "
           f"({step}; single-stream family)")
     print(f"  prefill: {t_prefill * 1e3:.0f} ms "
@@ -547,6 +585,11 @@ def _cache_report(policy, state, *, engine=None, indent="  ") -> dict:
           f"{data['persistent_bytes'] / 1e3:.1f} KB "
           f"({data['compression_ratio']:.2f}x vs bf16, policy API; "
           f"{data['total_bytes'] / 1e3:.1f} KB with {extra})")
+    if "per_shard_bytes" in data:
+        print(f"{indent}per shard (one device of the mesh): "
+              f"{data['per_shard_persistent_bytes'] / 1e3:.1f} KB "
+              f"persistent KV, {data['per_shard_bytes'] / 1e3:.1f} KB with "
+              f"{extra}")
     stats = data.get("pool")
     if stats:
         print(f"{indent}pool: {stats['pages_used']}/{stats['n_pages']} "

@@ -44,6 +44,23 @@ from repro_torch.launch.server.pipeline import Backpressure, ServingPipeline
 __all__ = ["CompletionServer"]
 
 
+def _shard_bytes(engine) -> dict:
+    """Under a mesh, the cache's global bytes and, where it differs, one
+    device's (``per_shard_bytes``, DESIGN.md §16); nothing without one.
+    Shapes only: no device sync."""
+    if getattr(engine, "mesh", None) is None:
+        return {}
+    states = engine.cache["attn"]
+    total = sum(st.nbytes(persistent_only=False) for st in states)
+    per = sum(st.nbytes(persistent_only=False, per_shard=True)
+              for st in states)
+    out = {"mesh_model_shards": engine.mesh.shape.get("model", 1),
+           "cache_bytes": int(total)}
+    if per != total:
+        out["per_shard_bytes"] = int(per)
+    return out
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.0"  # connection-close delimits the SSE body
     server_version = "repro-serve/0.1"
@@ -81,6 +98,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "slots_active": pipe.engine.n_active,
                 "slots_capacity": pipe.engine.capacity,
                 **pipe.queue_depths(),
+                **_shard_bytes(pipe.engine),
             })
         elif parsed.path == "/metrics":
             self._text(200, pipe.metrics_text(), "text/plain; version=0.0.4")

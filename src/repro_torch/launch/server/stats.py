@@ -209,11 +209,21 @@ def cache_report_data(policy, state, engine=None) -> dict:
         "kv_applicable": True,
         "policy": policy.name,
         "layout": "paged pool" if is_paged else "slot cache",
-        "persistent_bytes": int(sum(policy.nbytes(st) for st in states)),
+        "persistent_bytes": int(sum(st.nbytes() for st in states)),
         "total_bytes": int(sum(st.nbytes(persistent_only=False)
                                for st in states)),
-        "compression_ratio": float(policy.compression_ratio(states[0])),
+        "compression_ratio": float(
+            states[0].policy.compression_ratio(states[0])),
     }
+    per_shard = int(sum(st.nbytes(persistent_only=False, per_shard=True)
+                        for st in states))
+    if per_shard != out["total_bytes"]:
+        # a cache sharded over a mesh (DESIGN.md §16): one device's
+        # resident footprint too (K/V shrink by the shard count, the
+        # replicated paging metadata does not)
+        out["per_shard_bytes"] = per_shard
+        out["per_shard_persistent_bytes"] = int(
+            sum(st.nbytes(per_shard=True) for st in states))
     stats = engine.pool_stats() if engine is not None else None
     if stats:
         out["pool"] = stats

@@ -11,7 +11,7 @@ to a CPU-trainable depth and width with the same wiring; ``--layers N``
 cuts the depth alone (the reference's CLI has no such flag).  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card and without
 that flag it raises before building anything.  ``--mesh`` (a sharded
-train step) is ROADMAP A12.  The data pipeline yields tokens only, so an
+train step) is ROADMAP A12b.  The data pipeline yields tokens only, so an
 audio arch (whose loss needs ``frames``) raises a ``ValueError`` that
 says so; the reference's CLI fails on the missing key inside its loss.
 """
@@ -72,7 +72,7 @@ def main(argv: Optional[list[str]] = None, *,
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--mesh", default=None, help="ROADMAP A12; raises")
+    ap.add_argument("--mesh", default=None, help="ROADMAP A12b; raises")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -88,7 +88,7 @@ def main(argv: Optional[list[str]] = None, *,
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh (a sharded train step) is ROADMAP A12; the port trains "
+            "--mesh (a sharded train step) is ROADMAP A12b; the port trains "
             "on one device")
     dev = resolve_device(args.device)
 

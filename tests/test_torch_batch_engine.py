@@ -349,9 +349,14 @@ def test_engine_validates_and_refuses_what_is_not_ported(lm):
     assert traced.trace is rec and not eng.trace.enabled
     eng.admit_packed([])
     assert not eng.has_work and eng.n_free_slots == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
-                    mesh=object())
+    # multi-device serving (A12a) is ported: a mesh shards the slot cache
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded_cache import ShardedState
+
+    sharded = BatchEngine(model, params, capacity=1, s_max=32, device="cpu",
+                          mesh=make_mesh((1, 2), ("data", "model"),
+                                         devices=["cpu"] * 2))
+    assert isinstance(sharded.cache["attn"][0], ShardedState)
     # the host prefix tier (A6) is ported: it refuses what the reference
     # refuses
     with pytest.raises(ValueError, match="paged=True"):

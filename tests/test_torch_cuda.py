@@ -4,7 +4,9 @@ PyTorch version on the same CUDA tensors, B4 on codes B3 wrote, and B2
 ``raw_kv_view`` through B4 against the CPU's, chunked admission against
 monolithic admission, a BLOCKWISE read replayed from a CUDA graph, and
 speculative decoding (a captured verify pass against the eager one, also
-across a flush boundary; spec == plain streams; the launches of a pass).
+across a flush boundary; spec == plain streams; the launches of a pass),
+and a cache sharded by head over a (1, 2) mesh of the card (graph ==
+eager == unsharded, streams and cache bytes).
 Marked ``cuda``: skips where no card is visible (the CPU tests hold the
 plain versions against the JAX reference).  On the card: ``python -m
 pytest -q tests/test_torch_cuda.py``.
@@ -851,3 +853,47 @@ def test_pipeline_equals_sync_with_the_graph_captured_under_a_scrape(
     assert set(scrapes) == {200}
     assert ran[1] > 0 and ran[2] > 0 and ran[0] == 0, ran
     assert eng.pool_stats()["pages_used"] == 0
+
+
+@pytest.mark.parametrize("backend", ["gather", "kernel"])
+def test_sharded_batch_graph_equals_eager_and_unsharded(dev, backend):
+    """On one card a (1, 2) mesh of the same device captures the decode
+    step: graph == eager == unsharded, streams and every cache leaf (the
+    capture's warm-up puts back every shard's lengths).  Under KERNEL each
+    shard reads through B2, which the eager sharded run launches twice as
+    often as the eager unsharded one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_attention import ops as qa
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.launch import sharded_cache as sc
+    from repro_torch.launch.batch_engine import BatchEngine, Request
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device=dev)
+    params = model.init(_gen(dev, 0))
+    mesh = make_mesh((1, 2), ("data", "model"), devices=[dev] * 2)
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(rid=i, prompt=torch.randint(0, 256, (n,), generator=g)
+                    .numpy(), max_new_tokens=m)
+            for i, (n, m) in enumerate(((9, 10), (17, 8), (23, 6)))]
+    kw = dict(policy="int4-srft", backend=backend, paged=True,
+              page_size=16, capacity=3, s_max=64, chunk=4)
+    out, b2 = {}, {}
+    for name, m, graph in (("ref", None, False), ("eager", mesh, False),
+                           ("graph", mesh, True)):
+        qa.paged_launches = 0
+        eng = BatchEngine(model, params, mesh=m, graph=graph, **kw)
+        out[name] = ({c.rid: tuple(c.tokens.tolist())
+                      for c in eng.run(list(reqs))}, eng)
+        b2[name] = qa.paged_launches
+    if backend == "kernel":
+        assert b2["ref"] > 0 and b2["eager"] == 2 * b2["ref"], b2
+    assert out["graph"][0] == out["eager"][0] == out["ref"][0]
+    for name in ("eager", "graph"):
+        for a, b in zip(out["ref"][1].cache["attn"],
+                        out[name][1].cache["attn"]):
+            la = pt.flatten_with_path(a)
+            lb = pt.flatten_with_path(sc.gather_state(b))
+            for (pth, x), (_, y) in zip(la, lb):
+                assert torch.equal(x, y), (name, pth)

@@ -31,6 +31,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     for sub in ("checkpoint/manager.py", "distributed/fault_tolerance.py",
                 "launch/train.py", "core/calibrate.py", "launch/serve.py",
                 "examples/serve_int4.py", "models/moe.py",
+                "launch/mesh.py", "launch/partitioning.py",
+                "launch/act_sharding.py", "launch/sharded_cache.py",
+                "distributed/pipeline.py",
                 *(f"launch/server/{m}.py" for m in (
                     "__init__", "tracing", "stats", "trace", "admission",
                     "pipeline", "http"))):

@@ -615,7 +615,8 @@ def test_cache_report_data_and_pool_metrics(lm):
 def test_serve_cli_closed_loop_and_refusals(tmp_path, capsys):
     """``python -m repro_torch.launch.serve`` on the CPU: the closed-loop
     queue (paged int4, calibrated lambda), its stats and trace files;
-    ``--mesh`` names ROADMAP A12."""
+    ``--mesh 2`` on a one-device host exits with the reference's message,
+    which says how to build a simulated mesh."""
     stats, trace = tmp_path / "s.json", tmp_path / "t.json"
     serve.main(["--arch", "smol-d64", "--device", "cpu", "--paged",
                 "--policy", "int4-srft", "--backend", "kernel",
@@ -630,7 +631,7 @@ def test_serve_cli_closed_loop_and_refusals(tmp_path, capsys):
     assert data["cache"]["pool"]["pages_used"] == 0
     assert len(data["timings"]) == 3
     assert json.loads(trace.read_text())["otherData"]["dropped"] == 0
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(SystemExit, match="1 visible.*make_mesh"):
         serve.main(["--arch", "smol-d64", "--device", "cpu", "--mesh", "2"])
 
 

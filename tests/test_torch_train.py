@@ -262,9 +262,9 @@ def test_train_cli_resume_is_exact(tmp_path, capsys):
 
 
 def test_train_cli_mesh_and_other_families_raise():
-    """--mesh still raises (A12).  The hybrid, ssm and audio families no
+    """--mesh still raises (A12b, sharded training).  The hybrid, ssm and audio families no
     longer do: smoke_config reduces each as the reference's does."""
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12b"):
         train.main(["--mesh", "1x1", "--device", "cpu"])
     from repro.configs import get_config as jget_config
     from repro.launch.train import smoke_config as jsmoke
