@@ -279,6 +279,41 @@ Phases (any failure exits non-zero):
      exits before building anything).  Where a stream parts, the phase
      fails naming the first differing op of one decode step
      (``p16_op_report``, with the prefill's cache bytes held equal).
+ 17. sharded training (``launch/sharded_train.py``, single-controller:
+     the batch split over the data axes, params gathered per data index,
+     the shards' gradients weighted by their loss-mask share and summed in
+     fp32, clipped, split onto the pieces, AdamW per device).  (a)
+     internlm2-1.8b at all 24 layers, bf16, 2 steps of 4 x 256 tokens at
+     lr 1e-3 under a seeded loss mask whose counts differ between the two
+     data shards, on one device and on (2, 1), (1, 2) and (2, 2) meshes
+     of cuda:0: each step's loss and grad norm within 2e-3 of the
+     single-device step's, or within twice the distance of the
+     single-device run with fp32 matmul operands where that is larger (a
+     sharded step rounds its products otherwise, and Adam's first update
+     parts at the elements whose gradient lies within that rounding of
+     0); every param leaf within Adam's bound on two trajectories (2.01 lr
+     a step plus a bf16 ulp a step); every piece of params and Adam state
+     global / split bytes on its device; (1, 2), one data index, equal to
+     one device bit for bit.  The same at MAIN_LAYERS on fp32 params and
+     activations (17a-fp32) under the CPU test's tolerances: loss and
+     grad norm within 1e-5, every leaf within 0.5 lr.  Logged: ms/step
+     (events), peak memory, the bytes the first device holds.  (b) at
+     MAIN_LAYERS: 3 steps on (2, 2), saved; restored on (2, 2), every
+     piece bit-equal, and step 4 from it equal to the uninterrupted step 4
+     (or within twice a rerun's spread, the differing leaves named);
+     restored on (2, 1) through ``sharding_fn`` by the new mesh's specs,
+     every piece on its device with the new split, every gathered leaf
+     bit-equal.  (c) the (2, 1)-restored params served by
+     ``Engine(mesh=)`` on (1, 2), int4-srft KERNEL, graph, 509 + 32
+     tokens (phase 16b's check): tokens and cache leaves equal the
+     unsharded engine's, B3 and B1 launched 2 x as often.  (d)
+     ``compressed_psum`` on the card, the reference test's 8 x 512 N(0, 1)
+     draw over 8 participants and layer 0's FFN up-projection gradient
+     (2048 x 8192, fp32, one per batch row) over 4: codes and scales
+     equal to the CPU's, every element within the participants' half
+     quantization steps of the exact sum, the reference input within
+     1e-2 relative.  (e) the training CLI: ``--mesh 1x1`` trains 2 steps
+     in a subprocess, ``--mesh 2x1`` exits naming the one card.
 The seconds of each phase are printed on one line (``phase seconds``)
 before the kernels' JSON line.
 Prints one JSON line describing every kernel, then, last, the line
@@ -287,6 +322,7 @@ non-zero before building anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2922,7 +2958,7 @@ def train_phase() -> dict:
     example = tree_map(lambda t: torch.empty_like(t, device="meta"), state)
     t0 = time.perf_counter()
     restored, meta = mgr.restore(4, example,
-                                 device_fn=lambda i, ex: torch.device(DEV))
+                                 sharding_fn=lambda i, ex: torch.device(DEV))
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     got = tree_leaves(restored)
@@ -4871,9 +4907,12 @@ def p16_batch(model, params) -> tuple[dict, dict]:
     return launches, dict(rows=rows, spec_agree=agree)
 
 
-def p16_engine(model, params) -> tuple[dict, dict]:
+def p16_engine(model, params, what="16b Engine m=2",
+               key="p16_engine_m2") -> tuple[dict, dict]:
     """(b) ``Engine(mesh=)`` at batch 1, KERNEL: graph == eager ==
-    unsharded, B1 and B3 launched m times as often as unsharded."""
+    unsharded, B1 and B3 launched m times as often as unsharded.  Phase
+    17c runs it again on the re-meshed checkpoint's params (``what`` and
+    ``key`` name its lines and its launch counts)."""
     out, launches = {}, {}
     mesh = _p16_mesh(2)
 
@@ -4905,7 +4944,6 @@ def p16_engine(model, params) -> tuple[dict, dict]:
     ref_t, ref_c, ref_ms, ref_n = run(None, True)
     t, c, ms, n = run(mesh, True)
     eager_t, _, eager_ms, _ = run(mesh, False, P16_EAGER_NEW)
-    what = "16b Engine m=2"
     assert torch.equal(eager_t, t[:, :P16_EAGER_NEW]), f"{what}: graph != eager"
     if not torch.equal(t, ref_t):
         rep = p16_op_report(model, params, 2, 1, "kernel")
@@ -4916,8 +4954,9 @@ def p16_engine(model, params) -> tuple[dict, dict]:
                                 _p16_flat(c["attn"]), what)
     assert all(n[k] == 2 * ref_n[k] for k in n) and \
         n["quant_decode_attention"] > 0, (what, n, ref_n)
-    launches["p16_engine_m2"] = n
-    out.update(graph=ms, eager=eager_ms, unsharded=ref_ms, launches=n)
+    launches[key] = n
+    out.update(graph=ms, eager=eager_ms, unsharded=ref_ms, launches=n,
+               unsharded_launches=ref_n)
     log(f"[{CARD}] {what}: graph == eager over {P16_EAGER_NEW} tokens; "
         f"{P16_ENGINE_NEW} tokens and {n_leaves} cache leaves equal the "
         f"unsharded graph run's; B1 {n['quant_decode_attention']}, B3 "
@@ -5006,6 +5045,471 @@ def p16_phase(model, params) -> dict:
         batch=batch, engine=engine, cli=cli, seconds=dict(
             batch=t1 - t0, engine=t2 - t1, pipeline=t3 - t2,
             cli=t4 - t3))))
+    return launches
+
+
+# --------------------------------------- phase 17: sharded training (A12b)
+
+P17_LR = 1e-3  # constant: the CLI's warmup would give step 1 no update
+P17_BATCH, P17_SEQ, P17_STEPS = 4, 256, 2
+P17_MESHES = ((2, 1), (1, 2), (2, 2))  # over ('data', 'model'), cuda:0
+P17_RTOL = 2e-3  # the reference's sharded vs single-device loss
+# tests/test_torch_sharded_train.py's, on fp32 params and activations
+P17_FP32_RTOL, P17_LEAF_ATOL = 1e-5, 0.5 * P17_LR
+P17_SAVE_AT = 3  # (b): save after 3 steps, resume to 4
+P17_DIR = ROOT / "build" / "phase17"
+P17_CLI = ("--arch", "internlm2-1.8b", "--smoke", "--steps", "2", "--batch",
+           "2", "--seq", "64", "--log-every", "1")
+P17_PSUM_TOL = 1e-2  # tests/test_distributed.py's compressed psum claim
+
+
+def _p17_mesh(dims, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+
+    n = math.prod(dims)
+    return make_mesh(dims, axes, devices=["cuda:0"] * n)
+
+
+def _p17_batch(vocab, i=0):
+    """4 x 256 seeded tokens and a seeded 0/1 loss mask whose first two
+    rows (data shard 0 of a 2-way split) count every target."""
+    g = torch.Generator().manual_seed(SEED + 170 + i)
+    tokens = torch.randint(0, vocab, (P17_BATCH, P17_SEQ), generator=g)
+    mask = torch.randint(0, 2, (P17_BATCH, P17_SEQ), generator=g,
+                         dtype=torch.int32)
+    mask[:P17_BATCH // 2] = 1
+    return {"tokens": tokens.to(DEV), "loss_mask": mask.to(DEV)}
+
+
+def _p17_run(model, params0, batch, mesh, steps=P17_STEPS):
+    """``steps`` of the single-device step (``mesh`` None) or the sharded
+    one from ``params0``: (state, [loss, grad norm a step], [ms a step,
+    CUDA events], peak bytes allocated)."""
+    from repro_torch.launch.sharded_train import (
+        make_sharded_train_step,
+        shard_train_state,
+    )
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adam import adam_init
+
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    if mesh is None:
+        state = (params0, adam_init(params0))
+        step = make_train_step(model, lr=P17_LR)
+    else:
+        state = shard_train_state(params0, adam_init(params0), mesh)
+        step = make_sharded_train_step(model, mesh, lr=P17_LR)
+    mets, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        p, o, m = step(*state, batch)
+        b.record()
+        state = (p, o)
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        mets.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return state, mets, ms, torch.cuda.max_memory_allocated()
+
+
+def _p17_pieces(tree, mesh) -> int:
+    """Every piece of every ``Sharded`` leaf on its mesh device, holding
+    global bytes / its dims' split (a replicated leaf in full); returns
+    the bytes the first device holds."""
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.optim.adam import tree_leaves
+
+    import numpy as np
+
+    first = 0
+    for s in tree_leaves(tree):
+        assert isinstance(s, pt.Sharded) and s.mesh is mesh, type(s)
+        split = math.prod(n for _, _, n in pt._dim_splits(s.spec, mesh))
+        whole = math.prod(s.shape) * s.pieces.flat[0].element_size()
+        for idx in np.ndindex(mesh.devices.shape):
+            t = s.pieces[idx]
+            assert t.device == mesh.devices[idx], (s.spec, idx)
+            assert t.numel() * t.element_size() * split == whole, s.spec
+        first += s.pieces.flat[0].numel() * s.pieces.flat[0].element_size()
+    return first
+
+
+def _p17_paths(state) -> list:
+    """The paths of a (params, AdamState) tree in checkpoint order."""
+    from repro_torch.checkpoint.manager import leaves
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return [p for k in sorted(t) for p in walk(t[k], path + (k,))]
+        if isinstance(t, (list, tuple)):
+            names = getattr(t, "_fields", range(len(t)))
+            return [p for k, v in zip(names, t) for p in walk(v, path + (k,))]
+        return [path]
+
+    out = walk(state, ())
+    assert len(out) == len(leaves(state))
+    return out
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element (0 at 0)."""
+    _, e = torch.frexp(x.float())
+    return torch.where(x == 0, torch.zeros_like(x, dtype=torch.float32),
+                       torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                                   e - 8))
+
+
+@contextlib.contextmanager
+def _fp32_model():
+    """fp32 matmul operands and activations for the block."""
+    from repro_torch.models import common
+
+    saved = common.COMPUTE_DTYPE
+    common.COMPUTE_DTYPE = torch.float32
+    try:
+        with common.dot_mode(False):
+            yield
+    finally:
+        common.COMPUTE_DTYPE = saved
+
+
+def p17_train(model, params0, label="17a") -> dict:
+    """(a) 2 steps of 4 x 256 tokens under a loss mask whose counts differ
+    between the data shards, on one device and on (2, 1), (1, 2) and
+    (2, 2) meshes of cuda:0, every piece of params and Adam state global /
+    split bytes on its device.  On fp32 params and activations (``label``
+    17a-fp32), the CPU test's tolerances: each step's loss and grad norm
+    within P17_FP32_RTOL, every param leaf after step 2 within
+    P17_LEAF_ATOL of the single-device step's.  On bf16 params and
+    activations (17a): each step's loss and grad norm within P17_RTOL, or
+    within twice the distance of the single-device run with fp32 matmul
+    operands where that is larger; an element whose gradient lies within
+    the rounding of 0 may step the other way, so leaves are held to
+    Adam's bound on two trajectories, 2 lr a step plus one bf16 ulp a
+    step, and the elements past P17_LEAF_ATOL are counted."""
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.optim.adam import tree_leaves
+
+    fp32 = label.endswith("fp32")
+    batch = _p17_batch(model.cfg.vocab_size)
+    state, ref, ref_ms, ref_peak = _p17_run(model, params0, batch, None)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    want = [t.cpu() for t in tree_leaves(state[0])]
+    del state
+    if fp32:
+        other = None
+        tol = [{k: P17_FP32_RTOL * abs(w[k]) for k in w} for w in ref]
+    else:
+        # the same single-device steps with fp32 matmul operands: another
+        # valid rounding of the same math.  Adam's first update parts at
+        # the elements whose gradient lies within that rounding of 0, so
+        # step 2's grad norm moves by more than the reference's 2e-3
+        from repro_torch.models import common
+
+        with common.dot_mode(False):
+            _, other, _, _ = _p17_run(model, params0, batch, None)
+        tol = [{k: max(P17_RTOL * abs(w[k]), 2 * abs(o[k] - w[k]))
+                for k in w} for w, o in zip(ref, other)]
+    rec = {"unsharded": dict(metrics=ref, ms=ref_ms, peak_bytes=ref_peak,
+                             state_bytes=state_bytes, fp32_operands=other)}
+    log(f"[{CARD}] {label} unsharded: loss/gnorm {ref}, ms/step (events) "
+        f"{[round(m, 1) for m in ref_ms]}, peak {ref_peak / 1e9:.2f} GB, "
+        f"state {state_bytes / 1e9:.2f} GB; with fp32 operands {other}")
+    for dims in P17_MESHES:
+        mesh = _p17_mesh(dims)
+        what = f"{label} {dims[0]}x{dims[1]}"
+        st, mets, ms, peak = _p17_run(model, params0, batch, mesh)
+        for i, (g, w) in enumerate(zip(mets, ref)):
+            for k in g:
+                assert abs(g[k] - w[k]) <= tol[i][k], \
+                    (what, i + 1, k, g[k], w[k], tol[i][k])
+        worst, beyond, n = 0.0, 0, 0
+        for j, (s, w) in enumerate(zip(tree_leaves(st[0]), want)):
+            got = pt.gather_tree(s).float()
+            w = w.to(got.device).float()
+            diff = (got - w).abs()
+            if fp32:
+                bound = P17_LEAF_ATOL
+            else:
+                # AdamW (b1 0.9, b2 0.999) moves an element by at most
+                # 1.0013 lr in each of its first two steps
+                bound = 2.01 * P17_LR * P17_STEPS + P17_STEPS * torch.maximum(
+                    _bf16_ulp(got), _bf16_ulp(w))
+            assert bool((diff <= bound).all()), \
+                (what, j, float((diff - bound).max()))
+            worst = max(worst, float(diff.max()))
+            beyond += int((diff > P17_LEAF_ATOL).sum())
+            n += diff.numel()
+            del got, w, diff, bound
+        per_dev = {f: _p17_pieces(getattr(st[1], f) if f != "params"
+                                  else st[0], mesh)
+                   for f in ("params", "mu", "nu")}
+        total = sum(per_dev.values())
+        rec[f"{dims[0]}x{dims[1]}"] = dict(
+            metrics=mets, ms=ms, peak_bytes=peak, leaf_max_abs=worst,
+            elements_past_atol=beyond, elements=n,
+            first_device_bytes=per_dev)
+        log(f"[{CARD}] {what}: loss/gnorm {mets} (tolerances "
+            f"{[{k: float(f'{v:.3g}') for k, v in t.items()} for t in tol]}); "
+            f"leaves max |diff| {worst:.3g}, {beyond} of {n} elements past "
+            f"{P17_LEAF_ATOL:g}; ms/step {[round(m, 1) for m in ms]} vs "
+            f"unsharded {[round(m, 1) for m in ref_ms]}; peak "
+            f"{peak / 1e9:.2f} GB; first device holds {total / 1e9:.2f} of "
+            f"{state_bytes / 1e9:.2f} GB (params, mu, nu)")
+        del st
+    _free_cuda()
+    return rec
+
+
+def p17_chain(model, params0):
+    """(b) at MAIN_LAYERS: 3 steps on (2, 2), saved; the uninterrupted
+    run's step 4 against step 4 from the checkpoint restored on (2, 2)
+    (bit for bit, or within twice the spread of a rerun of step 4, with
+    the differing leaves named); the checkpoint restored on (2, 1) by its
+    specs through ``sharding_fn``: each piece on its device with the new
+    split, each gathered leaf bit-equal to the saved state's.  Returns
+    (record, the re-meshed params gathered on the card)."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager, leaves
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.launch.sharded_train import (
+        make_sharded_train_step,
+        shard_train_state,
+        train_state_specs,
+    )
+    from repro_torch.optim.adam import adam_init
+
+    mesh, mesh_b = _p17_mesh((2, 2)), _p17_mesh((2, 1))
+    batches = [_p17_batch(model.cfg.vocab_size, 1 + i)
+               for i in range(P17_SAVE_AT + 1)]
+    step = make_sharded_train_step(model, mesh, lr=P17_LR)
+    state = shard_train_state(params0, adam_init(params0), mesh)
+    losses = []
+    for b in batches[:P17_SAVE_AT]:
+        p, o, m = step(*state, b)
+        state = (p, o)
+        losses.append(float(m["loss"]))
+    shutil.rmtree(P17_DIR, ignore_errors=True)
+    mgr = CheckpointManager(str(P17_DIR), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(P17_SAVE_AT, state, metadata={"mesh": [2, 2]})
+    save_s = time.perf_counter() - t0
+    disk = _dir_bytes(P17_DIR)
+    whole = step(*state, batches[-1])[:2]
+
+    def differing(a, b) -> list:
+        """The leaves (checkpoint order) whose pieces differ in a bit."""
+        return [i for i, (x, y) in enumerate(zip(leaves(a), leaves(b)))
+                if not all(torch.equal(_bits(x.pieces[k]), _bits(y.pieces[k]))
+                           for k in np.ndindex(x.pieces.shape))]
+
+    specs = leaves(train_state_specs(params0, mesh))
+    t0 = time.perf_counter()
+    back, meta = mgr.restore(P17_SAVE_AT, state,
+                             sharding_fn=lambda i, ex: (mesh, specs[i]))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert meta == {"mesh": [2, 2]} and not differing(back, state), \
+        "17b the restored state differs from the saved one"
+    resumed = step(*back, batches[-1])[:2]
+    differ = differing(resumed, whole)
+    rerun_differ = []
+    if differ:
+        # the card reorders a reduction between two identical steps: hold
+        # the resume to twice the spread of a rerun, leaf by leaf
+        again = step(*state, batches[-1])[:2]
+        rerun_differ = differing(again, whole)
+        names = _p17_paths(whole)
+        for i in differ:
+            a, b, c = (pt.gather_tree(leaves(t)[i]).double()
+                       for t in (resumed, whole, again))
+            spread = float((c - b).abs().max())
+            err = float((a - b).abs().max())
+            log(f"  17b leaf {i} {names[i]}: resume {err:.3g}, rerun "
+                f"spread {spread:.3g}")
+            assert err <= 2 * spread, f"17b leaf {i} {names[i]}"
+        del again
+    del back, resumed, whole
+    specs_b = leaves(train_state_specs(params0, mesh_b))
+    t0 = time.perf_counter()
+    moved, _ = mgr.restore(P17_SAVE_AT, state,
+                           sharding_fn=lambda i, ex: (mesh_b, specs_b[i]))
+    torch.cuda.synchronize()
+    remesh_s = time.perf_counter() - t0
+    for s, spec, old in zip(leaves(moved), specs_b, leaves(state)):
+        assert s.mesh is mesh_b and s.spec == spec, (s.spec, spec)
+        assert torch.equal(_bits(pt.gather_tree(s)),
+                           _bits(pt.gather_tree(old))), spec
+    first = _p17_pieces(moved, mesh_b)
+    params = pt.gather_tree(moved[0])
+    n_leaves = len(leaves(state))
+    del moved, state
+    shutil.rmtree(P17_DIR, ignore_errors=True)
+    _free_cuda()
+    rec = dict(losses=losses, leaves=n_leaves, ckpt_disk_bytes=disk,
+               save_s=save_s, restore_s=restore_s, remesh_restore_s=remesh_s,
+               resume_leaves_differ=len(differ),
+               rerun_leaves_differ=len(rerun_differ),
+               remesh_first_device_bytes=first)
+    log(f"[{CARD}] 17b (2, 2) {P17_SAVE_AT} steps, losses {losses}; "
+        f"checkpoint {disk / 1e9:.3f} GB, save {save_s:.1f} s, restore on "
+        f"(2, 2) {restore_s:.1f} s: every piece bit-equal; step "
+        f"{P17_SAVE_AT + 1} resumed vs uninterrupted: {len(differ)} of "
+        f"{n_leaves} leaves differ (rerun {len(rerun_differ)}); restore on "
+        f"(2, 1) {remesh_s:.1f} s: {n_leaves} leaves on the new mesh and "
+        f"split, gathered bit for bit, first device "
+        f"{first / 1e9:.2f} GB")
+    return rec, params
+
+
+def p17_psum(model, params) -> dict:
+    """(d) ``compressed_psum`` on the card: the reference test's 8 x 512
+    N(0, 1) draw over an 8-way ("pod",) mesh of cuda:0, and layer 0's FFN
+    up-projection gradient (2048 x 8192, one per row of a 4 x 256 batch,
+    in fp32 as the sharded step sums gradients) over a 4-way mesh: codes
+    and scales equal to the CPU plain run's, every element of the sum
+    within the participants' half quantization steps of the exact sum,
+    and the reference input within P17_PSUM_TOL relative (the reference
+    test's claim for N(0, 1) blocks; the gradient's relative error is
+    logged)."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.optim.adam import tree_map
+
+    g = torch.Generator().manual_seed(SEED + 18)
+    cases = {"reference 8 x 512": list(torch.randn((8, 512), generator=g))}
+    batch = _p17_batch(model.cfg.vocab_size)
+    leaf = params["blocks"][0]["ffn"]["w_up"]["w"]
+    grads = []
+    for r in range(P17_BATCH):
+        p = tree_map(lambda t: t, params)
+        w = leaf.detach().requires_grad_(True)
+        p["blocks"][0]["ffn"]["w_up"] = {"w": w}
+        loss, _ = model.loss(p, {k: v[r:r + 1] for k, v in batch.items()})
+        grads.append(torch.autograd.grad(loss, w)[0].float().cpu())
+        del p, w, loss
+    cases[f"w_up grad {tuple(leaf.shape)}"] = grads
+    rec = {}
+    for name, xs in cases.items():
+        n = len(xs)
+        mesh = _p17_mesh((n,), ("pod",))
+        devs = mesh.devices_along("pod")
+        on = [x.to(d) for x, d in zip(xs, devs)]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs, _ = comp.compressed_psum(on, [comp.ef_init(x) for x in on])
+        b.record()
+        torch.cuda.synchronize()
+        cpu_outs, _ = comp.compressed_psum(xs, [comp.ef_init(x) for x in xs])
+        half_steps, peaks = 0.0, []
+        for x, xc in zip(on, xs):
+            cc = comp._quantize_blocks(xc.float())
+            cg = comp._quantize_blocks(x.float())
+            assert torch.equal(cg[0].cpu(), cc[0]), f"17d {name}: codes"
+            assert torch.equal(cg[1].cpu(), cc[1]), f"17d {name}: scales"
+            # each element's rounding is at most half its block's step
+            half_steps = half_steps + (cc[1].double() / 2).expand(
+                cc[0].shape).reshape(-1)[:xc.numel()]
+            blocks = cc[0] * cc[1]
+            peaks.append(float((blocks.abs().amax(-1) / blocks.square()
+                                .mean(-1).sqrt().clamp_min(1e-30)).mean()))
+        exact = torch.stack([x.double() for x in xs]).sum(0)
+        got = outs[0].double().cpu()
+        err = (got - exact).reshape(-1).abs()
+        within = bool((err <= half_steps * (1 + 1e-5) + 1e-6 * exact.abs()
+                       .reshape(-1)).all())
+        rel = float((got - exact).norm() / exact.norm())
+        card_vs_cpu = float((outs[0].cpu().double()
+                             - cpu_outs[0].double()).abs().max())
+        peak = sum(peaks) / len(peaks)
+        rec[name] = dict(participants=n, rel_err=rel, ms=a.elapsed_time(b),
+                         card_vs_cpu_max_abs=card_vs_cpu,
+                         block_peak_over_rms=peak)
+        log(f"[{CARD}] 17d compressed_psum {name} over {n}: rel err "
+            f"{rel:.3g}, every element within the participants' half "
+            f"steps: {within}, codes equal the CPU's, outputs "
+            f"{card_vs_cpu:.3g} apart, block peak / rms {peak:.2f}, "
+            f"{a.elapsed_time(b):.3f} ms")
+        assert within, f"17d {name}: an element past half a step"
+        # the reference's 1e-2 is a claim about N(0, 1) blocks (peak / rms
+        # 2.9); a gradient's heavier blocks are held to the bound above
+        if name.startswith("reference"):
+            assert rel < P17_PSUM_TOL, (name, rel)
+    return rec
+
+
+def p17_cli() -> dict:
+    """(e) the training CLI: ``--mesh 1x1`` trains 2 steps in a
+    subprocess; ``--mesh 2x1`` on one card exits naming it (in this
+    process: it exits before building anything)."""
+    from repro_torch.launch import train
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *P17_CLI, "--mesh", "1x1"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, f"17e --mesh 1x1: {r.stderr[-2000:]}"
+    assert "mesh={'data': 1, 'model': 1}" in r.stdout, r.stdout
+    losses = [float(ln.split("loss")[1].split()[0])
+              for ln in r.stdout.splitlines() if ln.strip().startswith("step")]
+    assert len(losses) == 2 and all(map(math.isfinite, losses)), r.stdout
+    try:
+        train.main([*P17_CLI, "--mesh", "2x1"])
+        raise AssertionError("17e --mesh 2x1 did not exit")
+    except SystemExit as e:
+        msg = str(e.code)
+    assert "2 devices and 1 is visible (cuda:0)" in msg, msg
+    log(f"[{CARD}] 17e train CLI --mesh 1x1: exit 0 in {wall:.1f} s, "
+        f"losses {losses}; --mesh 2x1: SystemExit, {msg[:80]}...")
+    return dict(mesh1x1_s=wall, losses=losses)
+
+
+def p17_phase() -> dict:
+    """Phase 17 (see the module doc).  Returns launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adam import tree_map
+
+    t0 = time.perf_counter()
+    full = get_config("internlm2-1.8b")
+    model = LM(full)
+    params = model.init(model.generator(SEED))
+    train = p17_train(model, params)
+    del model, params
+    _free_cuda()
+    model = LM(dataclasses.replace(full, n_layers=MAIN_LAYERS))
+    params = model.init(model.generator(SEED))
+    with _fp32_model():
+        params32 = tree_map(lambda t: t.float(), params)
+        train32 = p17_train(model, params32, "17a-fp32")
+        del params32
+    _free_cuda()
+    t1 = time.perf_counter()
+    chain, restored = p17_chain(model, params)
+    t2 = time.perf_counter()
+    psum = p17_psum(model, params)
+    del params
+    _free_cuda()
+    t3 = time.perf_counter()
+    launches, engine = p16_engine(
+        model, restored, what="17c Engine m=2 on the (2, 1)-restored params",
+        key="p17_engine_m2")
+    del restored
+    _free_cuda()
+    t4 = time.perf_counter()
+    cli = p17_cli()
+    t5 = time.perf_counter()
+    secs = dict(train=t1 - t0, chain=t2 - t1, psum=t3 - t2, engine=t4 - t3,
+                cli=t5 - t4)
+    log("17 summary " + json.dumps(dict(
+        train=train, train_fp32=train32, chain=chain, psum=psum, engine=engine, cli=cli,
+        seconds=secs)))
     return launches
 
 
@@ -5106,9 +5610,14 @@ def main() -> int:
     families = p15_phase()
     secs["p15"] = time.perf_counter() - t0
     log(f"[{card}] phase 15 {secs['p15']:.1f}s")
+    _free_cuda()
+    t0 = time.perf_counter()
+    trained = p17_phase()
+    secs["p17"] = time.perf_counter() - t0
+    log(f"[{card}] phase 17 {secs['p17']:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
                "quality": quality, **learned, **served, **configs,
-               **families, **sharded}
+               **families, **sharded, **trained}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

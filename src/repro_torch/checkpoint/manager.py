@@ -19,8 +19,11 @@ module's own table of torch dtypes (no ``ml_dtypes``).  The archive is
 written one leaf at a time, so the host holds one leaf, not the whole
 tree (a full-width internlm2-1.8b ``(params, opt)`` is ~18.9 GB).
 
-``restore(..., device_fn=)`` is the single-device counterpart of the
-reference's ``sharding_fn``: it places each leaf where the caller says.
+Elastic re-mesh (the reference's ``sharding_fn``): a leaf is saved whole,
+so a ``partitioning.Sharded`` leaf is gathered first and its bytes on
+disk are the unsharded tree's; ``restore(..., sharding_fn=)`` then places
+each leaf on the mesh (and by the spec) the caller gives, which need not
+be the one it was saved from (``launch/sharded_train.py``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,14 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["CheckpointManager"]
+from repro_torch.launch.partitioning import (
+    PartitionSpec,
+    Sharded,
+    gather_tree,
+    place,
+)
+
+__all__ = ["CheckpointManager", "leaves"]
 
 # dtype name (as meta.json records it) -> torch dtype, and the integer
 # view npz stores for the names numpy cannot hold
@@ -53,8 +63,9 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def _to_storable(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu().contiguous()
+def _to_storable(t) -> np.ndarray:
+    t = gather_tree(t, "cpu") if isinstance(t, Sharded) else t.detach().cpu()
+    t = t.contiguous()
     view = _VIEWS.get(_dtype_name(t))
     if view is None:
         return t.numpy()
@@ -70,22 +81,29 @@ def _from_storable(a: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaves(tree: Any) -> list:
-    """The leaves in JAX's order: a dict by sorted key."""
+def _is_container(tree: Any) -> bool:
+    return isinstance(tree, (list, tuple)) and not isinstance(
+        tree, PartitionSpec)
+
+
+def leaves(tree: Any) -> list:
+    """The leaves in a checkpoint's order, JAX's: a dict by sorted key.  A
+    tensor, a ``Sharded`` and a ``PartitionSpec`` are leaves, so a spec
+    tree lines up with the state it places (``sharding_fn``'s index)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if _is_container(tree):
+        return [x for v in tree for x in leaves(v)]
     return [tree]
 
 
 def _fill(example: Any, it) -> Any:
     """``example``'s structure (its dict order kept) with its leaves taken
-    from ``it`` in ``_leaves`` order."""
+    from ``it`` in ``leaves`` order."""
     if isinstance(example, dict):
         vals = {k: _fill(example[k], it) for k in sorted(example)}
         return {k: vals[k] for k in example}
-    if isinstance(example, (list, tuple)):
+    if _is_container(example):
         children = [_fill(v, it) for v in example]
         if hasattr(example, "_fields"):
             return type(example)(*children)
@@ -126,19 +144,19 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
 
-        leaves = _leaves(tree)
+        flat = leaves(tree)
         with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
                              allowZip64=True) as zf:
-            for i, leaf in enumerate(leaves):
+            for i, leaf in enumerate(flat):
                 with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
                     np.lib.format.write_array(f, _to_storable(leaf),
                                               allow_pickle=False)
         meta = {
             "step": step,
-            "n_leaves": len(leaves),
+            "n_leaves": len(flat),
             "treedef": _treedef(tree),
-            "dtypes": [_dtype_name(t) for t in leaves],
-            "shapes": [list(t.shape) for t in leaves],
+            "dtypes": [_dtype_name(t) for t in flat],
+            "shapes": [list(t.shape) for t in flat],
             "metadata": metadata or {},
         }
         with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -155,16 +173,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, example_tree, *,
-                device_fn: Optional[Callable] = None):
+                sharding_fn: Optional[Callable] = None):
         """Restore into the structure of ``example_tree``: (tree, metadata).
 
-        Each leaf takes the example leaf's dtype and its device, or the
-        device ``device_fn(leaf_index, example_leaf)`` returns (None: the
-        example's)."""
+        Each leaf takes the example leaf's dtype and its placement: its
+        device, or for a ``Sharded`` example its mesh and spec.
+        ``sharding_fn(leaf_index, example_leaf)`` overrides that per leaf:
+        a ``(mesh, spec)`` pair places the leaf on that mesh by that spec
+        (``partitioning.shard_tree``'s placement: the elastic re-mesh), a
+        ``torch.device`` puts it whole there, and None keeps the
+        example's placement."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        ex_leaves = _leaves(example_tree)
+        ex_leaves = leaves(example_tree)
         if meta["n_leaves"] != len(ex_leaves):
             raise ValueError(f"checkpoint has {meta['n_leaves']} leaves, "
                              f"example {len(ex_leaves)}")
@@ -176,9 +198,17 @@ class CheckpointManager:
                     raise ValueError(f"leaf {i}: checkpoint shape "
                                      f"{tuple(saved.shape)}, example "
                                      f"{tuple(ex.shape)}")
-                dev = device_fn(i, ex) if device_fn is not None else None
-                out.append(saved.to(device=ex.device if dev is None else dev,
-                                    dtype=ex.dtype))
+                where = sharding_fn(i, ex) if sharding_fn is not None \
+                    else None
+                if where is None:
+                    where = (ex.mesh, ex.spec) if isinstance(ex, Sharded) \
+                        else ex.device
+                saved = saved.to(dtype=ex.dtype)
+                if isinstance(where, tuple):
+                    mesh, spec = where
+                    out.append(place(saved, spec, mesh))
+                else:
+                    out.append(saved.to(device=where))
         return _fill(example_tree, iter(out)), meta["metadata"]
 
     # ------------------------------------------------------------------- gc

@@ -11,8 +11,10 @@
    steps slower than ``straggler_factor`` x EWMA are recorded and the
    loop moves on.
 
-Elastic re-meshing (the reference's ``sharding_fn``) is ROADMAP A12b; on
-one device ``device_fn`` places the restored leaves.
+3. Elastic re-mesh: ``maybe_resume(..., sharding_fn=)`` hands the
+   function to ``CheckpointManager.restore``, which places every restored
+   leaf on the mesh and by the spec it returns (a state saved on one mesh
+   restarts on another), or on the device it returns.
 """
 from __future__ import annotations
 
@@ -41,13 +43,15 @@ class TrainSupervisor:
         self._preempted = True
 
     # ---------------------------------------------------------------- resume
-    def maybe_resume(self, example_state, *, device_fn=None):
-        """Returns (state, start_step) -- restored if a checkpoint exists."""
+    def maybe_resume(self, example_state, *, sharding_fn=None):
+        """Returns (state, start_step) -- restored if a checkpoint exists,
+        its leaves placed by ``sharding_fn`` (``CheckpointManager.restore``)
+        and the data iterator's state restored with it."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return example_state, 0
         state, meta = self.ckpt.restore(latest, example_state,
-                                        device_fn=device_fn)
+                                        sharding_fn=sharding_fn)
         if "data" in meta:
             self.data.restore(meta["data"])
         return state, latest

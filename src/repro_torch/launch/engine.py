@@ -287,7 +287,7 @@ class Engine:
         """``cache`` laid out over the mesh: each attention state split by
         KV head over 'model' where divisible, else kept whole
         (``partitioning.serve_cache_specs``).  ``allow_split_k=True``
-        raises (ROADMAP A12b).  Identity without a mesh."""
+        raises (ROADMAP A12d).  Identity without a mesh."""
         return shard_cache(cache, self.mesh, allow_split_k=allow_split_k)
 
     def prefill(self, params, prompt, cache: dict):

@@ -28,7 +28,9 @@ layout, where a stacked subtree's leaves lead with their layer axes; the
 port keeps per-layer lists, and ``stacked_view`` gives their stacked
 shapes (a list of like subtrees becomes one subtree of ``ShapeLeaf``s).
 ``serve_cache_specs`` indexes from the end, so it reads a per-layer state
-as it is.
+as it is; ``layer_param_specs`` reads ``param_specs`` back onto the
+port's per-layer params (the sharded train step's layout,
+``launch/sharded_train.py``).
 
 Placement is single-controller (``launch/mesh.py``): ``shard_tree`` splits
 each leaf along its assigned dims and puts one piece on every mesh
@@ -54,6 +56,7 @@ __all__ = [
     "Sharded",
     "auto_spec",
     "param_specs",
+    "layer_param_specs",
     "batch_specs",
     "cache_specs",
     "serve_cache_specs",
@@ -61,6 +64,7 @@ __all__ = [
     "tree_map_with_path",
     "flatten_with_path",
     "stacked_view",
+    "place",
     "shard_tree",
     "gather_tree",
     "replicate_tree",
@@ -272,6 +276,32 @@ def param_specs(params_shapes, mesh, *, layout: str = "baseline"):
     return tree_map_with_path(spec_for, params_shapes)
 
 
+def layer_param_specs(params, mesh, *, layout: str = "baseline"):
+    """Spec tree shaped like the port's per-layer params tree: each leaf
+    takes the spec that ``param_specs(stacked_view(params), mesh,
+    layout=)`` gives its stacked leaf, without the leading layer axes (one
+    a level of per-layer lists; those axes are never sharded,
+    ``STACKED_PREFIXES``)."""
+    stacked = dict(flatten_with_path(
+        param_specs(stacked_view(params), mesh, layout=layout)))
+
+    def walk(tree, spath: tuple, depth: int):
+        if isinstance(tree, list):
+            return [walk(v, spath, depth + 1) for v in tree]
+        if _is_leaf(tree):
+            spec = stacked[spath]
+            if any(a is not None for a in spec[:depth]):
+                raise ValueError(f"{spath}: {spec} shards a layer axis")
+            return P(*spec[depth:])
+        kids = _children(tree)
+        if kids is None:
+            return tree
+        return _rebuild(tree, [walk(v, spath + (k,), depth)
+                               for k, v in kids])
+
+    return walk(params, (), 0)
+
+
 def batch_specs(batch_shapes, mesh):
     """Batch dict: dim 0 is always the (global) batch dimension."""
 
@@ -431,7 +461,8 @@ class Sharded:
         return self.pieces.flat[0].dtype
 
 
-def _place(x: torch.Tensor, spec, mesh) -> Sharded:
+def place(x: torch.Tensor, spec, mesh) -> Sharded:
+    """``x`` placed on ``mesh`` by ``spec``: one piece a mesh device."""
     splits = _dim_splits(spec, mesh)
     for dim, axes, n in splits:
         if x.shape[dim] % n:
@@ -455,10 +486,8 @@ def shard_tree(tree, specs, mesh):
     rest.  The port's ``device_put(tree, NamedSharding(mesh, spec))``."""
     spec_of = {p: s for p, s in flatten_with_path(specs)}
 
-    def place(path, leaf):
-        return _place(leaf, spec_of.get(path, P()), mesh)
-
-    return tree_map_with_path(place, tree)
+    return tree_map_with_path(
+        lambda path, leaf: place(leaf, spec_of.get(path, P()), mesh), tree)
 
 
 def _gather(s: Sharded, device=None) -> torch.Tensor:
@@ -466,8 +495,11 @@ def _gather(s: Sharded, device=None) -> torch.Tensor:
     dev = mesh.lead if device is None else torch.device(device)
     out = torch.empty(s.shape, dtype=s.dtype, device=dev)
     splits = _dim_splits(s.spec, mesh)
+    used = {a for _, axes, _ in splits for a in axes}
     for idx in np.ndindex(mesh.devices.shape):
         coord = dict(zip(mesh.axis_names, idx))
+        if any(coord[a] for a in mesh.axis_names if a not in used):
+            continue  # a replica of a piece already copied
         view = out
         for dim, axes, n in splits:
             size = s.shape[dim] // n

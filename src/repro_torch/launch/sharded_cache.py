@@ -400,7 +400,7 @@ def _refuse_split_k(allow_split_k: bool) -> None:
     if allow_split_k:
         raise NotImplementedError(
             "allow_split_k=True needs a softmax combine across shards "
-            "(ROADMAP A12b); the head split is the only serving layout")
+            "(ROADMAP A12d); the head split is the only serving layout")
 
 
 def shard_state(state: CacheState, mesh, *, allow_split_k: bool = False):

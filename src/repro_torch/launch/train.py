@@ -1,7 +1,8 @@
 """Training CLI (port of ``repro/launch/train.py``).
 
     python -m repro_torch.launch.train --arch internlm2-1.8b --steps 200 \
-        --ckpt-dir DIR [--resume] [--smoke] [--layers N] [--device cpu]
+        --ckpt-dir DIR [--mesh 2x2] [--resume] [--smoke] [--layers N] \
+        [--device cpu]
 
 Wires the substrates together: config registry -> model -> synthetic data
 iterator -> train step (autograd through the plain modules, clip, AdamW)
@@ -10,28 +11,56 @@ the latest one through ``TrainSupervisor``.  ``--smoke`` shrinks the arch
 to a CPU-trainable depth and width with the same wiring; ``--layers N``
 cuts the depth alone (the reference's CLI has no such flag).  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card and without
-that flag it raises before building anything.  ``--mesh`` (a sharded
-train step) is ROADMAP A12b.  The data pipeline yields tokens only, so an
-audio arch (whose loss needs ``frames``) raises a ``ValueError`` that
-says so; the reference's CLI fails on the missing key inside its loss.
+that flag it raises before building anything.
+
+``--mesh AxB`` is a mesh over ('data', 'model'), ``AxBxC`` over ('pod',
+'data', 'model') (``A`` alone: ('data',)), of the first A·B(·C) visible
+cards, or of the CPU with ``--device cpu`` (one device: only a mesh of
+one).  Asking for more devices than are visible exits before anything is
+built.  Under a mesh the params and the Adam state are placed by
+``partitioning.param_specs`` (``REPRO_SHARDING=sp_fsdp`` selects the FSDP
+layout, as the reference's rules read it; otherwise ``baseline``) and the
+step is ``sharded_train.make_sharded_train_step``: data parallel over
+('pod', 'data'), the storage split over every axis a spec uses.
+``--resume`` re-places the restored state by the new mesh's specs, so a
+run checkpointed on one mesh resumes on another.  A simulated mesh (a
+repeated device) is built from Python: ``make_mesh((4, 2), ("data",
+"model"), devices=["cpu"] * 8)`` and ``make_sharded_train_step``.
+
+The reference's docstring names ``--compress-grads``, which its parser
+does not have, and nothing of the reference calls ``compressed_psum``; the
+port has neither (``distributed/compression.py`` is ported on its own).
+The data pipeline yields tokens only, so an audio arch (whose loss needs
+``frames``) raises a ``ValueError`` that says so; the reference's CLI
+fails on the missing key inside its loss.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
+import numpy as np
+import torch
+
 from repro_torch import resolve_device
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, leaves
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.data import DataIterator, SyntheticCorpus
 from repro_torch.distributed.fault_tolerance import TrainSupervisor
+from repro_torch.launch.mesh import make_mesh, visible_cards
+from repro_torch.launch.sharded_train import (
+    make_sharded_train_step,
+    shard_train_state,
+    train_state_specs,
+)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import LM
 from repro_torch.optim.adam import adam_init, cosine_schedule, tree_leaves
 
-__all__ = ["smoke_config", "main"]
+__all__ = ["smoke_config", "parse_mesh", "main"]
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
@@ -59,9 +88,34 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw).validated()
 
 
+def parse_mesh(arg: Optional[str], dev: torch.device):
+    """``--mesh`` -> a mesh of the first devices (the visible cards, or
+    ``dev`` itself off CUDA), or None without the flag; more devices than
+    are visible end in a ``SystemExit`` that names them."""
+    if not arg:
+        return None
+    dims = tuple(int(x) for x in arg.split("x"))
+    names = ("data", "model")[:len(dims)] if len(dims) <= 2 else (
+        "pod", "data", "model")
+    devs = visible_cards() if dev.type == "cuda" else [dev]
+    n = int(np.prod(dims))
+    if n > len(devs):
+        raise SystemExit(
+            f"error: --mesh {arg} asks for {n} devices and {len(devs)} "
+            f"{'are' if len(devs) != 1 else 'is'} visible "
+            f"({', '.join(map(str, devs)) or 'none'}); a simulated mesh "
+            f"repeats one device: build it from Python with "
+            f"repro_torch.launch.mesh.make_mesh({dims}, {names}, "
+            f"devices=['{dev}'] * {n}) and "
+            f"repro_torch.launch.sharded_train.make_sharded_train_step")
+    return make_mesh(dims, names, devs[:n])
+
+
 def main(argv: Optional[list[str]] = None, *,
          on_step: Optional[Callable[[int, dict], None]] = None):
-    """Train as the flags say; returns the final (params, opt_state).
+    """Train as the flags say; returns the final (params, opt_state),
+    ``Sharded`` leaves under ``--mesh`` (``partitioning.gather_tree``
+    assembles them).
 
     ``on_step(step, metrics)``, if given, is called after every step (an
     in-process caller's hook, e.g. for timing with CUDA events)."""
@@ -72,7 +126,9 @@ def main(argv: Optional[list[str]] = None, *,
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--mesh", default=None, help="ROADMAP A12b; raises")
+    ap.add_argument("--mesh", default=None,
+                    help="AxB over (data, model) or AxBxC over (pod, data, "
+                         "model), e.g. 1x1, 2x2, 2x2x2")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -86,11 +142,8 @@ def main(argv: Optional[list[str]] = None, *,
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (a sharded train step) is ROADMAP A12b; the port trains "
-            "on one device")
     dev = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, dev)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -106,12 +159,24 @@ def main(argv: Optional[list[str]] = None, *,
     model = LM(cfg, device=dev)
     params = model.init(model.generator(args.seed))
     n_params = sum(t.numel() for t in tree_leaves(params))
+    lr = cosine_schedule(args.lr, args.warmup, args.steps)
+    sharding_fn = None
+    if mesh is None:
+        state = (params, adam_init(params))
+        step_fn = make_train_step(model, lr=lr)
+    else:
+        layout = ("sp_fsdp" if os.environ.get("REPRO_SHARDING") == "sp_fsdp"
+                  else "baseline")
+        specs = leaves(train_state_specs(params, mesh, layout=layout))
+        state = shard_train_state(params, adam_init(params), mesh,
+                                  layout=layout)
+        step_fn = make_sharded_train_step(model, mesh, lr=lr, layout=layout)
+
+        def sharding_fn(i, example):
+            return mesh, specs[i]
     # the loop rebinds ``state``; no other name may keep the first tree
     # alive (the reference donates it to its jitted step)
-    state = (params, adam_init(params))
     del params
-    step_fn = make_train_step(
-        model, lr=cosine_schedule(args.lr, args.warmup, args.steps))
     it = DataIterator(SyntheticCorpus(args.seed), shard_id=0, num_shards=1,
                       batch_per_shard=args.batch, seq_len=args.seq,
                       device=dev)
@@ -121,13 +186,14 @@ def main(argv: Optional[list[str]] = None, *,
     if ckpt is not None:
         sup = TrainSupervisor(ckpt, it, ckpt_every=args.ckpt_every)
         if args.resume:
-            state, start = sup.maybe_resume(state)
+            state, start = sup.maybe_resume(state, sharding_fn=sharding_fn)
             if start:
                 print(f"[resume] from step {start}")
 
     print(f"[train] arch={cfg.name} family={cfg.family} "
           f"layers={cfg.n_layers} d={cfg.d_model} "
-          f"params={n_params / 1e6:.1f}M mesh=None device={dev}")
+          f"params={n_params / 1e6:.1f}M "
+          f"mesh={dict(mesh.shape) if mesh else None} device={dev}")
 
     step = start
     t_last = time.time()

@@ -474,11 +474,13 @@ class LM:
         return torch.stack(ks), torch.stack(vs)
 
     def loss(self, params, batch: dict, *, remat: bool = False):
-        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S) over
-        the text positions (a vlm's ``batch["patches"]`` (B, P, d) are
-        dropped from the logits) plus 0.01 x the MoE aux loss: (total,
-        {"ce", "aux"}) (ref ``lm.py:501-524``, without its loss mask, which
-        no data pipeline here produces)."""
+        """Next-token cross entropy of ``batch["tokens"]`` (B, S) over the
+        text positions (a vlm's ``batch["patches"]`` (B, P, d) are dropped
+        from the logits) plus 0.01 x the MoE aux loss: (total, {"ce",
+        "aux"}) (ref ``lm.py:501-524``).  With ``batch["loss_mask"]`` (B, S)
+        the cross entropy is the masked mean, each target position t >= 1
+        weighted by ``mask[:, t]``: sum(nll * mask[:, 1:]) /
+        max(sum(mask[:, 1:]), 1); without one, the plain mean."""
         tokens = batch["tokens"]
         patches = batch.get("patches")
         logits, aux = self.forward_aux(params, tokens, patches=patches,
@@ -487,7 +489,12 @@ class LM:
             logits = logits[:, patches.shape[1]:]
         lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
         nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-        loss = nll.mean()
+        mask = batch.get("loss_mask")
+        if mask is None:
+            loss = nll.mean()
+        else:
+            mask = mask[:, 1:].float()
+            loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         total = loss if self.cfg.moe is None else loss + 0.01 * aux
         return total, {"ce": loss, "aux": aux}
 

@@ -15,6 +15,8 @@ products: the reference runs them as einsums outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -23,12 +25,53 @@ import torch.nn.functional as F
 
 from repro_torch.models import common
 
-__all__ = ["capacity", "group_size", "moe_init", "moe_apply", "top_k"]
+__all__ = ["capacity", "group_size", "moe_init", "moe_apply", "top_k",
+           "Routes", "routing"]
 
 # When a list, each ``moe_apply`` appends its count of dropped (token,
 # expert) pairs as a 0-d device tensor; None (the default) records
 # nothing, so the step reads nothing back.
 drop_log: Optional[list] = None
+
+_ROUTES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_routes", default=None)
+
+
+class Routes:
+    """The routed-first shares (E,) fp32 of the MoE layers of one forward,
+    in call order (``log``).  Given ``shares``, each layer takes the next
+    of them in place of its own tokens' shares in the load-balancing loss:
+    the data-parallel train step gives every shard the mean over the
+    shards, so that each shard's loss carries its part of the global
+    batch's (``launch/sharded_train.py``).  The shares carry no gradient
+    either way.  One forward, no recomputation (remat off)."""
+
+    def __init__(self, shares: Optional[list] = None):
+        self.log: list = []
+        self._shares = None if shares is None else list(shares)
+
+    def take(self, me: torch.Tensor) -> torch.Tensor:
+        self.log.append(me.detach())
+        if self._shares is None:
+            return me
+        if not self._shares:
+            raise RuntimeError("more MoE layers ran than shares were given")
+        return self._shares.pop(0)
+
+    @property
+    def used_up(self) -> bool:
+        return not self._shares
+
+
+@contextlib.contextmanager
+def routing(routes: Routes):
+    """``routes`` records (and, given shares, sets) the routed-first shares
+    of every ``moe_apply`` in the block."""
+    tok = _ROUTES.set(routes)
+    try:
+        yield routes
+    finally:
+        _ROUTES.reset(tok)
 
 
 def capacity(group_tokens: int, top_k: int, n_experts: int,
@@ -125,6 +168,9 @@ def moe_apply(p, x: torch.Tensor, mcfg):
 
     # GShard aux loss: E * sum_e (share routed first to e * mean prob of e)
     me = _one_hot(top_idx[..., 0], E).mean(dim=(0, 1))
+    routes = _ROUTES.get()
+    if routes is not None:
+        me = routes.take(me)
     pe = probs.mean(dim=(0, 1))
     aux = E * (me * pe).sum()
     return y.reshape(B, S, d).to(common.COMPUTE_DTYPE), aux

@@ -16,7 +16,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 __all__ = ["AdamState", "adam_init", "adam_update", "clip_by_global_norm",
-           "cosine_schedule", "tree_map", "tree_leaves"]
+           "global_norm", "clip_scale", "cosine_schedule", "tree_map",
+           "tree_leaves"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -81,13 +82,25 @@ def adam_update(grads, state: AdamState, params, *, lr, b1: float = 0.9,
 
 
 @torch.no_grad()
+def global_norm(grads) -> torch.Tensor:
+    """The fp32 L2 norm of all the leaves together."""
+    return torch.stack([g.float().square().sum()
+                        for g in tree_leaves(grads)]).sum().sqrt()
+
+
+def clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm ``gn`` down to ``max_norm``
+    (1 when it is below)."""
+    return torch.clamp(max_norm / gn.clamp_min(1e-12), max=1.0)
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """(fp32 grads scaled so their global L2 norm is at most ``max_norm``,
     the norm before scaling); fp32 as the reference's promotion makes
     them."""
-    gn = torch.stack([g.float().square().sum()
-                      for g in tree_leaves(grads)]).sum().sqrt()
-    scale = torch.clamp(max_norm / gn.clamp_min(1e-12), max=1.0)
+    gn = global_norm(grads)
+    scale = clip_scale(gn, max_norm)
     return tree_map(lambda g: g.float() * scale, grads), gn
 
 

@@ -449,6 +449,75 @@ def test_loss_and_grads_match_value_and_grad(small, remat):
         assert err <= GRAD_TOL * w.abs().max() + 1e-12, err
 
 
+def _masked_case(small, family):
+    """(reference model, its params, the port's model, bridged params,
+    the reference's batch, the port's batch) with a seeded 0/1 loss mask
+    whose first row is all zeros; a vlm (reduced llava-next-34b) also
+    carries seeded patches."""
+    if family == "dense":
+        jm, jp, _, model, params, _, toks = small
+        patches = None
+    else:
+        arch = "llava-next-34b"
+        jm = build_model(jreduced(jget_config(arch)))
+        jp = jm.init(jax.random.PRNGKey(0))
+        model = LM(reduced(get_config(arch)), device="cpu")
+        params = bridge.lm_params(jax.tree.map(np.asarray, jp))
+        rng = np.random.default_rng(27)
+        toks = rng.integers(0, model.cfg.vocab_size, (2, 23)).astype(np.int32)
+        patches = rng.standard_normal((2, 8, model.cfg.d_model)).astype(
+            np.float32)
+    mask = np.random.default_rng(26).integers(0, 2, toks.shape).astype(
+        np.int32)
+    mask[0] = 0
+    batch = {"tokens": jnp.asarray(toks), "loss_mask": jnp.asarray(mask)}
+    tbatch = {"tokens": _t(toks).long(), "loss_mask": _t(mask)}
+    if patches is not None:
+        batch["patches"], tbatch["patches"] = jnp.asarray(patches), _t(
+            patches)
+    return jm, jp, model, params, batch, tbatch
+
+
+@pytest.mark.parametrize("family", ["dense", "vlm"])
+def test_masked_loss_and_grads_match_value_and_grad(small, family):
+    """``batch["loss_mask"]`` weights each target's NLL as the reference's
+    loss does (a row of zeros included): loss within rtol 1e-3 and every
+    leaf's gradient within GRAD_TOL of its largest, as the unmasked test
+    above; the loss is not the unmasked one."""
+    jm, jp, model, params, batch, tbatch = _masked_case(small, family)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jm.loss(p, batch, remat=False), has_aux=True)(jp)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss(p, tbatch)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    assert abs(loss.item() - float(jl)) <= 1e-3 * float(jl)
+    plain, _ = model.loss(params, {k: v for k, v in tbatch.items()
+                                   if k != "loss_mask"})
+    assert plain.item() != loss.item()
+    want = tree_leaves(bridge.lm_params(jax.tree.map(np.asarray, jg)))
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        w = w.float()
+        err = (g.float() - w).abs().max()
+        assert err <= GRAD_TOL * w.abs().max() + 1e-12, err
+
+
+def test_all_zero_mask_gives_zero_loss_as_the_reference(small):
+    """Every target masked: the reference divides by max(count, 1), so
+    the loss is 0 and every gradient 0."""
+    jm, jp, _, model, params, _, toks = small
+    zeros = np.zeros(toks.shape, np.int32)
+    jl, _ = jm.loss(jp, {"tokens": jnp.asarray(toks),
+                         "loss_mask": jnp.asarray(zeros)}, remat=False)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss(p, {"tokens": _t(toks).long(),
+                             "loss_mask": _t(zeros)})
+    assert float(jl) == loss.item() == 0.0
+    grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+    assert all(g is None or not g.any() for g in grads)
+
+
 @pytest.mark.parametrize("step", [0, 5])
 def test_adam_update_matches_reference(step):
     """Identical grads, state and params: moments within rtol 1e-6; fp32

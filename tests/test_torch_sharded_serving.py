@@ -342,11 +342,11 @@ def test_nbytes_per_shard_vs_global(lm, mesh):
 
 
 def test_shard_cache_refuses_split_k(lm, mesh):
-    """Split-K needs a softmax combine across shards: ROADMAP A12b.  The
+    """Split-K needs a softmax combine across shards: ROADMAP A12d.  The
     rule itself is ported (test_torch_partitioning.py)."""
     model, _ = lm
     cache = model.init_cache(1, S_MAX, policy="int4-srft")
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(NotImplementedError, match="A12d"):
         Engine(model, mesh=mesh).shard_cache(cache, allow_split_k=True)
     assert Engine(model).shard_cache(cache, allow_split_k=True) is cache
 

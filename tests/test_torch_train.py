@@ -1,8 +1,9 @@
 """The port's training substrates on the CPU: the data iterator's state,
-``CheckpointManager`` (round trip, keep-k, atomicity, ``device_fn``, bf16
+``CheckpointManager`` (round trip, keep-k, atomicity, ``sharding_fn``, bf16
 and ``AdamState`` leaves bit for bit, a checkpoint written by the
 reference's manager), ``tree_map`` over NamedTuples, ``TrainSupervisor``
-(resume, SIGTERM), the training CLI (exact resume, ``--mesh``, no card)
+(resume, SIGTERM), the training CLI (exact resume, ``--mesh`` 1x1 equal to
+no mesh and 2x1 refused on one device, no card)
 and the two examples.  The counterparts of ``tests/test_substrates.py``
 (data, checkpoint) run against the reference where it has the behaviour."""
 import dataclasses
@@ -110,16 +111,18 @@ def test_checkpoint_roundtrip_keepk_and_atomicity(tmp_path):
 
 
 def test_checkpoint_device_fn_called_once_per_leaf(tmp_path):
+    """``sharding_fn`` (which took over the single-device ``device_fn``)
+    is called once a leaf; a device or None places the leaf whole."""
     mgr = CheckpointManager(str(tmp_path))
     tree = {"w": torch.arange(16.0).reshape(4, 4), "v": [torch.ones(2)]}
     mgr.save(1, tree)
     placed = []
 
-    def device_fn(i, ex):
+    def sharding_fn(i, ex):
         placed.append(i)
         return None if i == 0 else torch.device("cpu")
 
-    restored, _ = mgr.restore(1, tree, device_fn=device_fn)
+    restored, _ = mgr.restore(1, tree, sharding_fn=sharding_fn)
     assert sorted(placed) == [0, 1]
     _assert_trees_equal(restored, tree)
 
@@ -262,10 +265,12 @@ def test_train_cli_resume_is_exact(tmp_path, capsys):
 
 
 def test_train_cli_mesh_and_other_families_raise():
-    """--mesh still raises (A12b, sharded training).  The hybrid, ssm and audio families no
-    longer do: smoke_config reduces each as the reference's does."""
-    with pytest.raises(NotImplementedError, match="A12b"):
-        train.main(["--mesh", "1x1", "--device", "cpu"])
+    """--mesh asking for more devices than are visible (2 on the CPU's
+    one) exits before building anything, naming them.  The hybrid, ssm
+    and audio families no longer raise: smoke_config reduces each as the
+    reference's does."""
+    with pytest.raises(SystemExit, match="2 devices and 1 is visible"):
+        train.main(["--mesh", "2x1", "--device", "cpu"])
     from repro.configs import get_config as jget_config
     from repro.launch.train import smoke_config as jsmoke
 
@@ -275,6 +280,32 @@ def test_train_cli_mesh_and_other_families_raise():
         assert got.family == get_config(arch).family
         assert {k: want[k] for k in dataclasses.asdict(got)} == \
             dataclasses.asdict(got), arch
+
+
+def test_train_cli_mesh_1x1_equals_no_mesh(tmp_path, capsys):
+    """--mesh 1x1 on the CPU: the state placed by the partitioning rules
+    and the sharded step over one data index train 2 steps to the
+    unmeshed CLI's state, losses and step-2 checkpoint bit for bit, and
+    the [train] line names the mesh; --resume under the mesh re-places
+    the restored state on it."""
+    from repro_torch.launch.partitioning import Sharded, gather_tree
+
+    seen = {"mesh": [], "none": []}
+    meshed = _train(tmp_path / "m", 2, "--mesh", "1x1",
+                    on_step=lambda s, m: seen["mesh"].append(float(m["loss"])))
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    plain = _train(tmp_path / "p", 2,
+                   on_step=lambda s, m: seen["none"].append(float(m["loss"])))
+    assert all(isinstance(t, Sharded) for t in tree_leaves(meshed))
+    _assert_trees_equal(gather_tree(meshed, "cpu"), plain)
+    assert seen["mesh"] == seen["none"] and len(seen["none"]) == 2
+    restored, _ = CheckpointManager(str(tmp_path / "m")).restore(2, plain)
+    _assert_trees_equal(restored, plain)
+    resumed = _train(tmp_path / "m", 3, "--mesh", "1x1", "--resume")
+    assert "[resume] from step 2" in capsys.readouterr().out
+    assert all(isinstance(t, Sharded) for t in tree_leaves(resumed))
+    again = _train(tmp_path / "p", 3, "--resume")
+    _assert_trees_equal(gather_tree(resumed, "cpu"), again)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
