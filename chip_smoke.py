@@ -353,6 +353,9 @@ SEED = 0
 HBM_BYTES_PER_S = FP32_FLOP_PER_S = None
 LOGIT_TOL = 0.05  # GATHER vs KERNEL, relative to the largest logit
 B1_ATOL = 1e-4  # fp32 sums in another order (split-K) over ~4K tokens
+# B1's log-sum-exp against its plain version's: the same sums' log (a
+# relative error of the sums of ~1e-6 moves it ~1e-6)
+LSE_ATOL = 1e-4
 B4_ROUNDS = 7  # B4 and B3 timed in alternation, the SM clock sampled
 PPL_RTOL = 1e-3  # hook PPL on the card vs the CPU plain path
 GRAPH_TOL = 1e-5  # graph vs eager logits, relative to the largest logit
@@ -818,9 +821,16 @@ def check_b1(flush, g, Hkv, G, d, group, W, label="B1", by_prompt=True):
     log(f"B1 decode read BH={BH} G={G} d={d} plen={plen} total={total}: "
         f"max abs err {err:.3e} (per-row lengths {err_r:.3e}), "
         f"tolerance {B1_ATOL}")
+    lse = check_b1_lse(args, plen, total, rows, tl, group) \
+        if label == "B1" else {}
     call = lambda: qa_ops.quant_decode_attention(  # noqa: E731
         *args, plen, total, group=group)
     ms, ms_wall = device_ms(call, flush, label=label), wall_ms(call)
+    if lse:
+        lse["ms"] = device_ms(lambda: qa_ops.quant_decode_attention(
+            *args, plen, total, group=group, return_lse=True), flush)
+        log(f"[{CARD}] B1 with its log-sum-exp stored: {lse['ms']:.4f} ms "
+            f"(events), without: {ms:.4f} ms")
     ms_graph = graph_ms(call, flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, plen, total, group=group), flush)
@@ -860,7 +870,47 @@ def check_b1(flush, g, Hkv, G, d, group, W, label="B1", by_prompt=True):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 wall_ms=ms_wall, graph_ms=ms_graph,
                 graph_ms_by_prompt=by_length, sdpa_context_ms=sdpa,
-                Hkv=Hkv, G=G, d=d)
+                Hkv=Hkv, G=G, d=d, **({"lse": lse} if lse else {}))
+
+
+def check_b1_lse(args, plen, total, rows, tl, group) -> dict:
+    """B1's optional log-sum-exp (phase 18's split-K combine reads it)
+    against its plain version's at check_b1's scalar lengths, its per-row
+    lengths (an empty row among them) and at a split-K shard's shape
+    (1536 positions, m = 3 at S_MAX = 4608, with the ring on its rows
+    and a segment with nothing to read, whose lse must be the -1e30
+    sentinel and its output finite); the outputs with the pointer equal
+    those without it bit for bit."""
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.quant_attention import ref as qa_ref
+
+    span = S_MAX // 3
+    shard = tuple(a[:, :span].contiguous() if a.dim() == 3 and i in
+                  range(1, 5) else a for i, a in enumerate(args))
+    BH = args[0].shape[0]
+    seg = torch.full((BH,), span, dtype=torch.int32, device="cuda")
+    seg[BH // 2:] = 0  # the second half of the rows: an empty segment
+    seg_t = seg + torch.where(seg > 0, 11, 0).int()
+    errs = {}
+    for what, a, pl, tt in (("scalar", args, plen, total),
+                            ("per-row", args, rows, tl),
+                            ("shard", shard, seg, seg_t)):
+        out, lse = qa_ops.quant_decode_attention(*a, pl, tt, group=group,
+                                                 return_lse=True)
+        out0 = qa_ops.quant_decode_attention(*a, pl, tt, group=group)
+        want_o, want = qa_ref.quant_decode_attention_ref(
+            *a, pl, tt, group=group, return_lse=True)
+        assert torch.equal(out, out0), f"B1 {what}: output moved by the lse"
+        assert torch.isfinite(out).all(), f"B1 {what}: not finite"
+        e_o = (out - want_o).abs().max().item()
+        errs[what] = (lse - want).abs().max().item()
+        assert e_o <= B1_ATOL and errs[what] <= LSE_ATOL, (what, e_o, errs)
+        if what == "shard":
+            assert (lse[BH // 2:] == -1e30).all(), "empty segment's lse"
+    log(f"B1 log-sum-exp vs plain: max abs err {errs} (tolerance "
+        f"{LSE_ATOL}); outputs with the pointer == without; an empty "
+        f"segment's lse -1e30")
+    return {"max_abs_err": max(errs.values()), "by_case": errs}
 
 
 # (kv heads, d, group, s_max, total length, what) of phase 15's reads: the
@@ -5513,6 +5563,159 @@ def p17_phase() -> dict:
     return launches
 
 
+# ------------------------------------ phase 18: split-K serving (A12d)
+# internlm2-1.8b's 8 KV heads do not divide a 'model' axis of 3 or 16, so
+# shard_cache(..., allow_split_k=True) splits each layer's dense cache by
+# position: at S_MAX = 4608 a shard spans 1536 positions on m = 3 (the
+# 1523-token request's packed length crosses shard 0's end during decode)
+# and 288 on m = 16 (the 2055-token request leaves shards 8-15 empty)
+P18_NEW = 32
+P18_EAGER_NEW = 8  # the eager run's tokens, held to the graph run's first
+# (policy, backend, m, prompt tokens, also eager)
+P18_RUNS = (("int4-srft", "kernel", 3, 1523, True),
+            ("int4-srft", "kernel", 16, 2055, False),
+            ("bf16", "gather", 3, 1523, False),
+            ("int8-per-token", "gather", 3, 1523, False))
+P18_READ_TOL = 1e-4  # B1's, times max(1, max|out|): layer 0's read
+
+
+def p18_run(model, params, policy, backend, m, prompt_len, graph=True,
+            n_new=P18_NEW) -> dict:
+    """One request through ``Engine`` (unsharded when ``m`` is None, else
+    over a (1, m) mesh of cuda:0 with split-K): tokens, logits, the
+    kernels' launches, ms/token over the decode (events, the first step
+    and its capture excluded), every layer's bytes after the prefill and
+    after the first decode step, the per-shard bytes, and the cache."""
+    from repro_torch.launch import sharded_cache as sc
+    from repro_torch.launch.engine import Engine
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
+                           generator=g, device="cuda")
+    mesh = _p16_mesh(m) if m else None
+    eng = Engine(model, backend=backend, graph=graph, mesh=mesh)
+    cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
+                             generator=torch.Generator().manual_seed(SEED))
+    if mesh is not None:
+        cache = eng.shard_cache(cache, allow_split_k=True)
+        assert all(isinstance(st, sc.ShardedState) and st.seq_split
+                   for st in cache["attn"]), "split-K did not split"
+    p = eng.shard_params(params)
+    _zero_counters()
+    lg, cache = eng.prefill(p, prompt, cache)
+    prefilled = _p16_flat(cache["attn"])
+    tok = lg[:, -1].argmax(-1)[:, None]
+    tok1, l1, cache = eng.decode(p, tok, cache, 1, return_logits=True)
+    first = _p16_flat(cache["attn"])
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rest, lr, cache = eng.decode(p, tok1, cache, n_new - 2,
+                                 return_logits=True)
+    b.record()
+    torch.cuda.synchronize()
+    counts = _counters()
+    per_shard = sum(st.nbytes(persistent_only=False, per_shard=True)
+                    for st in cache["attn"])
+    return dict(toks=torch.cat([tok, tok1, rest], dim=1)[0].cpu(),
+                logits=torch.cat([lg[:, -1:].float(), l1, lr], dim=1),
+                ms=a.elapsed_time(b) / (n_new - 2), counts=counts,
+                prefilled=prefilled, first=first, cache=cache,
+                per_shard_bytes=per_shard)
+
+
+def _p18_bytes_equal(ref, got, layers, what) -> int:
+    """``_p16_flat`` layers ``layers`` bit-equal, leaf by leaf."""
+    return _p16_same_leaves([ref[i] for i in layers],
+                            [got[i] for i in layers], what)
+
+
+def _p18_layer0_read(state, backend, cfg) -> float:
+    """Layer 0's split-K read of a seeded fp32 query against the unsplit
+    read of the same bytes (the state gathered along the sequence): the
+    error over ``P18_READ_TOL * max(1, max|out|)``, which must be <= 1."""
+    from repro_torch.launch import sharded_cache as sc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    d = cfg.head_dim
+    q = torch.randn((1, cfg.n_heads, 1, d), generator=g, device="cuda")
+    kw = dict(backend=backend, scale=d ** -0.5)
+    got = state.policy.attend(q, state, **kw)
+    whole = sc.gather_state(state)
+    want = whole.policy.attend(q, whole, **kw)
+    err = (got - want).abs().max().item()
+    return err / (P18_READ_TOL * max(1.0, want.abs().max().item()))
+
+
+def p18_case(model, params, policy, backend, m, prompt_len,
+             eager) -> tuple[dict, dict]:
+    """One of ``P18_RUNS`` against the unsharded run of its request."""
+    what = f"18 {policy} {backend} m={m} {prompt_len}+{P18_NEW}"
+    ref = p18_run(model, params, policy, backend, None, prompt_len)
+    got = p18_run(model, params, policy, backend, m, prompt_len)
+    n_layers = len(ref["prefilled"])
+    n_pre = _p18_bytes_equal(ref["prefilled"], got["prefilled"],
+                             range(n_layers), f"{what} after the prefill")
+    n_first = _p18_bytes_equal(ref["first"], got["first"], [0],
+                               f"{what} layer 0 at the first decode")
+    # a deeper layer's first-step K/V come from the split-K read below it
+    deeper = sum(int(not torch.equal(x, y))
+                 for la, lb in zip(ref["first"][1:], got["first"][1:])
+                 for (_, x), (_, y) in zip(la, lb))
+    n_same = _agree_until(ref["toks"][None], got["toks"][None],
+                          ref["logits"])
+    tol = LOGIT_TOL * ref["logits"].abs().max().item()
+    err = (got["logits"][:, :n_same] - ref["logits"][:, :n_same]).abs(
+        ).max().item()
+    assert err <= tol, f"{what}: logits {err} > {tol}"
+    n, n_ref = got["counts"], ref["counts"]
+    assert n["srft_quant"] == n_ref["srft_quant"], (what, n, n_ref)
+    if backend == "kernel":
+        assert n["quant_decode_attention"] == \
+            m * n_ref["quant_decode_attention"] > 0, (what, n, n_ref)
+    read = _p18_layer0_read(got["cache"]["attn"][0], backend, model.cfg)
+    assert read <= 1.0, f"{what}: layer 0's read {read} x tolerance"
+    rec = dict(tokens_agree=n_same, logit_err=err, logit_tol=tol,
+               ms_per_token=got["ms"], unsharded_ms_per_token=ref["ms"],
+               launches=n, unsharded_launches=n_ref,
+               per_shard_bytes=got["per_shard_bytes"],
+               unsharded_bytes=ref["per_shard_bytes"],
+               layer0_read_over_tol=read, deeper_leaves_moved=deeper)
+    if eager:
+        e = p18_run(model, params, policy, backend, m, prompt_len,
+                    graph=False, n_new=P18_EAGER_NEW)
+        assert torch.equal(e["toks"], got["toks"][:P18_EAGER_NEW]), \
+            f"{what}: graph != eager"
+        rec["eager_ms_per_token"] = e["ms"]
+    log(f"[{CARD}] {what}: tokens agree for {n_same}/{P18_NEW}, logits "
+        f"within {err:.3e} (tol {tol:.3e}); {n_pre} leaves bit-equal after "
+        f"the prefill, layer 0's {n_first} at the first decode ({deeper} "
+        f"deeper leaves moved by the split read); layer 0's read at "
+        f"{read:.3f} x its tolerance; B1 {n['quant_decode_attention']} "
+        f"(unsharded {n_ref['quant_decode_attention']}), B3 "
+        f"{n['srft_quant']} (= unsharded); {got['ms']:.3f} ms/token graph"
+        + (f", {rec['eager_ms_per_token']:.3f} eager" if eager else "")
+        + f", unsharded {ref['ms']:.3f} (events); per-shard cache "
+        f"{got['per_shard_bytes'] / 2**20:.2f} MiB of "
+        f"{ref['per_shard_bytes'] / 2**20:.2f} MiB")
+    del got, ref
+    return {f"split_k_{policy}_m{m}": n}, rec
+
+
+def p18_phase(model, params) -> dict:
+    """Split-K serving on phase 5's model (``P18_RUNS``), each run held to
+    the unsharded run of the same request and backend."""
+    launches, recs = {}, {}
+    for policy, backend, m, prompt_len, eager in P18_RUNS:
+        n, rec = p18_case(model, params, policy, backend, m, prompt_len,
+                          eager)
+        launches.update(n)
+        recs[f"{policy}/{backend}/m{m}"] = rec
+    torch.cuda.empty_cache()
+    log(f"[{CARD}] 18 summary " + json.dumps(recs))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5598,6 +5801,7 @@ def main() -> int:
     learned = timed("learned", learned_phase, model, params)
     served = timed("serve", serve_phase, model, params)
     sharded = timed("p16", p16_phase, model, params)
+    split_k = timed("p18", p18_phase, model, params)
     del model, params, mono, pre_mono  # their engines hold ~10 GB
     _free_cuda()
     log(f"before phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -5617,7 +5821,7 @@ def main() -> int:
     log(f"[{card}] phase 17 {secs['p17']:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
                "quality": quality, **learned, **served, **configs,
-               **families, **sharded, **trained}
+               **families, **sharded, **trained, **split_k}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

@@ -1,19 +1,23 @@
 """Config registry (port of ``repro/configs/__init__.py``,
 ``paper_models.py`` and the per-arch modules): the ten architectures of
 the reference (dense, moe, hybrid, ssm, vlm, audio) and the paper's
-stand-ins, plus ``reduced()`` for CPU-sized variants of the same family."""
+stand-ins, plus ``reduced()`` for CPU-sized variants of the same family, the
+tooling's ``SHAPES`` and ``LONG_CONTEXT_ARCHS``."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import (
+    SHAPES,
     ModelConfig,
     MoEConfig,
+    ShapeConfig,
     SSMConfig,
     XLSTMConfig,
 )
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig", "ARCH_IDS",
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
+           "ShapeConfig", "SHAPES", "ARCH_IDS", "LONG_CONTEXT_ARCHS",
            "get_config", "reduced"]
 
 # internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
@@ -134,6 +138,9 @@ _CONFIGS = {c.name: c for c in (
     GEMMA_7B, INTERNLM2_1_8B, LLAVA_NEXT_34B, WHISPER_LARGE_V3, XLSTM_1_3B,
     SMOL_D64, SMOL_D128, SMOL_D256)}
 ARCH_IDS = list(_CONFIGS)
+
+# archs with sub-quadratic backbones: the only ones running long_500k
+LONG_CONTEXT_ARCHS = ("zamba2-7b", "xlstm-1.3b")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,9 +1,11 @@
-"""Model configuration dataclasses (port of ``repro/configs/base.py:15-104``).
+"""Model configuration dataclasses (port of ``repro/configs/base.py:15-120``).
 
 The port's own copy: ``MoEConfig``, ``SSMConfig``, ``XLSTMConfig`` and the
 fields of every family the port serves (dense, moe, vlm, hybrid, ssm,
 audio), with the same names and defaults as the reference,
-``kv_applicable`` and ``validated()``.
+``kv_applicable`` and ``validated()``; ``ShapeConfig`` and ``SHAPES``, the
+reference's four (batch, sequence) cells of the analytic tooling
+(``launch/specs.py``, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import dataclasses
 from typing import Optional
 
 __all__ = ["MoEConfig", "SSMConfig", "XLSTMConfig", "ModelConfig",
-           "ATTENTION_FAMILIES"]
+           "ShapeConfig", "SHAPES", "ATTENTION_FAMILIES"]
 
 # the families without recurrent state: the only ones with per-row cache
 # lengths (continuous batching, paged caches, chunked prefill, spec)
@@ -102,3 +104,19 @@ class ModelConfig:
             )
             return dataclasses.replace(self, kv_group=g)
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

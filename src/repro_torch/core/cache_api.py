@@ -44,7 +44,7 @@ place.  An int4 KERNEL verify warns once and reads with GATHER's
 numerics, as the reference does: B1/B2 are single-query kernels.
 
 The model code never branches on the scheme: a ``CacheState`` carries its
-policy.  ``attend`` raises for a backend a policy does not implement; the
+policy, and every policy conforms to ``KVCachePolicy``.  ``attend`` raises for a backend a policy does not implement; the
 one switch it makes is the reference's: an int4 KERNEL read with a
 ``sliding_window``, which B1/B2 do not implement, is served by BLOCKWISE
 after a one-time warning.  Entry points run on ``cuda`` unless the caller
@@ -55,7 +55,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import warnings
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -63,6 +63,7 @@ from repro_torch import resolve_device
 from repro_torch.core import kvcache, paged, quant
 from repro_torch.core.kvcache import BF16KVCache, QuantKVCache
 from repro_torch.core.paged import PagedData
+from repro_torch.core.paged import read_pages as _read_pages
 from repro_torch.core.quant_attention_ref import (
     decode_attention_bf16,
     decode_attention_bf16_blockwise,
@@ -77,6 +78,7 @@ from repro_torch.kernels.srft_quant.ops import dequantize_rotate
 __all__ = [
     "AttendBackend",
     "CacheState",
+    "KVCachePolicy",
     "BF16Policy",
     "Int4SRFTPolicy",
     "Int4State",
@@ -151,6 +153,138 @@ class CacheState:
         state it changes nothing."""
         return self.policy.nbytes(self, persistent_only=persistent_only,
                                   per_shard=per_shard)
+
+
+@runtime_checkable
+class KVCachePolicy(Protocol):
+    """What every KV-cache scheme implements (port of the reference's
+    protocol, ``repro/core/cache_api.py:175-449``): the methods and their
+    parameter names are the reference's, with one translation: where the
+    reference takes a PRNG ``key`` the port takes a ``torch.Generator``
+    (``generator``), beside the ``device`` its entry points take.  A
+    policy may add keyword options after them (``snapshot_rows(into=)``,
+    ``raw_kv_view(n_tokens=)``; on ``attend`` int4's ``plan_rows`` and
+    ``packed_len``, and every policy's ``return_lse``).  The registered
+    policies and ``launch/sharded_cache.ShardedPolicy`` (the policy of a
+    state sharded over a mesh) conform.
+
+    Lifecycle: ``init_state`` (dense; ``ragged=True`` gives per-row
+    lengths) or ``init_paged`` (a page pool, always ragged); ``prefill``
+    or ``prefill_chunk`` fills it, ``update`` appends one decode token a
+    row (``active`` masks finished rows), ``attend`` reads; admission is
+    ``insert_row`` / ``insert_row_paged`` / ``adopt_prefix``, retirement
+    ``reset_rows``; a speculative pass takes ``snapshot_rows``, reads with
+    ``verify_attend`` and rolls back with ``truncate_rows``; the host
+    prefix tier moves pages with ``export_pages`` / ``import_pages``.
+    Every write is in place (a captured CUDA graph replays fixed
+    addresses), where the reference's donated pytrees are rebuilt.
+    ``nbytes`` and ``compression_ratio`` are global-logical unless
+    ``per_shard``."""
+
+    name: str
+    supported_backends: tuple
+
+    def init_state(self, batch: int, n_kv_heads: int, s_max: int,
+                   head_dim: int, *,
+                   generator: Optional[torch.Generator] = None,
+                   device=None, ragged: bool = False) -> CacheState:
+        """A zeroed dense cache of ``batch`` rows of ``s_max`` tokens."""
+        ...
+
+    def init_paged(self, batch: int, n_kv_heads: int, s_max: int,
+                   head_dim: int, *, n_pages: int, page_size: int,
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> CacheState:
+        """A zeroed paged cache: ``(n_pages, H, page_size, c)`` pools
+        behind a per-row page table; raises on a misaligned page size."""
+        ...
+
+    def prefill(self, state: CacheState, k: torch.Tensor, v: torch.Tensor
+                ) -> CacheState:
+        """Bulk-insert a prompt ``(B, Hkv, S, d)``; every row at S."""
+        ...
+
+    def update(self, state: CacheState, k: torch.Tensor, v: torch.Tensor,
+               *, active: Optional[torch.Tensor] = None) -> CacheState:
+        """Append one token ``(B, Hkv, 1, d)`` at each row's length."""
+        ...
+
+    def prefill_chunk(self, state: CacheState, k: torch.Tensor,
+                      v: torch.Tensor) -> CacheState:
+        """Append a prompt chunk ``(B, Hkv, C, d)`` at each row's length."""
+        ...
+
+    def attend(self, q: torch.Tensor, state: CacheState, *,
+               scale: Optional[float] = None,
+               backend: "AttendBackend | str | None" = None,
+               kv_block: int = 512,
+               sliding_window: Optional[int] = None) -> torch.Tensor:
+        """One-token read: ``q`` ``(B, Hq, 1, d)`` -> ``(B, Hq, 1, d)``."""
+        ...
+
+    def snapshot_rows(self, state: CacheState) -> Any:
+        """What a verify pass's rollback needs, copied before its appends."""
+        ...
+
+    def verify_attend(self, q: torch.Tensor, state: CacheState, snap: Any,
+                      *, scale: Optional[float] = None,
+                      backend: "AttendBackend | str | None" = None,
+                      kv_block: int = 512,
+                      sliding_window: Optional[int] = None) -> torch.Tensor:
+        """k verify queries ``(B, Hq, k, d)``, each against its prefix."""
+        ...
+
+    def truncate_rows(self, state: CacheState, new_length, snap: Any
+                      ) -> CacheState:
+        """Roll rows back to ``new_length`` after a verify pass."""
+        ...
+
+    def with_rotations(self, state: CacheState, rot_k: Rotation,
+                       rot_v: Rotation) -> CacheState:
+        """The state with (calibrated) rotations; a no-op without them."""
+        ...
+
+    def insert_row(self, state: CacheState, row: CacheState, slot
+                   ) -> CacheState:
+        """Admit a prefilled batch-1 ragged ``row`` into ``slot``."""
+        ...
+
+    def insert_row_paged(self, state: CacheState, row: CacheState, slot,
+                         shared_pages, n_shared, n_new) -> CacheState:
+        """Paged admission: share ``n_shared`` pages, fill ``n_new``."""
+        ...
+
+    def adopt_prefix(self, row: CacheState, paged: CacheState, pages,
+                     n_tokens) -> CacheState:
+        """Seed a dense batch-1 ``row`` from resident pages of ``paged``."""
+        ...
+
+    def export_pages(self, state: CacheState, pages) -> tuple:
+        """Host copies of the named pool pages, one a pool leaf."""
+        ...
+
+    def import_pages(self, row: CacheState, payload: tuple, n_tokens
+                     ) -> CacheState:
+        """Seed a dense batch-1 ``row`` from exported page tiles."""
+        ...
+
+    def raw_kv_view(self, state: CacheState) -> tuple:
+        """Raw-space ``(B, Hkv, S, d)`` K/V of a dense state."""
+        ...
+
+    def reset_rows(self, state: CacheState, mask) -> CacheState:
+        """Retire the masked rows: lengths to 0 (paged: pages freed)."""
+        ...
+
+    def nbytes(self, state: CacheState, *, persistent_only: bool = True,
+               per_shard: bool = False) -> int:
+        """Cache bytes, global-logical unless ``per_shard``."""
+        ...
+
+    def compression_ratio(self, state: CacheState, *,
+                          per_shard: bool = False) -> float:
+        """bf16-equivalent bytes over persistent bytes."""
+        ...
 
 
 _REGISTRY: dict[str, type] = {}
@@ -325,13 +459,13 @@ class BF16Policy:
             kvcache.bf16_prefill_chunk_ragged(state.data, k, v)
         return state
 
-    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+    def adopt_prefix(self, row, paged, pages, n_tokens: int):
         """Seed a dense batch-1 ragged ``row`` from the donor pages
-        ``pages`` of ``paged_state`` and set its length to ``n_tokens``;
+        ``pages`` of ``paged`` and set its length to ``n_tokens``;
         positions past them hold garbage that chunks overwrite."""
         d = row.data
         for buf, tiles in zip((d.k, d.v),
-                              paged.read_pages(paged_state.data, pages)):
+                              _read_pages(paged.data, pages)):
             _seed_leaf(buf, tiles)
         d.length = kvcache.all_rows_at(d.length, n_tokens)
         return row
@@ -384,7 +518,9 @@ class BF16Policy:
         return state
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
-               sliding_window=None):
+               sliding_window=None, return_lse=False):
+        """``return_lse``: also the (B, Hq, 1) log-sum-exp of the scores
+        (a read split by position combines its parts by it)."""
         backend = AttendBackend.parse(backend)
         if backend not in self.supported_backends:
             _unsupported(self, backend)
@@ -395,9 +531,10 @@ class BF16Policy:
         if backend is AttendBackend.BLOCKWISE:
             return decode_attention_bf16_blockwise(
                 q, data, scale=scale, sliding_window=sliding_window,
-                kv_block=kv_block)
+                kv_block=kv_block, return_lse=return_lse)
         return decode_attention_bf16(q, data, scale=scale,
-                                     sliding_window=sliding_window)
+                                     sliding_window=sliding_window,
+                                     return_lse=return_lse)
 
     def rollback_leaves(self, state) -> tuple:
         """The live tensors a verify pass's rollback rewrites: the
@@ -582,7 +719,7 @@ class Int4SRFTPolicy:
             kvcache.prefill_chunk_ragged(d.kv, d.rot_k, d.rot_v, k, v)
         return state
 
-    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+    def adopt_prefix(self, row, paged, pages, n_tokens: int):
         """Seed a dense batch-1 ragged ``row`` from donor pages.
         ``n_tokens`` must be W-aligned (the engine's contract): every
         adopted byte then comes from packed storage and the residual ring
@@ -591,7 +728,7 @@ class Int4SRFTPolicy:
         kv = row.data.kv
         leaves = (kv.k_packed, kv.k_scales, kv.v_packed, kv.v_scales)
         for buf, tiles in zip(leaves,
-                              paged.read_pages(paged_state.data.kv, pages)):
+                              _read_pages(paged.data.kv, pages)):
             _seed_leaf(buf, tiles)
         kv.length = kvcache.all_rows_at(kv.length, n_tokens)
         return row
@@ -670,9 +807,13 @@ class Int4SRFTPolicy:
         return QuantKVCache(kp, ks, vp, vs, *pd.residual, pd.length)
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
-               sliding_window=None, plan_rows=None):
+               sliding_window=None, plan_rows=None, packed_len=None,
+               return_lse=False):
         """``plan_rows``: B1/B2's split-K plan's row count (the kernel
-        wrappers' ``plan_rows``); the other reads ignore it."""
+        wrappers' ``plan_rows``); the other reads ignore it.  A dense
+        state's read takes ``packed_len`` (default ``L - L mod W``) and
+        ``return_lse`` (also the (B, Hq, 1) log-sum-exp of the scores):
+        what a read split by position over shards needs."""
         backend = AttendBackend.parse(backend)
         d = state.data
         if backend is AttendBackend.KERNEL and sliding_window is not None:
@@ -690,14 +831,19 @@ class Int4SRFTPolicy:
                     plan_rows=plan_rows)
             return decode_attention_kernel(q, d.kv, d.rot_k, d.rot_v,
                                            scale=scale, blk=kv_block,
-                                           plan_rows=plan_rows)
+                                           plan_rows=plan_rows,
+                                           packed_len=packed_len,
+                                           return_lse=return_lse)
         kv = self._dense_kv_view(d.kv) if state.is_paged else d.kv
         if backend is AttendBackend.BLOCKWISE:
             return decode_attention_quant_blockwise(
                 q, kv, d.rot_k, d.rot_v, scale=scale,
-                sliding_window=sliding_window, kv_block=kv_block)
+                sliding_window=sliding_window, kv_block=kv_block,
+                packed_len=packed_len, return_lse=return_lse)
         return decode_attention_quant(q, kv, d.rot_k, d.rot_v, scale=scale,
-                                      sliding_window=sliding_window)
+                                      sliding_window=sliding_window,
+                                      packed_len=packed_len,
+                                      return_lse=return_lse)
 
     def rollback_leaves(self, state) -> tuple:
         """The live tensors a verify pass's rollback rewrites: the K and V
@@ -893,12 +1039,12 @@ class Int8PerTokenPolicy:
             d.length.add_(k.shape[-2])
         return state
 
-    def adopt_prefix(self, row, paged_state, pages, n_tokens: int):
+    def adopt_prefix(self, row, paged, pages, n_tokens: int):
         """Seed a dense batch-1 ragged ``row`` from donor pages and set
         its length to ``n_tokens``."""
         d = row.data
         for buf, tiles in zip(d.leaves(),
-                              paged.read_pages(paged_state.data, pages)):
+                              _read_pages(paged.data, pages)):
             _seed_leaf(buf, tiles)
         d.length = kvcache.all_rows_at(d.length, n_tokens)
         return row
@@ -962,7 +1108,9 @@ class Int8PerTokenPolicy:
         return BF16KVCache(_dequant8(kc, ks), _dequant8(vc, vs), d.length)
 
     def attend(self, q, state, *, scale=None, backend=None, kv_block=512,
-               sliding_window=None):
+               sliding_window=None, return_lse=False):
+        """``return_lse``: also the (B, Hq, 1) log-sum-exp of the
+        scores."""
         backend = AttendBackend.parse(backend)
         if backend is not AttendBackend.GATHER:
             raise NotImplementedError(
@@ -970,7 +1118,8 @@ class Int8PerTokenPolicy:
                 f"(got {backend.value}); tiled dequant is int4-only")
         return decode_attention_bf16(q, self._dequantized(state),
                                      scale=scale,
-                                     sliding_window=sliding_window)
+                                     sliding_window=sliding_window,
+                                     return_lse=return_lse)
 
     def rollback_leaves(self, state) -> tuple:
         """The live tensors a verify pass's rollback rewrites: the lengths

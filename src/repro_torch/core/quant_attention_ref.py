@@ -20,6 +20,15 @@ A row of length 0 (a retired slot riding in the batch) gives a finite
 output: the -1e30 sentinel and the 1e-30 floor here, zero weights in the
 bf16 read.
 
+``return_lse=True`` makes a decode read also return each query's
+log-sum-exp of its scaled scores, ``(B, Hq, 1)`` fp32, the weight a read
+split by position over shards combines its parts by
+(``launch/sharded_cache.py``).  A read with no valid position gives
+-1e30 (the sentinel, as kernel B1 does), never -inf, so that its weight
+beside any valid part is exactly 0 and a combine of empty parts stays
+finite.  ``packed_len`` overrides an int4 read's ``L - L mod W`` (a
+shard's packed segment need not end on a multiple of W).
+
 BLOCKWISE is the flash-decode tiling of the B1 kernel in plain PyTorch:
 ``ceil(s_max / kv_block)`` tiles, always all of them (the reference's
 ``lax.scan``, with no exit that depends on the data, so a captured decode
@@ -60,13 +69,13 @@ def _fold_query(q: torch.Tensor, rot_k: Rotation, Hkv: int) -> torch.Tensor:
 
 
 def _quant_read(qg, yk, yv, ring_k, ring_v, plen, length, sm,
-                sliding_window) -> torch.Tensor:
+                sliding_window, return_lse: bool = False):
     """One query's two-part read: the packed part (positions < ``plen``
     of the dequantized ``yk`` / ``yv``) and the residual ring (token i at
     ``plen + i``, valid below ``length``), combined.  ``qg`` (B, Hkv, G,
-    d); returns out_rot (B, Hkv, G, d).  Decode and verify both read
-    through here, so a verify query runs a decode step's operations in
-    the same order."""
+    d); returns out_rot (B, Hkv, G, d), and with ``return_lse`` its (B,
+    Hkv, G) log-sum-exp.  Decode and verify both read through here, so a
+    verify query runs a decode step's operations in the same order."""
     dev = qg.device
     plen, length = _per_row(plen, 4), _per_row(length, 4)
     W = ring_k.shape[-2]
@@ -89,23 +98,29 @@ def _quant_read(qg, yk, yv, ring_k, ring_v, plen, length, sm,
     m = torch.maximum(m_p, m_r)
     w_p, w_r = torch.exp(m_p - m), torch.exp(m_r - m)
     denom = (w_p * l_p + w_r * l_r).clamp_min(1e-30)
-    return (w_p[..., None] * acc_p + w_r[..., None] * acc_r) \
+    out = (w_p[..., None] * acc_p + w_r[..., None] * acc_r) \
         / denom[..., None]
+    return (out, m + torch.log(denom)) if return_lse else out
 
 
 def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache,
                            rot_k: Rotation, rot_v: Rotation, *,
                            scale: Optional[float] = None,
-                           sliding_window: Optional[int] = None
-                           ) -> torch.Tensor:
-    """q (B, Hq, 1, d) -> (B, Hq, 1, d) in the original basis."""
+                           sliding_window: Optional[int] = None,
+                           packed_len=None, return_lse: bool = False):
+    """q (B, Hq, 1, d) -> (B, Hq, 1, d) in the original basis (and its
+    (B, Hq, 1) log-sum-exp with ``return_lse``)."""
     B, Hq, _, d = q.shape
     sm = scale if scale is not None else d ** -0.5
     qg = _fold_query(q, rot_k, cache.k_packed.shape[1])
     yk, yv, plen = kvcache.gather_rotated(cache)
-    out_rot = _quant_read(qg, yk, yv, cache.k_residual, cache.v_residual,
-                          plen, cache.length, sm, sliding_window)
-    return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    if packed_len is not None:
+        plen = packed_len
+    got = _quant_read(qg, yk, yv, cache.k_residual, cache.v_residual,
+                      plen, cache.length, sm, sliding_window, return_lse)
+    out_rot, lse = got if return_lse else (got, None)
+    out = rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    return (out, lse.reshape(B, Hq, 1)) if return_lse else out
 
 
 def _per_query_lengths(base_len, kq: int) -> torch.Tensor:
@@ -190,17 +205,20 @@ def decode_attention_quant_blockwise(q: torch.Tensor, cache: QuantKVCache,
                                      rot_k: Rotation, rot_v: Rotation, *,
                                      scale: Optional[float] = None,
                                      sliding_window: Optional[int] = None,
-                                     kv_block: int = 512) -> torch.Tensor:
+                                     kv_block: int = 512, packed_len=None,
+                                     return_lse: bool = False):
     """Flash-decode over the packed cache, dequantizing tile by tile, then
     the fp32 residual window as one more tile: q (B, Hq, 1, d) -> (B, Hq,
-    1, d) in the original basis."""
+    1, d) in the original basis (and its (B, Hq, 1) log-sum-exp with
+    ``return_lse``)."""
     B, Hq, _, d = q.shape
     Hkv = cache.k_packed.shape[1]
     G = Hq // Hkv
     g, W = cache.group, cache.window
     sm = scale if scale is not None else d ** -0.5
     dev = q.device
-    plen = _per_row(kvcache.packed_len(cache), 5)
+    plen = _per_row(kvcache.packed_len(cache) if packed_len is None
+                    else packed_len, 5)
     length = _per_row(cache.length, 5)
     qg = (q.float() @ rot_k.folded_query_matrix().T).reshape(
         B, Hkv, G, 1, d) * sm
@@ -224,17 +242,23 @@ def decode_attention_quant_blockwise(q: torch.Tensor, cache: QuantKVCache,
     mask = pos_r < length
     if sliding_window is not None:
         mask = mask & (pos_r > length - 1 - sliding_window)
-    _, l, acc = _online_step(
+    m, l, acc = _online_step(
         state, torch.einsum("bhgqd,bhsd->bhgqs", qg, cache.k_residual),
         cache.v_residual, mask)
-    out_rot = acc / l.clamp_min(1e-30)[..., None]
-    return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    l = l.clamp_min(1e-30)
+    out_rot = acc / l[..., None]
+    out = rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, 1)
+    return out
 
 
 def _bf16_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
-               sm: float, sliding_window) -> torch.Tensor:
+               sm: float, sliding_window, return_lse: bool = False):
     """One query (B, Hq, 1, d) over fp32 K/V (B, Hkv, S, d) valid below
-    ``length``: (B, Hq, 1, d) fp32.  Decode and verify read through here."""
+    ``length``: (B, Hq, 1, d) fp32, and with ``return_lse`` its (B, Hq, 1)
+    log-sum-exp (-1e30 for a query with no valid position).  Decode and
+    verify read through here."""
     B, Hq, _, d = q.shape
     Hkv = k.shape[1]
     length = _per_row(length, 4)
@@ -248,18 +272,26 @@ def _bf16_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
     # a fully-masked row yields zero weights (finite output), not NaN
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0))
-    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, Hq, 1, d)
+    total = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgs,bhsd->bhgd", e / total, v).reshape(B, Hq, 1, d)
+    if not return_lse:
+        return out
+    lse = torch.where(torch.isfinite(m), m + torch.log(total), NEG)
+    return out, lse.reshape(B, Hq, 1)
 
 
 def decode_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *,
                           scale: Optional[float] = None,
-                          sliding_window: Optional[int] = None
-                          ) -> torch.Tensor:
-    """bf16 baseline decode read (grouped GQA, empty-row-safe softmax)."""
+                          sliding_window: Optional[int] = None,
+                          return_lse: bool = False):
+    """bf16 baseline decode read (grouped GQA, empty-row-safe softmax);
+    with ``return_lse`` also its (B, Hq, 1) log-sum-exp."""
     sm = scale if scale is not None else q.shape[-1] ** -0.5
-    return _bf16_read(q, cache.k.float(), cache.v.float(), cache.length, sm,
-                      sliding_window).to(q.dtype)
+    got = _bf16_read(q, cache.k.float(), cache.v.float(), cache.length, sm,
+                     sliding_window, return_lse)
+    if return_lse:
+        return got[0].to(q.dtype), got[1]
+    return got.to(q.dtype)
 
 
 def verify_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *, base_len,
@@ -283,7 +315,8 @@ def verify_attention_bf16(q: torch.Tensor, cache: BF16KVCache, *, base_len,
 def decode_attention_bf16_blockwise(q: torch.Tensor, cache: BF16KVCache, *,
                                     scale: Optional[float] = None,
                                     sliding_window: Optional[int] = None,
-                                    kv_block: int = 512) -> torch.Tensor:
+                                    kv_block: int = 512,
+                                    return_lse: bool = False):
     """The bf16 read under the int4 read's tiling (BLOCKWISE), so that a
     backend sweep measures both policies the same way.  A masked position
     weighs exactly zero: a row of length 0 yields a zero output, as the
@@ -315,5 +348,8 @@ def decode_attention_bf16_blockwise(q: torch.Tensor, cache: BF16KVCache, *,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgqs,bhsd->bhgqd", p, vj)
         m = m_new
-    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(B, Hq, 1, d)
-    return out.to(q.dtype)
+    l = l.clamp_min(1e-30)
+    out = (acc / l[..., None]).reshape(B, Hq, 1, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, 1)
+    return out

@@ -13,7 +13,16 @@
 //     loaded;
 //   * residual part: the fp32 window (positions packed_len + i, masked
 //     < total_len) folded in last, with the same update rule;
-//   * out = acc / max(l, 1e-30): finite on empty rows, as the reference.
+//   * out = acc / max(l, 1e-30): finite on empty rows, as the reference;
+//   * optionally (B1, a non-null lse): the row's log-sum-exp of its scores,
+//     m + log(max(l, 1e-30)), in the kernel's score units (q_eff carries the
+//     softmax scale), so that reads of one query over disjoint segments of
+//     the sequence (a cache split by position over shards) can be combined
+//     by their weights exp(lse_j - max_j lse_j).  A row with nothing to
+//     read keeps the -1e30 sentinel: its lse is -1e30 + log(W), which is
+//     -1e30 in fp32, so its weight beside any row with a valid score is
+//     exactly 0 and its output (the mean of its masked window) is finite.
+//     A -inf there would make the combine of all-empty rows NaN.
 //
 // B2 is B1's pass 1 with another address for token t of row r = b*H + h:
 //   dense (B1): row r*S + t of the (BH, S, .) arrays;
@@ -455,14 +464,15 @@ qda_split_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kp,
 
 // Pass 2: one block per row.  Stages the row's partials and residual
 // window in shared memory (every load in flight at once), combines the
-// partials, folds in the residual window, normalizes.
+// partials, folds in the residual window, normalizes; with a non-null lse,
+// stores each (row, head)'s log-sum-exp too.
 __global__ void __launch_bounds__(kThreads)
 qda_combine_kernel(const float* __restrict__ q, const float* __restrict__ kr,
                    const float* __restrict__ vr, const int* __restrict__ plen_rows,
                    const int* __restrict__ tlen_rows, int plen_all, int tlen_all,
                    const float* __restrict__ part_ml,
                    const float* __restrict__ part_acc, float* __restrict__ out,
-                   int n_splits, int G, int d, int W) {
+                   float* __restrict__ lse, int n_splits, int G, int d, int W) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -532,6 +542,9 @@ qda_combine_kernel(const float* __restrict__ q, const float* __restrict__ kr,
       const float corr = expf(mp[g] - m_new);
       cr[g] = corr;
       lp[g] = fmaxf(lp[g] * corr + sum, 1e-30f);
+      // stored only when asked for: a null lse computes and stores what
+      // the read stored before the output existed
+      if (lse != nullptr) lse[(size_t)bh * G + g] = m_new + logf(lp[g]);
     }
   }
   __syncthreads();
@@ -626,7 +639,8 @@ int launch_passes(const float* q, const uint8_t* kp, const float* ks,
                   const uint8_t* vp, const float* vs, const float* kr,
                   const float* vr, const int* plen_rows, const int* tlen_rows,
                   int plen, int tlen, float* part_ml, float* part_acc,
-                  float* out, int BH, int S, int G, int d, int group, int W,
+                  float* out, float* lse, int BH, int S, int G, int d,
+                  int group, int W,
                   int n_splits, int tiles_per_split, Rows rows,
                   cudaStream_t st) {
   if (BH <= 0) return 0;
@@ -650,7 +664,7 @@ int launch_passes(const float* q, const uint8_t* kp, const float* ks,
   if (err != cudaSuccess) return (int)err;
   qda_combine_kernel<<<BH, kThreads, smem2, st>>>(
       q, kr, vr, plen_rows, tlen_rows, plen, tlen, part_ml, part_acc, out,
-      n_splits, G, d, W);
+      lse, n_splits, G, d, W);
   return (int)cudaGetLastError();
 }
 
@@ -661,16 +675,17 @@ extern "C" {
 // B1.  q: (BH, G, d) f32; kp/vp: (BH, S, d/2) u8; ks/vs: (BH, S, d/group)
 // f32; kr/vr: (BH, W, d) f32; plen_rows/tlen_rows: (BH,) i32 or null (then
 // the scalars apply to every row); part_ml: (BH, n_splits, G, 2) f32 and
-// part_acc: (BH, n_splits, G, d) f32 scratch; out: (BH, G, d) f32.
+// part_acc: (BH, n_splits, G, d) f32 scratch; out: (BH, G, d) f32; lse:
+// (BH, G) f32 or null (then no log-sum-exp is stored).
 int quant_decode_attention_launch(
     const float* q, const uint8_t* kp, const float* ks, const uint8_t* vp,
     const float* vs, const float* kr, const float* vr, const int* plen_rows,
     const int* tlen_rows, int plen, int tlen, float* part_ml, float* part_acc,
-    float* out, int BH, int S, int G, int d, int group, int W, int n_splits,
-    int tiles_per_split, void* stream) {
+    float* out, float* lse, int BH, int S, int G, int d, int group, int W,
+    int n_splits, int tiles_per_split, void* stream) {
   return launch_passes(q, kp, ks, vp, vs, kr, vr, plen_rows, tlen_rows, plen,
-                       tlen, part_ml, part_acc, out, BH, S, G, d, group, W,
-                       n_splits, tiles_per_split, DenseRows{S},
+                       tlen, part_ml, part_acc, out, lse, BH, S, G, d, group,
+                       W, n_splits, tiles_per_split, DenseRows{S},
                        (cudaStream_t)stream);
 }
 
@@ -685,8 +700,8 @@ int quant_decode_attention_paged_launch(
     int group, int W, int n_splits, int tiles_per_split, void* stream) {
   if (H < 1 || MP < 1 || ps < 1 || BH % H) return (int)cudaErrorInvalidValue;
   return launch_passes(q, kp, ks, vp, vs, kr, vr, plen_rows, tlen_rows, 0, 0,
-                       part_ml, part_acc, out, BH, MP * ps, G, d, group, W,
-                       n_splits, tiles_per_split,
+                       part_ml, part_acc, out, nullptr, BH, MP * ps, G, d,
+                       group, W, n_splits, tiles_per_split,
                        PagedRows{page_table, MP, H, ps},
                        (cudaStream_t)stream);
 }

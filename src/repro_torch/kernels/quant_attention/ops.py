@@ -16,7 +16,12 @@ another token address, and the same combine pass) or raises.
 launched B1 and B2.  ``plan_rows`` sizes the split-K plan for another
 row count than the call's own: a read split by head over shards passes
 the unsplit read's ``B·Hkv``, so each row is reduced in the same order
-and the shards' outputs equal the unsplit read's bit for bit.
+and the shards' outputs equal the unsplit read's bit for bit.  With
+``return_lse=True`` B1 (and its plain version) also hands back each
+(row, head)'s log-sum-exp of its scores, which a read split by position
+over shards combines with (``launch/sharded_cache.py``); ``packed_len``
+overrides ``decode_attention_kernel``'s ``L - L mod W`` for such a
+shard, whose packed segment need not end on a multiple of W.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C signatures of csrc/quant_attention.cu's launch functions
 ARGTYPES = {
     "quant_decode_attention_launch":
-        [_P] * 9 + [_I, _I] + [_P] * 3 + [_I] * 8 + [_P],
+        [_P] * 9 + [_I, _I] + [_P] * 4 + [_I] * 8 + [_P],
     "quant_decode_attention_paged_launch": [_P] * 13 + [_I] * 10 + [_P],
 }
 
@@ -120,7 +125,7 @@ def _ptr(t):
 
 
 def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
-            plan_rows=None):
+            plan_rows=None, return_lse=False):
     global launches
     BH, G, d = q_eff.shape
     S, W = kp.shape[1], kr.shape[1]
@@ -141,6 +146,8 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
     n_tiles = -(-(plen if plen_rows is None else S) // TILE)
     part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group,
                                                   plan_rows)
+    lse = (torch.empty((BH, G), dtype=torch.float32, device=dev)
+           if return_lse else None)
     lib, fn = _fn("quant_decode_attention_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -148,10 +155,10 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
                 vp.data_ptr(), vs.data_ptr(), kr.data_ptr(), vr.data_ptr(),
                 _ptr(plen_rows), _ptr(tlen_rows), plen, tlen,
                 part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                BH, S, G, d, group, W, n_splits, tps, stream)
+                _ptr(lse), BH, S, G, d, group, W, n_splits, tps, stream)
     _build.check(lib, "quant_attention", rc)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
@@ -197,20 +204,24 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
 def quant_decode_attention(q_eff, k_packed, k_scales, v_packed, v_scales,
                            k_residual, v_residual, packed_len, total_len, *,
                            group: int = 32, blk: int = 256,
-                           plan_rows: int | None = None) -> torch.Tensor:
-    """out_rot (BH, G, d) f32; arguments as ``ref.quant_decode_attention_ref``.
+                           plan_rows: int | None = None,
+                           return_lse: bool = False):
+    """out_rot (BH, G, d) f32, and with ``return_lse`` its (BH, G) f32
+    log-sum-exp; arguments as ``ref.quant_decode_attention_ref``.
 
     ``blk`` is the plain version's tile (the reference kernel's); the CUDA
     kernel tiles by :data:`TILE` tokens and splits the sequence itself."""
     if q_eff.device.type == "cpu":
         return quant_decode_attention_ref(
             q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
-            v_residual, packed_len, total_len, group=group, blk=blk)
+            v_residual, packed_len, total_len, group=group, blk=blk,
+            return_lse=return_lse)
     if q_eff.device.type != "cuda":
         raise ValueError(f"quant_decode_attention runs on cpu or cuda, not "
                          f"{q_eff.device}")
     return _launch(q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
-                   v_residual, packed_len, total_len, group, plan_rows)
+                   v_residual, packed_len, total_len, group, plan_rows,
+                   return_lse)
 
 
 def quant_decode_attention_paged(q_eff, k_packed, k_scales, v_packed,
@@ -252,24 +263,32 @@ def _per_kv_row(x, n_kv_heads):
 
 def decode_attention_kernel(q: torch.Tensor, cache, rot_k, rot_v, *,
                             scale: float | None = None, blk: int = 256,
-                            plan_rows: int | None = None) -> torch.Tensor:
-    """(B, Hq, 1, d) decode attention output in the original basis."""
+                            plan_rows: int | None = None, packed_len=None,
+                            return_lse: bool = False):
+    """(B, Hq, 1, d) decode attention output in the original basis, and
+    with ``return_lse`` the (B, Hq, 1) fp32 log-sum-exp of each query's
+    scaled scores.  ``packed_len`` (default ``L - L mod W``) is where the
+    residual window's first token sits."""
     B, Hq, _, d = q.shape
     Hkv = cache.k_packed.shape[1]
     q_eff = _fold_query(q, rot_k, Hkv, scale)
+    if packed_len is None:
+        packed_len = kvc.packed_len(cache)
 
     def flat(x):
         return x.reshape(B * Hkv, *x.shape[2:])
 
-    out_rot = quant_decode_attention(
+    got = quant_decode_attention(
         q_eff, flat(cache.k_packed), flat(cache.k_scales),
         flat(cache.v_packed), flat(cache.v_scales),
         flat(cache.k_residual), flat(cache.v_residual),
-        _per_kv_row(kvc.packed_len(cache), Hkv),
+        _per_kv_row(packed_len, Hkv),
         _per_kv_row(cache.length, Hkv), group=cache.group, blk=blk,
-        plan_rows=plan_rows,
+        plan_rows=plan_rows, return_lse=return_lse,
     )
-    return rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    out_rot, lse = got if return_lse else (got, None)
+    out = rot_v.inverse(out_rot.reshape(B, Hq, 1, d)).to(q.dtype)
+    return (out, lse.reshape(B, Hq, 1)) if return_lse else out
 
 
 def decode_attention_kernel_paged(q: torch.Tensor, pd, rot_k, rot_v, *,

@@ -6,9 +6,11 @@ Follows the TPU kernel tile by tile: an online softmax over ``blk``-token
 tiles of the packed cache (tiles at or past a row's ``packed_len``
 skipped, positions masked ``< packed_len`` with the -1e30 sentinel), then
 the fp32 residual window (positions ``packed_len + i``, masked ``<
-total_len``) folded in with the same update, then ``acc / max(l, 1e-30)``.  B2's plain version resolves every token
-through the page table and then applies B1's plain math, one tile per
-page as the reference's paged kernel does.
+total_len``) folded in with the same update, then ``acc / max(l,
+1e-30)`` and, on request, the log-sum-exp ``m + log(max(l, 1e-30))``
+(an empty row keeps the -1e30 sentinel).  B2's plain version resolves
+every token through the page table and then applies B1's plain math, one
+tile per page as the reference's paged kernel does.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ def quant_decode_attention_ref(
     *,
     group: int = 32,
     blk: int = 256,
-) -> torch.Tensor:
-    """Returns out_rot (BH, G, d) f32 in rotated space."""
+    return_lse: bool = False,
+):
+    """Returns out_rot (BH, G, d) f32 in rotated space, and with
+    ``return_lse`` the (BH, G) f32 log-sum-exp of each head's scores."""
     BH, G, d = q_eff.shape
     S, W = k_packed.shape[1], k_residual.shape[1]
     dev = q_eff.device
@@ -87,7 +91,10 @@ def quant_decode_attention_ref(
     pos_r = plen[:, None] + torch.arange(W, device=dev)[None, :]
     m, l, acc = update(m, l, acc, k_residual.float(), v_residual.float(),
                        pos_r < tlen[:, None])
-    return acc / l.clamp_min(1e-30)
+    l = l.clamp_min(1e-30)
+    if return_lse:
+        return acc / l, (m + torch.log(l))[..., 0]
+    return acc / l
 
 
 def paged_rows(pool: torch.Tensor, page_table: torch.Tensor,

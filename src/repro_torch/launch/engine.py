@@ -37,8 +37,14 @@ state by KV head over the 'model' axis (``launch/sharded_cache.py``), so
 only the cache writes and the attend run per shard and the tokens and
 cache bytes equal the unsharded engine's.  A KERNEL read runs B1 or B2
 on each shard's heads (the reference, whose Pallas read GSPMD cannot
-partition, falls back to BLOCKWISE there with a warning).  When
-every shard lies on one card the step is captured and replayed as
+partition, falls back to BLOCKWISE there with a warning).
+``shard_cache(cache, allow_split_k=True)`` splits a dense state whose
+KV heads do not divide the axis by position instead (split-K): the
+cache bytes still equal the unsharded engine's, and each read combines
+the shards' parts by their log-sum-exps (B1 per shard on a KERNEL
+read), so logits agree within float rounding and greedy streams up to a
+near-tie; speculative decoding on such a cache raises (ROADMAP A12e).
+When every shard lies on one card the step is captured and replayed as
 without a mesh; a mesh whose shards lie on more than one card runs the
 eager loop, since nothing here can test a capture across cards.
 """
@@ -54,7 +60,11 @@ from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.launch.graphs import StepGraph
 from repro_torch.launch.partitioning import replicate_tree
-from repro_torch.launch.sharded_cache import shard_cache, step_lengths
+from repro_torch.launch.sharded_cache import (
+    refuse_split_k,
+    shard_cache,
+    step_lengths,
+)
 
 __all__ = ["Sampler", "GREEDY", "Engine", "generate", "draft_tokens",
            "verify_pass", "mesh_allows_graph"]
@@ -285,9 +295,9 @@ class Engine:
 
     def shard_cache(self, cache: dict, *, allow_split_k: bool = False):
         """``cache`` laid out over the mesh: each attention state split by
-        KV head over 'model' where divisible, else kept whole
-        (``partitioning.serve_cache_specs``).  ``allow_split_k=True``
-        raises (ROADMAP A12d).  Identity without a mesh."""
+        KV head over 'model' where divisible, else with ``allow_split_k``
+        by position where that divides (a dense state), else kept whole
+        (``partitioning.serve_cache_specs``).  Identity without a mesh."""
         return shard_cache(cache, self.mesh, allow_split_k=allow_split_k)
 
     def prefill(self, params, prompt, cache: dict):
@@ -450,6 +460,7 @@ class Engine:
         """The reference's validation (``engine.py:325-352``), made before
         any prefill.  The recurrent and audio families have no verify
         pass (recurrent state cannot roll back), as the reference's."""
+        refuse_split_k(cache, "speculative decoding")
         family = self.model.cfg.family
         if family not in ATTENTION_FAMILIES:
             raise NotImplementedError(

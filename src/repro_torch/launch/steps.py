@@ -1,5 +1,6 @@
 """The training step: forward, backward, clip, AdamW (port of
-``repro/launch/steps.py:20-43``), and the prefill step (``:46-59``).
+``repro/launch/steps.py:20-43``), the prefill step (``:46-59``) and the
+decode step (``:62-71``).
 
 The reference differentiates with ``jax.value_and_grad``; here autograd
 runs through the port's plain modules (training has no Pallas kernel, so
@@ -19,7 +20,8 @@ from repro_torch.optim.adam import (
     tree_map,
 )
 
-__all__ = ["init_train_state", "make_train_step", "make_prefill_step"]
+__all__ = ["init_train_state", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
 
 
 def init_train_state(model, generator: torch.Generator):
@@ -70,3 +72,14 @@ def make_prefill_step(model):
         return model.prefill(params, batch["tokens"], cache)
 
     return prefill_step
+
+
+def make_decode_step(model, *, backend=None):
+    """``decode_step(params, token, cache) -> (logits, cache)``: one token
+    ``(B, 1)`` appended and read through ``backend`` (an
+    ``AttendBackend``, closed over as the reference's static argument)."""
+
+    def decode_step(params, token, cache):
+        return model.decode_step(params, token, cache, backend=backend)
+
+    return decode_step

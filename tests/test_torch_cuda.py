@@ -5,8 +5,10 @@ PyTorch version on the same CUDA tensors, B4 on codes B3 wrote, and B2
 monolithic admission, a BLOCKWISE read replayed from a CUDA graph, and
 speculative decoding (a captured verify pass against the eager one, also
 across a flush boundary; spec == plain streams; the launches of a pass),
-and a cache sharded by head over a (1, 2) mesh of the card (graph ==
-eager == unsharded, streams and cache bytes).
+a cache sharded by head over a (1, 2) mesh of the card (graph ==
+eager == unsharded, streams and cache bytes), B1's optional log-sum-exp
+against its plain version's, and a split-K cache over a (1, 3) mesh of
+the card (graph == eager, streams against the unsharded run).
 Marked ``cuda``: skips where no card is visible (the CPU tests hold the
 plain versions against the JAX reference).  On the card: ``python -m
 pytest -q tests/test_torch_cuda.py``.
@@ -897,3 +899,86 @@ def test_sharded_batch_graph_equals_eager_and_unsharded(dev, backend):
             lb = pt.flatten_with_path(sc.gather_state(b))
             for (pth, x), (_, y) in zip(la, lb):
                 assert torch.equal(x, y), (name, pth)
+
+
+LSE_ATOL = 1e-4  # the log of sums that differ by ~1e-6 relative
+
+
+@pytest.mark.parametrize("S,plen,tlen", [(4608, 4144, 4156),
+                                         (1536, 1536, 1547),
+                                         (288, 0, 0)])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_b1_lse_matches_plain_and_leaves_the_output_alone(dev, S, plen,
+                                                          tlen, per_row):
+    """B1's optional log-sum-exp against its plain version's: at the main
+    path's read (4,144 packed + 12), at a split-K shard of S_MAX 4608 on
+    m = 3 (a full 1536-position segment and the ring) and at an empty
+    segment, whose lse is the -1e30 sentinel and whose output is finite.
+    The output with the pointer equals the output without it bit for
+    bit."""
+    BH = 8
+    args = _b1_args(dev, S + plen, BH, 2, 128, S, 16, 32)
+    if per_row:
+        plen = torch.full((BH,), plen, dtype=torch.int32, device=dev)
+        tlen = torch.full((BH,), tlen, dtype=torch.int32, device=dev)
+        plen[BH // 2:] = tlen[BH // 2:] = 0  # half the rows empty
+    out, lse = qa_ops.quant_decode_attention(*args, plen, tlen, group=32,
+                                             return_lse=True)
+    plain = qa_ops.quant_decode_attention(*args, plen, tlen, group=32)
+    want_o, want = qa_ref.quant_decode_attention_ref(
+        *args, plen, tlen, group=32, return_lse=True)
+    assert torch.equal(out, plain)
+    assert torch.isfinite(out).all() and lse.shape == (BH, 2)
+    torch.testing.assert_close(out, want_o, atol=B1_ATOL, rtol=0)
+    torch.testing.assert_close(lse, want, atol=LSE_ATOL, rtol=0)
+    empty = (tlen == 0) if per_row else torch.full((BH,), tlen == 0,
+                                                   device=dev)
+    assert (lse[empty] == -1e30).all()
+
+
+@pytest.mark.parametrize("policy,backend", [("int4-srft", "kernel"),
+                                            ("bf16", "gather")])
+def test_split_k_engine_graph_equals_eager_on_card(dev, policy, backend):
+    """A (1, 3) mesh of the card over smol-d64 (2 KV heads): split-K.  The
+    captured step equals the eager loop (tokens and every gathered cache
+    leaf); against the unsharded eager run, tokens up to a near-tie; the
+    eager split run launches B1 once per shard, 3 times as often."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_attention import ops as qa
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.launch import sharded_cache as sc
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device=dev)
+    params = model.init(_gen(dev, 0))
+    mesh = make_mesh((1, 3), ("data", "model"), devices=[dev] * 3)
+    prompt = torch.randint(0, 256, (1, 37), generator=_gen(dev, 5),
+                           device=dev)
+    out, launches = {}, {}
+    for name, m, graph in (("ref", None, False), ("eager", mesh, False),
+                           ("graph", mesh, True)):
+        eng = Engine(model, backend=backend, graph=graph, mesh=m)
+        cache = eng.shard_cache(model.init_cache(1, 72, policy=policy,
+                                                 ragged=True),
+                                allow_split_k=True)
+        qa.launches = 0
+        toks, logits, cache = eng.generate(params, prompt, cache, 24,
+                                           return_logits=True)
+        out[name] = (toks, logits, cache)
+        launches[name] = qa.launches
+    assert torch.equal(out["graph"][0], out["eager"][0])
+    for a, b in zip(out["eager"][2]["attn"], out["graph"][2]["attn"]):
+        for (pth, x), (_, y) in zip(pt.flatten_with_path(sc.gather_state(a)),
+                                    pt.flatten_with_path(sc.gather_state(b))):
+            assert torch.equal(x, y), pth
+    ref_t, ref_l = out["ref"][0], out["ref"][1]
+    diff = torch.nonzero(out["graph"][0] != ref_t)
+    if len(diff):
+        i = int(diff[:, 1].min())
+        top2 = ref_l[0, i].topk(2).values
+        assert top2[0] - top2[1] < 0.05 * ref_l.abs().max(), i
+    if backend == "kernel":
+        assert launches["ref"] > 0
+        assert launches["eager"] == 3 * launches["ref"], launches

@@ -342,12 +342,30 @@ def test_nbytes_per_shard_vs_global(lm, mesh):
 
 
 def test_shard_cache_refuses_split_k(lm, mesh):
-    """Split-K needs a softmax combine across shards: ROADMAP A12d.  The
-    rule itself is ported (test_torch_partitioning.py)."""
-    model, _ = lm
+    """``allow_split_k=True`` keeps the head split where the KV heads
+    divide the axis (smol-d64's 2 heads over 'model' = 2: rung 1 of the
+    serving rule), and on a (1, 3) mesh, where they do not, splits the
+    dense leaves by position (rung 2, tests/test_torch_split_k.py holds
+    its serving).  What split-K refuses is what it does not serve: the
+    speculative path raises naming ROADMAP A12e.  Identity without a
+    mesh."""
+    model, params = lm
     cache = model.init_cache(1, S_MAX, policy="int4-srft")
-    with pytest.raises(NotImplementedError, match="A12d"):
-        Engine(model, mesh=mesh).shard_cache(cache, allow_split_k=True)
+    heads = Engine(model, mesh=mesh).shard_cache(cache, allow_split_k=True)
+    assert not heads["attn"][0].seq_split
+    assert heads["attn"][0].span == S_MAX
+    mesh3 = make_mesh((1, 3), ("data", "model"), devices=["cpu"] * 3)
+    eng = Engine(model, mesh=mesh3)
+    split = eng.shard_cache(model.init_cache(1, 66, policy="int4-srft"),
+                            allow_split_k=True)
+    st = split["attn"][0]
+    assert st.seq_split and st.span == 22 and st.s_max == 66
+    assert st.shards[0].data.kv.k_packed.shape[2] == 22
+    assert eng.shard_cache(model.init_cache(1, 66, policy="int4-srft"))[
+        "attn"][0].policy.name == "int4-srft"  # replicated: not split
+    with pytest.raises(NotImplementedError, match="A12e"):
+        eng.generate_spec(params, torch.zeros((1, 4), dtype=torch.long),
+                          split, 4, spec_k=2)
     assert Engine(model).shard_cache(cache, allow_split_k=True) is cache
 
 
