@@ -5579,19 +5579,26 @@ P18_RUNS = (("int4-srft", "kernel", 3, 1523, True),
 P18_READ_TOL = 1e-4  # B1's, times max(1, max|out|): layer 0's read
 
 
-def p18_run(model, params, policy, backend, m, prompt_len, graph=True,
-            n_new=P18_NEW) -> dict:
-    """One request through ``Engine`` (unsharded when ``m`` is None, else
-    over a (1, m) mesh of cuda:0 with split-K): tokens, logits, the
-    kernels' launches, ms/token over the decode (events, the first step
-    and its capture excluded), every layer's bytes after the prefill and
-    after the first decode step, the per-shard bytes, and the cache."""
+def p18_prompt(vocab, prompt_len, kind="random"):
+    """Phase 18's request: ``prompt_len`` random tokens, or (``kind``
+    "repetitive") a SPEC_BASE-token random base tiled, as phase 10 builds
+    it, so that the prompt-lookup drafter hits."""
+    if kind == "random":
+        g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        return torch.randint(0, vocab, (1, prompt_len), generator=g,
+                             device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    base = torch.randint(0, vocab, (1, SPEC_BASE), generator=g,
+                         device="cuda")
+    return base.repeat(1, -(-prompt_len // SPEC_BASE))[:, :prompt_len]
+
+
+def _p18_engine(model, policy, backend, m, graph):
+    """An ``Engine`` (over a (1, m) mesh of cuda:0 when ``m``) and a fresh
+    ragged cache for it, split by position when ``m``."""
     from repro_torch.launch import sharded_cache as sc
     from repro_torch.launch.engine import Engine
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
-    prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
-                           generator=g, device="cuda")
     mesh = _p16_mesh(m) if m else None
     eng = Engine(model, backend=backend, graph=graph, mesh=mesh)
     cache = model.init_cache(1, S_MAX, policy=policy, ragged=True,
@@ -5600,7 +5607,26 @@ def p18_run(model, params, policy, backend, m, prompt_len, graph=True,
         cache = eng.shard_cache(cache, allow_split_k=True)
         assert all(isinstance(st, sc.ShardedState) and st.seq_split
                    for st in cache["attn"]), "split-K did not split"
-    p = eng.shard_params(params)
+    return eng, cache
+
+
+def p18_run(model, params, policy, backend, m, prompt_len, graph=True,
+            n_new=P18_NEW, prompt=None, held=None) -> dict:
+    """One request through ``Engine`` (unsharded when ``m`` is None, else
+    over a (1, m) mesh of cuda:0 with split-K): tokens, logits, the
+    kernels' launches, ms/token over the decode (events, the first step
+    and its capture excluded), every layer's bytes after the prefill and
+    after the first decode step, the per-shard bytes, the cache, and
+    ``held``.  ``prompt`` defaults to :func:`p18_prompt`'s random one;
+    ``held`` is a previous run's (engine, cache, params) with the same
+    arguments, whose cache the request prefills anew and whose captured
+    step it replays."""
+    if prompt is None:
+        prompt = p18_prompt(model.cfg.vocab_size, prompt_len)
+    if held is None:
+        eng, cache = _p18_engine(model, policy, backend, m, graph)
+        held = (eng, cache, eng.shard_params(params))
+    eng, cache, p = held
     _zero_counters()
     lg, cache = eng.prefill(p, prompt, cache)
     prefilled = _p16_flat(cache["attn"])
@@ -5621,7 +5647,7 @@ def p18_run(model, params, policy, backend, m, prompt_len, graph=True,
                 logits=torch.cat([lg[:, -1:].float(), l1, lr], dim=1),
                 ms=a.elapsed_time(b) / (n_new - 2), counts=counts,
                 prefilled=prefilled, first=first, cache=cache,
-                per_shard_bytes=per_shard)
+                per_shard_bytes=per_shard, held=held)
 
 
 def _p18_bytes_equal(ref, got, layers, what) -> int:
@@ -5698,21 +5724,231 @@ def p18_case(model, params, policy, backend, m, prompt_len,
         + f", unsharded {ref['ms']:.3f} (events); per-shard cache "
         f"{got['per_shard_bytes'] / 2**20:.2f} MiB of "
         f"{ref['per_shard_bytes'] / 2**20:.2f} MiB")
-    del got, ref
-    return {f"split_k_{policy}_m{m}": n}, rec
+    del ref
+    return {f"split_k_{policy}_m{m}": n}, rec, got
+
+
+# phase 18b: speculative decoding on the split cache (m = 3, SPEC_K): the
+# 1523-token requests, random and repetitive (phase 10's tiled base), 32
+# new tokens; (policy, backend, prompts); the random prompts' split-K plain
+# streams are phase 18's own
+P18B_RUNS = (("int4-srft", "kernel", ("random", "repetitive")),
+             ("bf16", "gather", ("random", "repetitive")),
+             ("int8-per-token", "gather", ("repetitive",)))
+P18B_M, P18B_PROMPT = 3, 1523
+P18B_EAGER_NEW = 8  # int4 eager spec over these tokens == graph spec
+
+
+def p18b_spec(model, params, policy, backend, prompt, graph=True,
+              n_new=P18_NEW, held=None) -> dict:
+    """One greedy request through ``Engine``'s speculative path on a
+    (1, P18B_M) split-K cache: prefill, a first ``decode_spec`` of one
+    token (under a graph it captures the pass), then the other n_new - 2
+    tokens, timed by CUDA events, the kernels' counters zeroed just
+    before and read just after.  ``held``: a previous call's (engine,
+    cache, params) for the same policy and backend, whose cache the
+    request prefills anew and whose captured pass it replays (a capture
+    costs two eager passes of host time).  Gates: B3 2 x n_layers x k a
+    pass (the lead quantizes each append's ring once, as the unsharded
+    pass), no B1 / B2 (the verify reads with GATHER's numerics)."""
+    from repro_torch.launch.engine import SPEC_KEY
+
+    k, L = SPEC_K, model.cfg.n_layers
+    if held is None:
+        eng, cache = _p18_engine(model, policy, backend, P18B_M, graph)
+        held = (eng, cache, eng.shard_params(params))
+    eng, cache, p = held
+    lg, cache = eng.prefill(p, prompt, cache)
+    tok0 = lg[:, -1].argmax(-1)[:, None]
+    tok1, cache, st1 = eng.decode_spec(p, tok0, cache, 1, prompt=prompt,
+                                       spec_k=k)
+    hist = torch.cat([prompt, tok0], 1)
+    _zero_counters()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    a.record()
+    rest, cache, st = eng.decode_spec(p, tok1, cache, n_new - 2,
+                                      prompt=hist, spec_k=k)
+    b.record()
+    torch.cuda.synchronize()
+    counts = _counters()
+    toks = torch.cat([tok0, tok1, rest], 1)[0].cpu()
+    pos = int(cache["pos"][0])
+    assert pos == prompt.shape[1] + n_new - 1, pos
+    assert all(int(s.length[0]) == pos for st in cache["attn"]
+               for s in st.shards), "a shard's length is off"
+    passes = st["passes"]
+    if policy == "int4-srft":
+        assert counts["srft_quant"] == passes * 2 * L * k, (counts, passes)
+    assert counts["quant_decode_attention"] == 0, counts
+    assert counts["quant_decode_attention_paged"] == 0, counts
+    rec = dict(ms_per_token=a.elapsed_time(b) / (n_new - 2), passes=passes,
+               drafted=st1["drafted"] + st["drafted"],
+               accepted=st1["accepted"] + st["accepted"], launches=counts)
+    rec["acceptance"] = rec["accepted"] / max(rec["drafted"], 1)
+    if graph:
+        cap = cache[SPEC_KEY]
+        assert cap.step.counts == (0, 0, 2 * L * k if policy == "int4-srft"
+                                   else 0, 0), cap.step.counts
+        rec["per_pass_launches"] = cap.step.counts
+        rec["capture_s"] = cap.step.capture_s
+    return dict(toks=toks, cache=cache, rec=rec, held=held)
+
+
+def _p18b_readable(states) -> list:
+    """Every layer's bytes a read can see, gathered along the sequence:
+    each seq-major leaf below the packed length (int4) or the length,
+    the residual rings, the lengths."""
+    from repro_torch.launch import sharded_cache as sc
+
+    out = []
+    for st in states:
+        d = sc.gather_state(st).data
+        L = int(d.length.max())
+        if hasattr(d, "kv"):
+            n = L - L % d.kv.window
+            out.append([t[:, :, :n] for t in sc._seq_leaves(d)]
+                       + [d.kv.k_residual, d.kv.v_residual, d.length])
+        else:
+            out.append([t[:, :, :L] for t in sc._seq_leaves(d)] + [d.length])
+    return out
+
+
+def _p18b_verify_read(state, cfg) -> int:
+    """The split verify read against the split decode read at full width,
+    on layer 0's split state of a plain run: SPEC_K seeded K/V rows
+    appended after a snapshot, seeded fp32 queries; query i's verify read
+    must equal the decode read of a copy that appended rows 0..i, bit for
+    bit.  Returns the queries compared."""
+    from repro_torch.launch import partitioning as pt
+
+    def clone(s):
+        return pt.tree_map_with_path(
+            lambda _, t: t.clone() if isinstance(t, torch.Tensor) else t, s)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 182)
+    k, Hkv, d = SPEC_K, cfg.n_kv_heads, cfg.head_dim
+    kv = [(torch.randn((1, Hkv, 1, d), generator=g, device="cuda")
+           .to(torch.bfloat16),
+           torch.randn((1, Hkv, 1, d), generator=g, device="cuda")
+           .to(torch.bfloat16)) for _ in range(k)]
+    q = torch.randn((1, cfg.n_heads, k, d), generator=g, device="cuda")
+    pol = state.policy
+    ver, seq = state.map_shards(clone), state.map_shards(clone)
+    snap = pol.snapshot_rows(ver)
+    for kk, vv in kv:
+        pol.update(ver, kk, vv)
+    got = pol.verify_attend(q, ver, snap, scale=d ** -0.5, backend="gather")
+    for i, (kk, vv) in enumerate(kv):
+        pol.update(seq, kk, vv)
+        want = pol.attend(q[:, :, i:i + 1], seq, scale=d ** -0.5,
+                          backend="gather")
+        assert torch.equal(got[:, :, i:i + 1], want), \
+            f"verify query {i} != the split decode read"
+    return k
+
+
+def p18b_phase(model, params, plain) -> tuple[dict, dict]:
+    """Speculative decoding on a cache split by position (``P18B_RUNS``),
+    each spec stream held to the split-K plain stream of the same request
+    and backend (``plain``: phase 18's random-prompt runs by policy), the
+    graph spec to the eager spec, and layer 0's split verify read to the
+    split decode read."""
+    from repro_torch.core import cache_api
+
+    vocab = model.cfg.vocab_size
+    cache_api._KERNEL_VERIFY_WARNED = False
+    launches, recs = {}, {}
+    prompts = {kind: p18_prompt(vocab, P18B_PROMPT, kind)
+               for kind in ("random", "repetitive")}
+    for policy, backend, kinds in P18B_RUNS:
+        n_q = _p18b_verify_read(plain[policy]["cache"]["attn"][0], model.cfg)
+        held = None  # one engine, cache and captured pass for both prompts
+        for kind in kinds:
+            what = f"18b {policy} {backend} m={P18B_M} {kind}"
+            # the repetitive prompt's plain stream reuses phase 18's engine,
+            # cache and captured step (after the random prompt's checks)
+            ref = plain[policy] if kind == "random" else p18_run(
+                model, params, policy, backend, P18B_M, P18B_PROMPT,
+                prompt=prompts[kind], held=plain[policy]["held"])
+            got = p18b_spec(model, params, policy, backend, prompts[kind],
+                            held=held)
+            held = got["held"]
+            n_eq = _first_diff(ref["toks"], got["toks"])
+            rec = dict(got["rec"], bit_equal_prefix=n_eq,
+                       plain_ms_per_token=ref["ms"],
+                       verify_queries_bit_equal=n_q)
+            if backend == "gather":
+                assert n_eq == len(ref["toks"]), \
+                    f"{what}: spec != plain from token {n_eq}"
+                layers = ref["cache"]["attn"]
+            else:
+                _tie_check(ref["toks"], got["toks"], ref["logits"].cpu(),
+                           f"{what} spec (GATHER verify) vs plain KERNEL")
+                # a deeper layer's K/V come from the read below it, which
+                # is B1's in the plain stream and GATHER's in the verify;
+                # layer 0's come from the tokens alone
+                layers = (ref["cache"]["attn"][:1]
+                          if n_eq == len(ref["toks"]) else [])
+            ra = _p18b_readable(layers)
+            rb = _p18b_readable(got["cache"]["attn"][:len(layers)])
+            for i, (la, lb) in enumerate(zip(ra, rb, strict=True)):
+                for j, (x, y) in enumerate(zip(la, lb, strict=True)):
+                    assert torch.equal(x, y), f"{what}: layer {i} leaf {j}"
+            rec["readable_leaves_bit_equal"] = sum(map(len, ra))
+            if policy == "int4-srft" and kind == "repetitive":
+                e = p18b_spec(model, params, policy, backend, prompts[kind],
+                              graph=False, n_new=P18B_EAGER_NEW)
+                assert torch.equal(e["toks"],
+                                   got["toks"][:P18B_EAGER_NEW]), \
+                    f"{what}: graph spec != eager spec"
+                rec["eager_ms_per_token"] = e["rec"]["ms_per_token"]
+                del e
+            launches[f"split_k_spec_{policy}_{kind}"] = got["rec"]["launches"]
+            recs[f"{policy}/{kind}"] = rec
+            log(f"[{CARD}] {what}: spec k={SPEC_K} vs split-K plain "
+                f"{backend.upper()}: {n_eq} of {len(ref['toks'])} tokens "
+                f"bit-equal"
+                + f", {rec['readable_leaves_bit_equal']} readable cache "
+                f"leaves bit-equal ({len(ra)} layers)"
+                + f"; {rec['ms_per_token']:.3f} ms per emitted token graph"
+                + ("" if "capture_s" not in rec
+                   else f" (pass captured in {rec['capture_s']:.2f} s)"
+                   if kind == kinds[0] else " (the same captured pass)")
+                + (f", {rec['eager_ms_per_token']:.3f} eager"
+                   if "eager_ms_per_token" in rec else "")
+                + f" vs {ref['ms']:.3f} plain (events); acceptance "
+                f"{rec['acceptance']:.3f} ({rec['accepted']}/"
+                f"{rec['drafted']}), {rec['passes']} passes; B3 "
+                f"{rec['launches']['srft_quant']}, B1 "
+                f"{rec['launches']['quant_decode_attention']}; layer 0's "
+                f"verify read == the split decode read for {n_q} queries")
+            del got
+        del held
+    return launches, recs
 
 
 def p18_phase(model, params) -> dict:
     """Split-K serving on phase 5's model (``P18_RUNS``), each run held to
-    the unsharded run of the same request and backend."""
-    launches, recs = {}, {}
+    the unsharded run of the same request and backend; then speculative
+    decoding on the split cache (18b)."""
+    launches, recs, plain = {}, {}, {}
+    t0 = time.perf_counter()
     for policy, backend, m, prompt_len, eager in P18_RUNS:
-        n, rec = p18_case(model, params, policy, backend, m, prompt_len,
-                          eager)
+        n, rec, got = p18_case(model, params, policy, backend, m, prompt_len,
+                               eager)
         launches.update(n)
         recs[f"{policy}/{backend}/m{m}"] = rec
+        if m == P18B_M and prompt_len == P18B_PROMPT:
+            plain[policy] = got
+        del got
+    t1 = time.perf_counter()
+    n, spec = p18b_phase(model, params, plain)
+    launches.update(n)
+    del plain
     torch.cuda.empty_cache()
     log(f"[{CARD}] 18 summary " + json.dumps(recs))
+    log(f"[{CARD}] 18b summary " + json.dumps(spec))
+    log(f"[{CARD}] 18 {t1 - t0:.1f} s, 18b {time.perf_counter() - t1:.1f} s")
     return launches
 
 

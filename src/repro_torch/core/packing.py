@@ -1,4 +1,4 @@
-"""int4 nibble packing (port of ``repro/core/packing.py:19-44``).
+"""int4 nibble packing (port of ``repro/core/packing.py``).
 
 byte = (q[2i+1] << 4) | (q[2i] & 0xF)   -- two signed int4 per uint8;
 the low nibble is the even index, and unpacking sign-extends.
@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pack_int4", "unpack_int4"]
+__all__ = ["pack_int4", "unpack_int4", "packed_nbytes"]
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -29,3 +29,12 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     stacked = torch.stack([low, high], dim=-1)  # (..., d//2, 2)
     return stacked.reshape(*packed.shape[:-1], packed.shape[-1] * 2).to(
         torch.int8)
+
+
+def packed_nbytes(d: int, bits: int) -> int:
+    """Bytes per d-vector of codes at the given bit width."""
+    if bits == 4:
+        return d // 2
+    if bits == 8:
+        return d
+    raise ValueError(f"only 4/8-bit packing supported, got {bits}")

@@ -48,7 +48,8 @@ from repro_torch.core.transforms import Rotation
 
 __all__ = ["decode_attention_quant", "decode_attention_quant_blockwise",
            "decode_attention_bf16", "decode_attention_bf16_blockwise",
-           "verify_attention_quant", "verify_attention_bf16"]
+           "verify_attention_quant", "verify_attention_bf16",
+           "verify_rings"]
 
 NEG = -1e30
 
@@ -132,6 +133,22 @@ def _per_query_lengths(base_len, kq: int) -> torch.Tensor:
     return (base_len + torch.arange(kq) + 1)[None, :]
 
 
+def verify_rings(ring_k: torch.Tensor, ring_v: torch.Tensor,
+                 snap_k: torch.Tensor, snap_v: torch.Tensor, plen_i,
+                 base_len) -> tuple:
+    """The residual rings (B, H, W, d) as the verify query whose packed
+    length is ``plen_i`` saw them: slot s from the live ring where this
+    pass wrote it at a position the query may see (``plen_i + s >= L0``,
+    L0 = ``base_len``), else from the entry snapshot.  ``plen_i`` and
+    ``base_len`` are shared ints or per-row (B,) tensors."""
+    W = ring_k.shape[-2]
+    slots = torch.arange(W, device=ring_k.device)
+    plen = torch.as_tensor(plen_i, device=ring_k.device).reshape(-1, 1)
+    sel = (plen + slots >= _per_row(base_len, 2))[:, None, :, None]
+    return (torch.where(sel, ring_k, snap_k),
+            torch.where(sel, ring_v, snap_v))
+
+
 def verify_attention_quant(q: torch.Tensor, cache: QuantKVCache,
                            rot_k: Rotation, rot_v: Rotation, *,
                            snap_k_res: torch.Tensor,
@@ -159,15 +176,13 @@ def verify_attention_quant(q: torch.Tensor, cache: QuantKVCache,
     sm = scale if scale is not None else d ** -0.5
     yk, yv, _ = kvcache.gather_rotated(cache)
     lengths = _per_query_lengths(base_len, kq)
-    base = _per_row(base_len, 2)
-    slots = torch.arange(W, device=q.device)
     outs = []
     for i in range(kq):
         L_i = lengths[:, i].to(q.device)
         plen_i = L_i - L_i % W
-        sel = (plen_i.reshape(-1, 1) + slots >= base)[:, None, :, None]
-        ring_k = torch.where(sel, cache.k_residual, snap_k_res)
-        ring_v = torch.where(sel, cache.v_residual, snap_v_res)
+        ring_k, ring_v = verify_rings(cache.k_residual, cache.v_residual,
+                                      snap_k_res, snap_v_res, plen_i,
+                                      base_len)
         qg = _fold_query(q[:, :, i:i + 1], rot_k, Hkv)
         out_rot = _quant_read(qg, yk, yv, ring_k, ring_v, plen_i, L_i, sm,
                               sliding_window)

@@ -19,8 +19,11 @@ import torch
 
 __all__ = [
     "hermitian_pack",
+    "hermitian_unpack",
     "srft_forward",
+    "srft_inverse",
     "srht_forward",
+    "srht_inverse",
     "fwht",
     "random_signs",
     "transform_matrix",
@@ -49,11 +52,29 @@ def hermitian_pack(y: torch.Tensor, d: int) -> torch.Tensor:
                      dim=-1)
 
 
+def hermitian_unpack(p: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of :func:`hermitian_pack`: (..., d) real -> (..., d/2+1)
+    complex."""
+    s2 = _sqrt2(p)
+    head, nyq = p[..., :1], p[..., d // 2:d // 2 + 1]
+    re = torch.cat([head, p[..., 1:d // 2] / s2, nyq], dim=-1)
+    im = torch.cat([torch.zeros_like(head), p[..., d // 2 + 1:] / s2,
+                    torch.zeros_like(nyq)], dim=-1)
+    return torch.complex(re, im)
+
+
 def srft_forward(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
     """SRFT(x) = pack(rfft_ortho(s * x)).  Exact orthonormal map on R^d."""
     d = x.shape[-1]
     y = torch.fft.rfft(x.float() * signs, dim=-1, norm="ortho")
     return hermitian_pack(y, d)
+
+
+def srft_inverse(p: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Inverse SRFT: unpack, irfft, undo the signs."""
+    d = p.shape[-1]
+    y = hermitian_unpack(p.float(), d)
+    return torch.fft.irfft(y, n=d, dim=-1, norm="ortho") * signs
 
 
 def fwht(x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +97,14 @@ def srht_forward(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     return fwht(x.float() * signs) / torch.tensor(
         float(d), dtype=torch.float32).sqrt()
+
+
+def srht_inverse(p: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Inverse SRHT: H is symmetric and H @ H = d I, so H / sqrt(d), then
+    the signs."""
+    d = p.shape[-1]
+    return (fwht(p.float()) / torch.tensor(float(d), dtype=torch.float32)
+            .sqrt()) * signs
 
 
 def transform_matrix(kind: str, signs: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,11 @@ KV heads do not divide the axis by position instead (split-K): the
 cache bytes still equal the unsharded engine's, and each read combines
 the shards' parts by their log-sum-exps (B1 per shard on a KERNEL
 read), so logits agree within float rounding and greedy streams up to a
-near-tie; speculative decoding on such a cache raises (ROADMAP A12e).
+near-tie.  Speculative decoding serves such a cache too: each verify
+query runs the split decode read at its own length (with GATHER's
+numerics, as the unsplit verify), and the rollback rewinds every shard,
+so ``generate_spec`` on a split cache returns ``generate``'s tokens on
+it (bit for bit under GATHER) and leaves the same bytes.
 When every shard lies on one card the step is captured and replayed as
 without a mesh; a mesh whose shards lie on more than one card runs the
 eager loop, since nothing here can test a capture across cards.
@@ -60,11 +64,7 @@ from repro_torch.configs.base import ATTENTION_FAMILIES
 from repro_torch.core.cache_api import AttendBackend
 from repro_torch.launch.graphs import StepGraph
 from repro_torch.launch.partitioning import replicate_tree
-from repro_torch.launch.sharded_cache import (
-    refuse_split_k,
-    shard_cache,
-    step_lengths,
-)
+from repro_torch.launch.sharded_cache import shard_cache, step_lengths
 
 __all__ = ["Sampler", "GREEDY", "Engine", "generate", "draft_tokens",
            "verify_pass", "mesh_allows_graph"]
@@ -460,7 +460,6 @@ class Engine:
         """The reference's validation (``engine.py:325-352``), made before
         any prefill.  The recurrent and audio families have no verify
         pass (recurrent state cannot roll back), as the reference's."""
-        refuse_split_k(cache, "speculative decoding")
         family = self.model.cfg.family
         if family not in ATTENTION_FAMILIES:
             raise NotImplementedError(
@@ -571,7 +570,9 @@ class Engine:
         capture's warm-up pass is undone by putting back every tensor a
         pass advances, the residual rings included: a warm-up that
         accepts past a flush boundary wraps the ring over slots that are
-        live again once the length is put back."""
+        live again once the length is put back.  A sharded state's
+        ``rollback_leaves`` are every shard's, so shards 1..'s lengths and
+        ring copies are put back as well."""
         key = (id(self), id(params), spec_k)
         cap = cache.get(SPEC_KEY)
         if cap is not None and cap.key == key:

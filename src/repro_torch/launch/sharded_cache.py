@@ -40,10 +40,26 @@ its output and its log-sum-exp (B1's optional output on a KERNEL read),
 and the lead combines the m parts by ``exp(lse_j - max_j lse_j)``: the
 reference's GSPMD reduction, numerically correct, not bit-exact
 (``partitioning.py:232-236``).  A shard with nothing to read has lse
--1e30, so weight exactly 0.  Only prefill, decode appends and the
-decode read are split this way; the other operations (chunked prefill,
-speculative verify and rollback, admission, the host tier) raise and
-are ROADMAP A12e.
+-1e30, so weight exactly 0.
+
+Speculative decoding (``Engine.generate_spec`` / ``decode_spec``) runs on
+such a state too.  A verify pass's k appends are k decode appends; its
+read takes query i at ``L_i = L0 + i + 1`` through the decode read's own
+function (:func:`_seq_read`), shard 0 folding the ring as query i saw it
+(``quant_attention_ref.verify_rings``), so each verify query equals the
+split decode read at ``L_i`` bit for bit (with GATHER's numerics: there
+is no multi-query B1).  The rollback is every shard's own: each holds
+the global lengths and a full copy of the rings, so the snapshot, the
+ring rewind and the length set run shard by shard, and packed storage is
+left as it is (a rolled-back flush that straddles two shards lies past
+the packed length in both, is masked by every read, and the next
+readable flush rewrites it whole in both).
+
+The other operations (chunked prefill, the raw view, admission, the host
+tier, a sliding-window read) raise on a state split by position: the
+reference reaches them only through its ``BatchEngine``, which never
+splits by position (``repro/launch/batch_engine.py:518``), and no config
+sets a sliding window.
 
 Where the specs give every KV leaf ``P()`` (MQA, a head count the axis
 does not divide without split-K, a 'model' axis of 1) the cache stays
@@ -59,13 +75,19 @@ from typing import Optional
 import torch
 
 from repro_torch.core import kvcache, paged
-from repro_torch.core.cache_api import CacheState
+from repro_torch.core.cache_api import (
+    AttendBackend,
+    CacheState,
+    _unsupported,
+    _warn_kernel_verify,
+)
+from repro_torch.core.quant_attention_ref import verify_rings
 from repro_torch.core.transforms import Rotation
 from repro_torch.kernels.srft_quant.ops import quantize_rotated, rotate_quantize
 from repro_torch.launch import partitioning as pt
 
 __all__ = ["ShardedState", "ShardedPolicy", "shard_state", "shard_cache",
-           "gather_state", "step_lengths", "refuse_split_k", "CACHE_KEYS"]
+           "gather_state", "step_lengths", "CACHE_KEYS"]
 
 # the cache keys whose entries are lists of attention states
 CACHE_KEYS = ("attn", "self", "cross")
@@ -272,10 +294,12 @@ class ShardedPolicy:
     def verify_attend(self, q, state, snap, *, scale=None, backend=None,
                       kv_block=512, sliding_window=None):
         """As :meth:`attend`, one verify query at a time for the fold and
-        the inverse, as the unsplit read does them."""
-        _refuse_seq(state, "verify_attend")
+        the inverse, as the unsplit read does them.  A state split by
+        position reads by :func:`_seq_verify`."""
         kw = dict(scale=scale, backend=backend, kv_block=kv_block,
                   sliding_window=sliding_window)
+        if state.seq_split:
+            return _seq_verify(self.inner, q, state, snap, **kw)
         if not hasattr(state.data, "rot_k"):
             return self._gather_heads(self._each(
                 state, lambda j, s, d: self.inner.verify_attend(
@@ -301,18 +325,21 @@ class ShardedPolicy:
 
     # -- speculative rollback
     def snapshot_rows(self, state, into=None):
-        _refuse_seq(state, "snapshot_rows")
+        """Every shard's snapshot (its lengths, and its ring copies where
+        the policy has rings), into ``into[j]`` when given."""
         return [self.inner.snapshot_rows(
                     s, into=None if into is None else into[j])
                 for j, s in enumerate(state.shards)]
 
     def rollback_leaves(self, state) -> tuple:
-        _refuse_seq(state, "rollback_leaves")
+        """Every shard's leaves: a captured pass puts back shards 1..'s
+        lengths and rings too."""
         return tuple(itertools.chain.from_iterable(
             self.inner.rollback_leaves(s) for s in state.shards))
 
     def truncate_rows(self, state, new_length, snap):
-        _refuse_seq(state, "truncate_rows")
+        """Every shard rolled back by its own snapshot (under split-K its
+        ring copies rewound and its lengths set; packed storage kept)."""
         self._each(state, lambda j, s, d: self.inner.truncate_rows(
             s, _to(new_length, d), snap[j]))
         return state
@@ -410,15 +437,10 @@ def _refuse_seq(state, what: str) -> None:
     if isinstance(state, ShardedState) and state.seq_split:
         raise NotImplementedError(
             f"{what} on a cache split by position over shards (split-K) is "
-            f"ROADMAP A12e; split-K serves prefill and decode (Engine)")
-
-
-def refuse_split_k(cache: dict, what: str) -> None:
-    """Raise for ``what`` (an engine path) when ``cache`` holds a state
-    split by position."""
-    for key in CACHE_KEYS:
-        for st in cache.get(key, ()):
-            _refuse_seq(st, what)
+            f"not served: the reference reaches it only through "
+            f"BatchEngine, which never splits by position "
+            f"(repro/launch/batch_engine.py:518); split-K serves Engine's "
+            f"prefill, decode and speculative decoding")
 
 
 def _holder(data):
@@ -587,6 +609,15 @@ def _with_length(shard: CacheState, length) -> CacheState:
     return CacheState(shard.policy, d)
 
 
+def _with_rings(shard: CacheState, ring_k, ring_v) -> CacheState:
+    """A view of an int4 ``shard`` whose residual rings are ``ring_k`` /
+    ``ring_v`` (no copy)."""
+    d = shard.data
+    return CacheState(shard.policy, dataclasses.replace(
+        d, kv=dataclasses.replace(d.kv, k_residual=ring_k,
+                                  v_residual=ring_v)))
+
+
 def _combine(outs: list, lses: list) -> torch.Tensor:
     """The parts of one read over disjoint segments, each (B, Hq, 1, d)
     fp32 with its (B, Hq, 1) log-sum-exp, on one device: ``sum_j
@@ -599,22 +630,34 @@ def _combine(outs: list, lses: list) -> torch.Tensor:
         / w.sum(dim=0)[..., None]
 
 
-def _seq_attend(inner, q, state, *, sliding_window=None, plan_rows=None,
-                **kw) -> torch.Tensor:
-    """A decode read of a state split by position.  Shard j reads its
-    segment, ``plen_j = clamp(plen - j*n, 0, n)`` packed positions (bf16
-    and int8: ``clamp(L - j*n, 0, n)``), and shard 0 alone folds the
-    residual window (``tlen_0 = plen_0 + L - plen``); each returns its
-    output in fp32 and its log-sum-exp, and the lead combines them
-    (:func:`_combine`).  int4: the query's fold and the output's inverse
-    rotation run once at full width on the lead, the shards read in
-    rotated space, a KERNEL read runs B1 on each shard with its own
-    split plan (``plan_rows`` is not taken)."""
+def _refuse_window(sliding_window) -> None:
     if sliding_window is not None:
         raise NotImplementedError(
-            "a sliding-window read under split-K is ROADMAP A12e")
+            "a sliding-window read under split-K is not served: no config "
+            "of the reference or the port sets a sliding window")
+
+
+def _seq_attend(inner, q, state, *, sliding_window=None, plan_rows=None,
+                **kw) -> torch.Tensor:
+    """A decode read of a state split by position (:func:`_seq_read` at
+    the state's length, over its live rings).  A KERNEL read runs B1 on
+    each shard with its own split plan (``plan_rows`` is not taken)."""
+    _refuse_window(sliding_window)
+    return _seq_read(inner, q, state, state.length, None, **kw)
+
+
+def _seq_read(inner, q, state, L, rings, **kw) -> torch.Tensor:
+    """One query (B, Hq, 1, d) read against a state split by position as
+    a decode step at length ``L`` (a host int, or per row on the lead)
+    reads it.  Shard j reads its segment, ``plen_j = clamp(plen - j*n,
+    0, n)`` packed positions (bf16 and int8: ``clamp(L - j*n, 0, n)``),
+    and shard 0 alone folds the residual window (``tlen_0 = plen_0 + L -
+    plen``), over ``rings`` (k, v) when given, else its live rings; each
+    returns its output in fp32 and its log-sum-exp, and the lead
+    combines them (:func:`_combine`).  int4: the query's fold and the
+    output's inverse rotation run once at full width on the lead and the
+    shards read in rotated space."""
     n, lead = state.span, state.lead
-    L = state.length
     rotated = hasattr(state.data, "rot_k")
     if rotated:
         rk, rv = _lead_rotations(state)
@@ -627,9 +670,11 @@ def _seq_attend(inner, q, state, *, sliding_window=None, plan_rows=None,
         seg = _to(_segment(plen, j, n), dev)
         if rotated:
             tlen = seg + _to(L - plen, dev) if j == 0 else seg
-            view = _RotatedSpace.over(_with_length(s, tlen))
-            out, lse = inner.attend(qr.to(dev), view, packed_len=seg,
-                                    return_lse=True, **kw)
+            view = _with_length(s, tlen)
+            if j == 0 and rings is not None:
+                view = _with_rings(view, *rings)
+            out, lse = inner.attend(qr.to(dev), _RotatedSpace.over(view),
+                                    packed_len=seg, return_lse=True, **kw)
         else:
             out, lse = inner.attend(qr.to(dev), _with_length(s, seg),
                                     return_lse=True, **kw)
@@ -637,6 +682,42 @@ def _seq_attend(inner, q, state, *, sliding_window=None, plan_rows=None,
         lses.append(lse.to(lead))
     out = _combine(outs, lses)
     return (rv.inverse(out) if rotated else out).to(q.dtype)
+
+
+def _seq_verify(inner, q, state, snap, *, backend=None, sliding_window=None,
+                **kw) -> torch.Tensor:
+    """The k-query verify read (B, Hq, k, d) of a state split by position
+    that holds all k appended tokens; ``snap`` is every shard's entry
+    snapshot.  Query i is :func:`_seq_read` at ``L_i = L0 + i + 1``, the
+    length the decode step that appended its token read at, with shard
+    0's rings as that step saw them (``verify_rings``: the snapshot's
+    slots where this pass wrote past what query i may see); packed
+    storage is append-only within a pass and the bf16 / int8 buffers are
+    position-addressed, so each query's read is the split decode read at
+    ``L_i`` bit for bit.  Every backend reads with GATHER's numerics, as
+    the unsplit verify does (KERNEL warns once: B1 is single-query)."""
+    _refuse_window(sliding_window)
+    backend = AttendBackend.parse(backend)
+    rotated = hasattr(state.data, "rot_k")
+    if rotated:
+        if backend is AttendBackend.KERNEL:
+            _warn_kernel_verify()
+        snap_k, snap_v, base = snap[0]
+        kv = state.shards[0].data.kv
+    else:
+        if inner.name == "bf16" and backend not in inner.supported_backends:
+            _unsupported(inner, backend)
+        base = snap[0]
+    outs = []
+    for i in range(q.shape[2]):
+        L_i = base + (i + 1)
+        rings = None
+        if rotated:
+            rings = verify_rings(kv.k_residual, kv.v_residual, snap_k,
+                                 snap_v, L_i - L_i % inner.window, base)
+        outs.append(_seq_read(inner, q[:, :, i:i + 1], state, L_i, rings,
+                              backend=AttendBackend.GATHER, **kw))
+    return torch.cat(outs, dim=2)
 
 
 @dataclasses.dataclass

@@ -982,3 +982,94 @@ def test_split_k_engine_graph_equals_eager_on_card(dev, policy, backend):
     if backend == "kernel":
         assert launches["ref"] > 0
         assert launches["eager"] == 3 * launches["ref"], launches
+
+
+@pytest.mark.parametrize("policy,backend", [("int4-srft", "kernel"),
+                                            ("bf16", "gather"),
+                                            ("int8-per-token", "gather")])
+def test_split_k_spec_graph_equals_eager_and_plain_on_card(dev, policy,
+                                                           backend):
+    """Speculative decoding on a (1, 3) split-K mesh of the card over
+    smol-d64 (2 KV heads), a repetitive 37-token prompt, k = 4: the
+    captured pass gives the eager passes' tokens, counters and every
+    readable cache byte; against the split-K plain graph stream, tokens
+    up to a near-tie (cuBLAS may round a row of the k-row verify products
+    otherwise than the one-row step's); a pass launches B3 2 x n_layers x
+    k times on an int4 cache and no B1; layer 0's verify read equals the
+    split decode read bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_attention import ops as qa
+    from repro_torch.launch import partitioning as pt
+    from repro_torch.launch import sharded_cache as sc
+    from repro_torch.launch.engine import SPEC_KEY, Engine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("smol-d64"), device=dev)
+    params = model.init(_gen(dev, 0))
+    mesh = make_mesh((1, 3), ("data", "model"), devices=[dev] * 3)
+    base = torch.randint(0, 256, (1, 8), generator=_gen(dev, 5), device=dev)
+    prompt = base.repeat(1, 5)[:, :37]
+    L, k, n = model.cfg.n_layers, 4, 24
+
+    def split_cache(eng):
+        return eng.shard_cache(model.init_cache(1, 72, policy=policy,
+                                                ragged=True),
+                               allow_split_k=True)
+
+    eng = Engine(model, backend=backend, mesh=mesh)
+    ref, logits, plain = eng.generate(params, prompt, split_cache(eng), n,
+                                      return_logits=True)
+    out = {}
+    for graph in (True, False):
+        eng = Engine(model, backend=backend, graph=graph, mesh=mesh)
+        before = (qa.launches, sq_ops.launches)
+        toks, cache, stats = eng.generate_spec(params, prompt,
+                                               split_cache(eng), n, spec_k=k)
+        out[graph] = (toks, cache, stats,
+                      (qa.launches - before[0], sq_ops.launches - before[1]))
+    (t_g, c_g, st_g, n_g), (t_e, c_e, st_e, n_e) = out[True], out[False]
+    assert torch.equal(t_g, t_e) and st_g == st_e, (st_g, st_e)
+
+    def readable(state):
+        """A gathered state's bytes a read can see."""
+        d = sc.gather_state(state).data
+        L = int(d.length.max())
+        if hasattr(d, "kv"):
+            p = L - L % d.kv.window
+            return [t[:, :, :p] for t in sc._seq_leaves(d)] + [
+                d.kv.k_residual, d.kv.v_residual, d.length]
+        return [t[:, :, :L] for t in sc._seq_leaves(d)] + [d.length]
+
+    for a, b in zip(c_g["attn"], c_e["attn"]):
+        for x, y in zip(readable(a), readable(b), strict=True):
+            assert torch.equal(x, y)
+    assert c_g[SPEC_KEY].step.counts == (
+        0, 0, 2 * L * k if policy == "int4-srft" else 0, 0)
+    assert n_g[0] == n_e[0] == 0, (n_g, n_e)  # no B1 in any verify pass
+    if policy == "int4-srft":
+        assert n_e[1] == st_e["passes"] * 2 * L * k + 2 * L, n_e
+    diff = (ref[0] != t_g[0]).nonzero()
+    if len(diff):
+        i = int(diff[0])
+        top2 = logits[0, i].topk(2).values
+        assert top2[0] - top2[1] < 0.05 * logits.abs().max(), (i, top2)
+    # layer 0's verify read against the split decode read
+    st = plain["attn"][0]
+    pol = st.policy
+    clone = lambda s: pt.tree_map_with_path(  # noqa: E731
+        lambda _, t: t.clone() if isinstance(t, torch.Tensor) else t, s)
+    ver, seq = st.map_shards(clone), st.map_shards(clone)
+    Hkv, d = model.cfg.n_kv_heads, model.cfg.head_dim
+    g = _gen(dev, 9)
+    kv = [tuple(torch.randn((1, Hkv, 1, d), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in "kv") for _ in range(k)]
+    q = torch.randn((1, model.cfg.n_heads, k, d), generator=g, device=dev)
+    snap = pol.snapshot_rows(ver)
+    for kk, vv in kv:
+        pol.update(ver, kk, vv)
+    got = pol.verify_attend(q, ver, snap, backend=backend)
+    for i, (kk, vv) in enumerate(kv):
+        pol.update(seq, kk, vv)
+        assert torch.equal(got[:, :, i:i + 1], pol.attend(
+            q[:, :, i:i + 1], seq, backend="gather")), i

@@ -346,9 +346,10 @@ def test_shard_cache_refuses_split_k(lm, mesh):
     divide the axis (smol-d64's 2 heads over 'model' = 2: rung 1 of the
     serving rule), and on a (1, 3) mesh, where they do not, splits the
     dense leaves by position (rung 2, tests/test_torch_split_k.py holds
-    its serving).  What split-K refuses is what it does not serve: the
-    speculative path raises naming ROADMAP A12e.  Identity without a
-    mesh."""
+    its serving, tests/test_torch_split_k_spec.py its speculative
+    path).  What split-K refuses is what it does not serve: chunked
+    prefill, which the reference reaches only through BatchEngine.
+    Identity without a mesh."""
     model, params = lm
     cache = model.init_cache(1, S_MAX, policy="int4-srft")
     heads = Engine(model, mesh=mesh).shard_cache(cache, allow_split_k=True)
@@ -363,9 +364,14 @@ def test_shard_cache_refuses_split_k(lm, mesh):
     assert st.shards[0].data.kv.k_packed.shape[2] == 22
     assert eng.shard_cache(model.init_cache(1, 66, policy="int4-srft"))[
         "attn"][0].policy.name == "int4-srft"  # replicated: not split
-    with pytest.raises(NotImplementedError, match="A12e"):
-        eng.generate_spec(params, torch.zeros((1, 4), dtype=torch.long),
-                          split, 4, spec_k=2)
+    toks, _, _ = eng.generate_spec(params, torch.zeros((1, 4),
+                                                       dtype=torch.long),
+                                   split, 4, spec_k=2)
+    assert toks.shape == (1, 4)
+    _, h, _, d = st.data.kv.k_residual.shape
+    with pytest.raises(NotImplementedError, match="only through BatchEngine"):
+        st.policy.prefill_chunk(st, *(torch.zeros((1, h, 16, d))
+                                      for _ in "kv"))
     assert Engine(model).shard_cache(cache, allow_split_k=True) is cache
 
 

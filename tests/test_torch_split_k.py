@@ -433,9 +433,12 @@ def test_split_k_engine_against_the_reference(mesh):
 
 def test_split_k_bytes_and_what_it_refuses(lm, mesh):
     """``nbytes``: global-logical equals the unsplit state's; one shard
-    holds S/m of the seq-major bytes and the rings in full.  What split-K
-    does not serve raises NotImplementedError naming ROADMAP A12e, before
-    it touches the cache."""
+    holds S/m of the seq-major bytes and the rings in full.  The
+    speculative rollback is served (``snapshot_rows``, ``truncate_rows``,
+    ``generate_spec``: tests/test_torch_split_k_spec.py holds them);
+    what split-K does not serve (chunked prefill, which the reference
+    reaches only through BatchEngine) raises NotImplementedError saying
+    so, before it touches the cache."""
     model, params = lm
     for policy in ("bf16", "int4-srft", "int8-per-token"):
         pol, plain, split = _states(policy, mesh, True)
@@ -448,22 +451,29 @@ def test_split_k_bytes_and_what_it_refuses(lm, mesh):
         assert split.nbytes(per_shard=True) == seq // M
         assert split.nbytes(persistent_only=False, per_shard=True) == \
             seq // M + rings
-        for what, call in (
-                ("snapshot_rows", lambda: split.policy.snapshot_rows(split)),
-                ("prefill_chunk", lambda: split.policy.prefill_chunk(
-                    split, *_kv(np.random.default_rng(0), 16))),
-                ("truncate_rows", lambda: split.policy.truncate_rows(
-                    split, 0, None))):
-            with pytest.raises(NotImplementedError, match="A12e"):
-                call()
+        snap = split.policy.snapshot_rows(split)
+        assert len(snap) == M
+        split.policy.truncate_rows(split, torch.zeros(B, dtype=torch.long),
+                                   snap)
+        assert all(int(s.length.max()) == 0 for s in split.shards)
+        with pytest.raises(NotImplementedError,
+                           match="only through BatchEngine"):
+            split.policy.prefill_chunk(split,
+                                       *_kv(np.random.default_rng(0), 16))
     eng = Engine(model, graph=False, mesh=mesh)
+    prompt = torch.zeros((1, 8), dtype=torch.long)
     cache = eng.shard_cache(model.init_cache(1, S_MAX, ragged=True),
                             allow_split_k=True)
+    toks, _, stats = eng.generate_spec(params, prompt, cache, 4, spec_k=2)
+    assert toks.shape == (1, 4) and stats["passes"] > 0
+    cache = eng.shard_cache(model.init_cache(1, S_MAX, ragged=True),
+                            allow_split_k=True)
+    eng.prefill(params, prompt, cache)
     before = [t.clone() for _, t in pt.flatten_with_path(
         sc.gather_state(cache["attn"][0])) if isinstance(t, torch.Tensor)]
-    with pytest.raises(NotImplementedError, match="A12e"):
-        eng.generate_spec(params, torch.zeros((1, 8), dtype=torch.long),
-                          cache, 4, spec_k=2)
+    st = cache["attn"][0]
+    with pytest.raises(NotImplementedError, match="only through BatchEngine"):
+        st.policy.prefill_chunk(st, *_kv(np.random.default_rng(1), 16))
     after = [t for _, t in pt.flatten_with_path(
         sc.gather_state(cache["attn"][0])) if isinstance(t, torch.Tensor)]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
