@@ -314,6 +314,25 @@ Phases (any failure exits non-zero):
      quantization steps of the exact sum, the reference input within
      1e-2 relative.  (e) the training CLI: ``--mesh 1x1`` trains 2 steps
      in a subprocess, ``--mesh 2x1`` exits naming the one card.
+ 19. the cost census (``launch/cost.py``) of one eager int4-srft KERNEL
+     decode step of phase 5's model on a plain cache at the 4093-token
+     request, the step that fills the residual window (B1 once a layer,
+     B3 twice): (a) the card's census equals the census of the same step
+     on a model built on ``meta`` op for op (name, dtype, FLOPs,
+     transcendentals, bytes, source line); the branches on device type
+     that step passes are the kernel wrappers' (``cpu`` runs the plain
+     versions, ``cuda`` and ``meta`` the launch path, which skips the
+     launch on ``meta``) and ``_plan``'s SM count (``META_SMS`` on
+     ``meta``); (b) its B1 and B3 records equal the launch counters'
+     deltas over the step; (c) the step profiled once, device us joined
+     to the census by class (B1, B3, the fp32 rotation GEMMs, the bf16
+     weight GEMMs, copies and fills, elementwise ops and reductions: on
+     the profiler's side, the port's kernels by name, the GEMMs in order
+     against the census's, the rest by the launching op's name), each
+     class's bound (``roofline.op_bound_s``) and its share of the device
+     time, the step's ``step_bound`` against its ms by events (a copy
+     of the same state, no census); (d) ``op_probe``'s top 10 by output
+     bytes.  Lines tagged with the card's name and power limit.
 The seconds of each phase are printed on one line (``phase seconds``)
 before the kernels' JSON line.
 Prints one JSON line describing every kernel, then, last, the line
@@ -564,6 +583,16 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_bound(kind: str, *args, **kw) -> tuple[float, str]:
+    """``bound`` of a kernel's analytic cost: ``launch/cost.py``'s
+    ``kernel_cost_<kind>(*args, **kw)``, the one formula the cost census
+    records too."""
+    from repro_torch.launch import cost
+
+    c = getattr(cost, f"kernel_cost_{kind}")(*args, **kw)
+    return bound(c["bytes_read"] + c["bytes_written"], c["flops"])
+
+
 # ---------------------------------------------------------------- kernels
 
 def check_b3(sq_ops, ref, rot, x, *, group):
@@ -609,9 +638,8 @@ def b3_shape(sq_ops, x, rot, group, flush, label=None, plain=False) -> dict:
     lam = None if rot is None else rot.lam
     ms = device_ms(lambda: sq_ops.srft_quant(x, mat, lam, group=group),
                    flush, label=label)
-    nbytes = (x.numel() * x.element_size() + n * d // 2 + n * d // group * 4
-              + (0 if rot is None else d * d * 4 + d * 4))
-    b_ms, b_by = bound(nbytes, 0.0 if rot is None else 2.0 * n * d * d)
+    b_ms, b_by = kernel_bound("b3", n, d, group, x_itemsize=x.element_size(),
+                              matrix=rot is not None, lam=rot is not None)
     rec = dict(rows=n, dtype=str(x.dtype).replace("torch.", ""),
                matrix=rot is not None, max_abs_err=err, tie_flips=flips,
                ms=ms, bound_ms=b_ms, bound_by=b_by)
@@ -771,8 +799,7 @@ def check_b4_raw_view(flush, g, rot, group, tokens=SHARED_PREFIX,
     ms = device_ms(call, flush, label=label)
     plain = device_ms(lambda: sq_ref.srft_dequant_ref(pk, sc, minv,
                                                       group=group), flush)
-    nbytes = pk.numel() + sc.numel() * 4 + d * d * 4 + n * d * 4
-    b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
+    b_ms, b_by = kernel_bound("b4", n, d, group)
     log(f"[{CARD}] B4 at the raw view of a {what} {tokens}-token "
         f"prefix ({n} rows x d {d}, int4): max abs err {err:.3e} (tol "
         f"{tol:.3e}); {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} "
@@ -834,9 +861,7 @@ def check_b1(flush, g, Hkv, G, d, group, W, label="B1", by_prompt=True):
     ms_graph = graph_ms(call, flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, plen, total, group=group), flush)
-    nbytes = (BH * G * d * 4 * 2 + 2 * BH * plen * (d // 2 + d // group * 4)
-              + 2 * BH * W * d * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * BH * G * d * (plen + W))
+    b_ms, b_by = kernel_bound("b1", BH, G, d, group, W, BH * plen)
     # context only: a bf16 SDPA read of a bf16 cache of the same length
     qb = torch.randn((1, BH * G, 1, d), device="cuda", dtype=torch.bfloat16)
     kb = torch.randn((1, BH, total, d), device="cuda", dtype=torch.bfloat16)
@@ -959,9 +984,8 @@ def check_b1_at(flush, g, BH, d, group, S, total, W, what) -> dict:
     ms, ms_graph = device_ms(call, flush), graph_ms(call, flush)
     plain = device_ms(lambda: qa_ref.quant_decode_attention_ref(
         *args, rows_p, rows_t, group=group), flush, iters=5, warmup=1)
-    nbytes = (BH * d * 4 * 2 + 2 * BH * plen * (d // 2 + d // group * 4)
-              + 2 * BH * W * d * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * BH * d * (plen + W))
+    b_ms, b_by = kernel_bound("b1", BH, 1, d, group, W, BH * plen,
+                              per_row_lengths=True)
     log(f"[{CARD}] B1 at {what} (Hkv={BH} G=1 d={d} group={group}, "
         f"{plen} packed + {total - plen} in the window): max abs err "
         f"{err:.3e}; {ms:.4f} ms (events), {ms_graph:.4f} ms (graph "
@@ -1010,8 +1034,7 @@ def check_b4(flush, g, n, group, b3_call):
     ms_wall = wall_ms(call)
     plain = device_ms(lambda: sq_ref.srft_dequant_ref(
         pk, sc, minv, group=group, bits=bits), flush)
-    nbytes = pk.numel() + sc.numel() * 4 + d * d * 4 + n * d * 4
-    b_ms, b_by = bound(nbytes, 2.0 * n * d * d)
+    b_ms, b_by = kernel_bound("b4", n, d, group, bits=bits)
     log(f"B4 dequantize + inverse rotation n={n} d={d} int4: max abs err "
         f"{err:.3e}; all shapes within {B4_RTOL} x max(1, max|x|): "
         + ", ".join(f"d{c['d']}/b{c['bits']} {c['max_abs_err']:.2e}"
@@ -1083,9 +1106,8 @@ def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE, label="B2",
         *args, group=group, n_kv_heads=H), flush, iters=plain_iters,
         warmup=min(3, plain_iters))
     n_tok = int(plen.sum())  # packed tokens this input's rows hold
-    nbytes = (2 * BH * G * d * 4 + 2 * n_tok * (d // 2 + d // group * 4)
-              + 2 * BH * W * d * 4 + table.numel() * 4 + 2 * BH * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * G * d * (n_tok + BH * W))
+    b_ms, b_by = kernel_bound("b2", BH, G, d, group, W, n_tok,
+                              table.numel())
     log(f"[{CARD}] B2 paged read rows={lengths} H={H} G={G} d={d} "
         f"page_size={ps} "
         f"(shuffled table): max abs err {err:.3e} (tol {B1_ATOL}); equal "
@@ -5952,6 +5974,232 @@ def p18_phase(model, params) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 19: census
+
+P19_PROMPT = PROMPTS[-1]
+P19_GEMMS = ("aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm")
+P19_KERNELS = {"quant_decode_attention": "B1", "srft_quant": "B3"}
+
+
+def _p19_class(op, dtype, kernel=False) -> str:
+    """The join table's class of a census record, or of a profiled op
+    (its name as ``aten.x``)."""
+    from repro_torch.launch import cost
+
+    if kernel:
+        return P19_KERNELS.get(op, op)
+    if op in P19_GEMMS:
+        return ("fp32 GEMMs (rotations)" if dtype == "float32"
+                else f"{dtype} GEMMs (weights)")
+    if op.removeprefix("aten.") in cost.DATA_MOVEMENT:
+        return "copies and fills"
+    return "elementwise and reductions"
+
+
+def _p19_state(model, params, prompt, steps):
+    """A plain int4-srft cache holding ``prompt`` and ``steps`` decoded
+    tokens, and the next token."""
+    from repro_torch.launch.steps import make_decode_step
+
+    cache = model.init_cache(1, S_MAX, policy="int4-srft",
+                             generator=torch.Generator().manual_seed(SEED))
+    step = make_decode_step(model, backend="kernel")
+    lg, cache = model.prefill(params, prompt, cache)
+    tok = lg[:, -1:].argmax(-1)
+    for _ in range(steps):
+        lg, cache = step(params, tok, cache)
+        tok = lg[:, -1:].argmax(-1)
+    return cache, tok
+
+
+def _p19_first_diff(a, b) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.key() != y.key():
+            return f"record {i}: card {x} != meta {y}"
+    return f"lengths {len(a)} != {len(b)}"
+
+
+def _p19_device_us(prof, recs) -> tuple[dict, float, int]:
+    """Device us of the profiled step by join class, the total, and the
+    GEMM ops the profiler kept no kernel record of.  The port's kernels by
+    name (``OWN_KERNELS``; a ctypes launch has no launching op); each
+    GEMM op (``aten::mm``, ...) joined in order to the census's GEMM
+    records, whose dtype tells rotations from weights (the profiler
+    leaves the input dtypes empty); every other kernel by the op that
+    launched it.  On the chip machine the profiler drops some kernel
+    records (PERF.md), so a GEMM op may come with none: its time is
+    missing, and counted.  Where the GEMM ops and the census's GEMMs do
+    not pair up, the GEMM time stays in one class."""
+    us = _kernel_us(prof)
+    out = {"B1": sum(t for k, t in us.items() if "qda_" in k),
+           "B3": sum(t for k, t in us.items()
+                     if any(n in k for n in OWN_KERNELS["srft_quant.cu"]))}
+    own = set().union(*OWN_KERNELS.values())
+    def op(e):
+        return "aten." + e.name.removeprefix("aten::")
+
+    def in_gemm(e):  # a GEMM op's own inner ops (the CPU's mm.out)
+        p = e.cpu_parent
+        while p is not None and op(p) not in P19_GEMMS:
+            p = p.cpu_parent
+        return p is not None
+
+    def kernels(e):  # of the op and every op inside it
+        return e.kernels + [k for c in e.cpu_children for k in kernels(c)]
+
+    gemms = [r for r in recs if r.op in P19_GEMMS]
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CPU"
+                     and e.name.startswith("aten::") and not in_gemm(e)),
+                    key=lambda e: e.time_range.start)
+    n_gemm = sum(1 for e in events if op(e) in P19_GEMMS)
+    paired = n_gemm == len(gemms)
+    it = iter(gemms)
+    no_kernel = 0
+    for e in events:
+        ks = kernels(e) if op(e) in P19_GEMMS else e.kernels
+        t = sum(k.duration for k in ks if not any(n in k.name for n in own))
+        if op(e) in P19_GEMMS:
+            no_kernel += not ks
+            cl = (_p19_class(op(e), next(it).dtype) if paired else
+                  f"GEMMs ({n_gemm} profiled, {len(gemms)} censused)")
+        elif not ks:
+            continue
+        else:
+            cl = _p19_class(op(e), "")
+        out[cl] = out.get(cl, 0.0) + t
+    return out, sum(us.values()), no_kernel
+
+
+def p19_phase(model, params) -> dict:
+    """The cost census of one eager int4-srft KERNEL decode step, held
+    against the same step on ``meta``, the launch counters and a profile
+    of the step (see the module docstring, phase 19)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import cost, op_probe, roofline
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.lm import LM
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    meta = LM(cfg, device="meta")
+    meta_params = meta.init(torch.Generator())
+    W = 16  # the int4-srft policy's residual window
+    steps = (W - 1 - P19_PROMPT % W) % W  # the next append fills it
+    g = torch.Generator(device="cuda").manual_seed(SEED + P19_PROMPT)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P19_PROMPT), generator=g,
+                           device="cuda")
+    with torch.no_grad():
+        cache, tok = _p19_state(model, params, prompt, steps)
+        m_cache, m_tok = _p19_state(meta, meta_params,
+                                    torch.zeros_like(prompt, device="meta"),
+                                    steps)
+        assert cache["pos"] == m_cache["pos"] == P19_PROMPT + steps
+        assert cache["attn"][0].data.kv.window == W
+        step = make_decode_step(model, backend="kernel")
+        m_step = make_decode_step(meta, backend="kernel")
+        timed = [copy.deepcopy(cache) for _ in range(3)]
+        torch.cuda.synchronize()
+        _zero_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with cost.CostCounter() as cc:
+                step(params, tok, cache)
+            torch.cuda.synchronize()
+        launched = _counters()
+        with cost.CostCounter() as m_cc:
+            m_step(meta_params, m_tok, m_cache)
+        ev_ms = []
+        for c in timed:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            step(params, tok, c)
+            b.record()
+            torch.cuda.synchronize()
+            ev_ms.append(a.elapsed_time(b))
+        del timed
+    recs, m_recs = cost.costed(cc.records), cost.costed(m_cc.records)
+    # (a) op for op
+    same = [r.key() for r in recs] == [r.key() for r in m_recs]
+    assert same, "19a census card != meta: " + _p19_first_diff(recs, m_recs)
+    total = cost.summarize(recs)
+    log(f"[{CARD}] 19a census of the eager int4-srft KERNEL step at "
+        f"{P19_PROMPT}+{steps} tokens: card == meta op for op over the "
+        f"{len(recs)} costed records (of {len(cc.records)}), "
+        f"{total['flops']:.6e} FLOPs, {total['bytes accessed']:.6e}"
+        f" bytes, {total['transcendentals']:.6e} transcendentals; device "
+        f"branches on the path: the kernel wrappers (cpu: plain; cuda, "
+        f"meta: launch path, no launch on meta), _plan's SM count")
+    # (b) kernel records against the launch counters
+    n_rec = {name: sum(1 for r in recs if r.kernel and r.op == name)
+             for name in P19_KERNELS}
+    for name, n in n_rec.items():
+        assert n == launched[name] > 0, \
+            f"19b {name}: {n} records, {launched[name]} launches"
+    assert n_rec["quant_decode_attention"] == cfg.n_layers
+    assert n_rec["srft_quant"] == 2 * cfg.n_layers
+    log(f"[{CARD}] 19b census kernel records == launch counters: "
+        + ", ".join(f"{P19_KERNELS[k]} {n}" for k, n in n_rec.items()))
+    # (c) the join table
+    rows = {}
+    for r in recs:
+        row = rows.setdefault(_p19_class(r.op, r.dtype, r.kernel), dict(
+            ops=0, bytes=0, flops=0.0, bound_ms=0.0, us=0.0))
+        row["ops"] += 1
+        row["bytes"] += r.nbytes
+        row["flops"] += r.flops
+        row["bound_ms"] += roofline.op_bound_s(r) * 1e3
+    dev_us, busy_us, no_kernel = _p19_device_us(prof, recs)
+    for cl, t in dev_us.items():
+        rows.setdefault(cl, dict(ops=0, bytes=0, flops=0.0, bound_ms=0.0,
+                                 us=0.0))["us"] += t
+    rot_src = sorted({r.src for r in recs if r.op in P19_GEMMS
+                      and r.dtype == "float32"})
+    log(f"[{CARD}] 19c the eager step by class (device us from one "
+        f"profiled step; bound = sum over the class's ops of max(bytes / "
+        f"{roofline.HW.DATASHEET_HBM_BYTES_PER_S:.3g} B/s, FLOPs / the "
+        f"dtype's peak)); fp32 GEMMs at {rot_src}:")
+    log(f"  {'class':28s} {'ops':>5s} {'device us':>10s} {'MB':>9s} "
+        f"{'GFLOP':>9s} {'bound us':>9s} {'share':>6s}")
+    for cl, row in sorted(rows.items(), key=lambda kv: -kv[1]["us"]):
+        share = row["bound_ms"] * 1e3 / row["us"] if row["us"] else None
+        row["share"] = share
+        log(f"  {cl:28s} {row['ops']:5d} {row['us']:10.1f} "
+            f"{row['bytes'] / 1e6:9.3f} {row['flops'] / 1e9:9.4f} "
+            f"{row['bound_ms'] * 1e3:9.2f} "
+            f"{'-' if share is None else f'{share:.3f}':>6s}")
+    attributed = sum(row["us"] for row in rows.values())
+    bound_ms = roofline.step_bound(recs) * 1e3
+    ms = sorted(ev_ms)[1]
+    log(f"[{CARD}] 19c step_bound {bound_ms:.4f} ms vs {ms:.4f} ms by "
+        f"events (median of {len(ev_ms)}: {[round(x, 4) for x in ev_ms]}; "
+        f"share {bound_ms / ms:.3f}), device busy {busy_us / 1e3:.4f} ms "
+        f"in the profiled step (share "
+        f"{bound_ms * 1e3 / max(busy_us, 1e-9):.3f}; "
+        f"{attributed / max(busy_us, 1e-9):.3f} of it joined to a class; "
+        f"{no_kernel} GEMM ops with no kernel record kept)")
+    # (d) the top ops by output bytes
+    log(f"[{CARD}] 19d op_probe top 10:")
+    for line in op_probe.report(recs, top=10, kinds=10):
+        log("  " + line)
+    summary = dict(prompt=P19_PROMPT, steps_before=steps,
+                   records=len(recs), cost=total, launches=n_rec,
+                   step_bound_ms=bound_ms, events_ms=ev_ms,
+                   device_busy_ms=busy_us / 1e3,
+                   gemms_without_kernel_record=no_kernel,
+                   classes={k: {kk: (round(v, 6) if isinstance(v, float)
+                                     else v) for kk, v in row.items()}
+                            for k, row in rows.items()},
+                   seconds=time.perf_counter() - t0)
+    log(f"[{CARD}] 19 summary " + json.dumps(summary))
+    return {"census": launched}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6038,6 +6286,7 @@ def main() -> int:
     served = timed("serve", serve_phase, model, params)
     sharded = timed("p16", p16_phase, model, params)
     split_k = timed("p18", p18_phase, model, params)
+    census = timed("p19", p19_phase, model, params)
     del model, params, mono, pre_mono  # their engines hold ~10 GB
     _free_cuda()
     log(f"before phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -6057,7 +6306,8 @@ def main() -> int:
     log(f"[{card}] phase 17 {secs['p17']:.1f}s")
     by_path = {"engine": launches, **batch, **chunked, **spec, **offload,
                "quality": quality, **learned, **served, **configs,
-               **families, **sharded, **trained, **split_k}
+               **families, **sharded, **trained, **split_k,
+               **census}
     own_path = {"quant_decode_attention_paged": "batch_paged",
                 "srft_dequant": "batch_chunked_paged"}
     for k in kernels:

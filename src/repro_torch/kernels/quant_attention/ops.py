@@ -11,17 +11,20 @@ page table, per-row ``plen = L - L mod W``, and
 :func:`quant_decode_attention_paged` reads them.  On a CPU tensor each
 runs its plain version (``ref.py``); on a CUDA tensor it launches
 ``csrc/quant_attention.cu`` (B1 or B2: the same split-K pass 1 with
-another token address, and the same combine pass) or raises.
-``launches`` and ``paged_launches`` count the wrapper calls that
-launched B1 and B2.  ``plan_rows`` sizes the split-K plan for another
-row count than the call's own: a read split by head over shards passes
-the unsplit read's ``B·Hkv``, so each row is reduced in the same order
-and the shards' outputs equal the unsplit read's bit for bit.  With
-``return_lse=True`` B1 (and its plain version) also hands back each
-(row, head)'s log-sum-exp of its scores, which a read split by position
-over shards combines with (``launch/sharded_cache.py``); ``packed_len``
-overrides ``decode_attention_kernel``'s ``L - L mod W`` for such a
-shard, whose packed segment need not end on a multiple of W.
+another token address, and the same combine pass) or raises.  On a
+``meta`` tensor it checks the arguments and returns outputs of the
+kernel's shapes and dtypes, computing nothing.  On ``cuda`` and ``meta``
+each call adds its analytic cost to an active cost census
+(``launch/cost.py``).  ``launches`` and ``paged_launches`` count the
+wrapper calls that launched B1 and B2.  ``plan_rows`` sizes the split-K
+plan for another row count than the call's own: a read split by head
+over shards passes the unsplit read's ``B·Hkv``, so each row is reduced
+in the same order and the shards' outputs equal the unsplit read's bit
+for bit.  With ``return_lse=True`` B1 (and its plain version) also hands
+back each (row, head)'s log-sum-exp of its scores, which a read split by
+position over shards combines with (``launch/sharded_cache.py``);
+``packed_len`` overrides ``decode_attention_kernel``'s ``L - L mod W``
+for such a shard, whose packed segment need not end on a multiple of W.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.kernels.quant_attention.ref import (
     quant_decode_attention_ref,
     row_lengths,
 )
+from repro_torch.launch import cost
 
 __all__ = ["quant_decode_attention", "quant_decode_attention_paged",
            "decode_attention_kernel", "decode_attention_kernel_paged",
@@ -80,6 +84,7 @@ def split_plan(rows: int, n_tiles: int, sms: int,
 
 # pass 2 stages every split's partials in shared memory: keep it < 192 KiB
 _COMBINE_WORDS = 48 * 1024
+META_SMS = 132  # an H100 SXM's SMs: the split plan of a meta call
 
 
 def _lengths(x, rows, device):
@@ -107,13 +112,18 @@ def _plan(q_eff, kr, n_tiles, group, plan_rows=None):
         raise ValueError(f"unsupported G={G} d={d} group={group}: B1/B2 "
                          f"take 1 to {MAX_G} query heads per KV head, d <= "
                          f"256, d % 8 == 0 and d % group == 0")
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    if dev.type == "meta":
+        sms = META_SMS
+    else:
+        idx = (dev.index if dev.index is not None
+               else torch.cuda.current_device())
+        if idx not in _SMS:
+            _SMS[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
+        sms = _SMS[idx]
     max_splits = max(1, (_COMBINE_WORDS - 2 * W * d - G * W - 3 * G)
                      // (G * (d + 3)))
-    n_splits, tps = split_plan(plan_rows or BH, n_tiles, _SMS[idx],
-                               max_splits)
+    n_splits, tps = split_plan(plan_rows or BH, n_tiles, sms, max_splits)
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty((BH, n_splits, G, 2), **f32),
             torch.empty((BH, n_splits, G, d), **f32),
@@ -148,16 +158,23 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
                                                   plan_rows)
     lse = (torch.empty((BH, G), dtype=torch.float32, device=dev)
            if return_lse else None)
-    lib, fn = _fn("quant_decode_attention_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
-                vp.data_ptr(), vs.data_ptr(), kr.data_ptr(), vr.data_ptr(),
-                _ptr(plen_rows), _ptr(tlen_rows), plen, tlen,
-                part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                _ptr(lse), BH, S, G, d, group, W, n_splits, tps, stream)
-    _build.check(lib, "quant_attention", rc)
-    launches += 1
+    if dev.type == "cuda":
+        lib, fn = _fn("quant_decode_attention_launch")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
+                    vp.data_ptr(), vs.data_ptr(), kr.data_ptr(),
+                    vr.data_ptr(), _ptr(plen_rows), _ptr(tlen_rows), plen,
+                    tlen, part_ml.data_ptr(), part_acc.data_ptr(),
+                    out.data_ptr(), _ptr(lse), BH, S, G, d, group, W,
+                    n_splits, tps, stream)
+        _build.check(lib, "quant_attention", rc)
+        launches += 1
+    if cost.ACTIVE:  # per-row lengths are not read back: S tokens a row
+        per_row = plen_rows is not None or tlen_rows is not None
+        cost.record_kernel("quant_decode_attention", **cost.kernel_cost_b1(
+            BH, G, d, group, W, BH * (S if plen_rows is not None else plen),
+            per_row_lengths=per_row, lse=return_lse))
     return (out, lse) if return_lse else out
 
 
@@ -187,17 +204,22 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
     n_tiles = -(-(MP * ps) // TILE)  # B1's plan at S = MP * page_size
     part_ml, part_acc, out, n_splits, tps = _plan(q_eff, kr, n_tiles, group,
                                                   plan_rows)
-    lib, fn = _fn("quant_decode_attention_paged_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
-                vp.data_ptr(), vs.data_ptr(), kr.data_ptr(), vr.data_ptr(),
-                page_table.data_ptr(), plen_rows.data_ptr(),
-                tlen_rows.data_ptr(), part_ml.data_ptr(),
-                part_acc.data_ptr(), out.data_ptr(),
-                BH, H, MP, ps, G, d, group, W, n_splits, tps, stream)
-    _build.check(lib, "quant_attention", rc)
-    paged_launches += 1
+    if dev.type == "cuda":
+        lib, fn = _fn("quant_decode_attention_paged_launch")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(q_eff.data_ptr(), kp.data_ptr(), ks.data_ptr(),
+                    vp.data_ptr(), vs.data_ptr(), kr.data_ptr(),
+                    vr.data_ptr(), page_table.data_ptr(),
+                    plen_rows.data_ptr(), tlen_rows.data_ptr(),
+                    part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                    BH, H, MP, ps, G, d, group, W, n_splits, tps, stream)
+        _build.check(lib, "quant_attention", rc)
+        paged_launches += 1
+    if cost.ACTIVE:  # the lengths are not read back: every page a row maps
+        cost.record_kernel("quant_decode_attention_paged",
+                           **cost.kernel_cost_b2(BH, G, d, group, W,
+                                                 BH * MP * ps, B * MP))
     return out
 
 
@@ -216,9 +238,9 @@ def quant_decode_attention(q_eff, k_packed, k_scales, v_packed, v_scales,
             q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
             v_residual, packed_len, total_len, group=group, blk=blk,
             return_lse=return_lse)
-    if q_eff.device.type != "cuda":
-        raise ValueError(f"quant_decode_attention runs on cpu or cuda, not "
-                         f"{q_eff.device}")
+    if q_eff.device.type not in ("cuda", "meta"):
+        raise ValueError(f"quant_decode_attention runs on cpu, cuda or meta, "
+                         f"not {q_eff.device}")
     return _launch(q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
                    v_residual, packed_len, total_len, group, plan_rows,
                    return_lse)
@@ -237,9 +259,9 @@ def quant_decode_attention_paged(q_eff, k_packed, k_scales, v_packed,
             q_eff, k_packed, k_scales, v_packed, v_scales, k_residual,
             v_residual, packed_len, total_len, page_table, group=group,
             n_kv_heads=n_kv_heads)
-    if q_eff.device.type != "cuda":
-        raise ValueError(f"quant_decode_attention_paged runs on cpu or cuda, "
-                         f"not {q_eff.device}")
+    if q_eff.device.type not in ("cuda", "meta"):
+        raise ValueError(f"quant_decode_attention_paged runs on cpu, cuda or "
+                         f"meta, not {q_eff.device}")
     return _launch_paged(q_eff, k_packed, k_scales, v_packed, v_scales,
                          k_residual, v_residual, packed_len, total_len,
                          page_table, group, page_size, n_kv_heads,

@@ -3,9 +3,12 @@ B4, its inverse: unpack + dequantize + inverse rotation (port of
 ``repro/kernels/srft_quant/ops.py``).
 
 On a CPU tensor a wrapper runs the plain version (``ref.py``); on a CUDA
-tensor it launches ``csrc/srft_quant.cu`` or raises.  ``launches`` (B3)
-and ``dequant_launches`` (B4) count kernel launches (plain-version calls
-do not count).
+tensor it launches ``csrc/srft_quant.cu`` or raises; on a ``meta`` tensor
+it checks the arguments and returns outputs of the kernel's shapes and
+dtypes, computing nothing.  On ``cuda`` and ``meta`` each call adds its
+analytic cost to an active cost census (``launch/cost.py``).
+``launches`` (B3) and ``dequant_launches`` (B4) count kernel launches
+(plain-version calls do not count).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.kernels.srft_quant.ref import (
     srft_dequant_ref,
     srft_quant_ref,
 )
+from repro_torch.launch import cost
 
 __all__ = ["srft_quant", "srft_dequant", "rotate_quantize",
            "dequantize_rotate", "quantize_rotated", "launches",
@@ -66,14 +70,19 @@ def _launch(x, m, lam, group, bits):
                       dtype=torch.uint8 if bits == 4 else torch.int8,
                       device=x.device)
     scales = torch.empty((n, d // group), dtype=torch.float32, device=x.device)
-    lib, fn = _fn("srft_quant_launch")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(m),
-                _ptr(lam), out.data_ptr(), scales.data_ptr(), n, d, group,
-                bits, stream)
-    _build.check(lib, "srft_quant", rc)
-    launches += 1
+    if x.device.type == "cuda":
+        lib, fn = _fn("srft_quant_launch")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(m),
+                    _ptr(lam), out.data_ptr(), scales.data_ptr(), n, d,
+                    group, bits, stream)
+        _build.check(lib, "srft_quant", rc)
+        launches += 1
+    if cost.ACTIVE:
+        cost.record_kernel("srft_quant", **cost.kernel_cost_b3(
+            n, d, group, x_itemsize=x.element_size(), matrix=m is not None,
+            lam=lam is not None, bits=bits))
     return out, scales
 
 
@@ -83,8 +92,9 @@ def srft_quant(x: torch.Tensor, m: Optional[torch.Tensor],
     """x (N, d) -> (packed, scales); see ``ref.srft_quant_ref``."""
     if x.device.type == "cpu":
         return srft_quant_ref(x, m, lam, group=group, bits=bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"srft_quant runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"srft_quant runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     return _launch(x, m, lam, group, bits)
 
 
@@ -105,13 +115,17 @@ def _launch_dequant(packed, scales, minv, group, bits):
             raise ValueError(f"{name} must be contiguous fp32 {shape} on "
                              f"{packed.device}")
     out = torch.empty((n, d), dtype=torch.float32, device=packed.device)
-    lib, fn = _fn("srft_dequant_launch")
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(packed.data_ptr(), scales.data_ptr(), minv.data_ptr(),
-                out.data_ptr(), n, d, group, bits, stream)
-    _build.check(lib, "srft_quant", rc)
-    dequant_launches += 1
+    if packed.device.type == "cuda":
+        lib, fn = _fn("srft_dequant_launch")
+        with torch.cuda.device(packed.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(packed.data_ptr(), scales.data_ptr(), minv.data_ptr(),
+                    out.data_ptr(), n, d, group, bits, stream)
+        _build.check(lib, "srft_quant", rc)
+        dequant_launches += 1
+    if cost.ACTIVE:
+        cost.record_kernel("srft_dequant",
+                           **cost.kernel_cost_b4(n, d, group, bits=bits))
     return out
 
 
@@ -122,8 +136,8 @@ def srft_dequant(packed: torch.Tensor, scales: torch.Tensor,
     ``ref.srft_dequant_ref``."""
     if packed.device.type == "cpu":
         return srft_dequant_ref(packed, scales, minv, group=group, bits=bits)
-    if packed.device.type != "cuda":
-        raise ValueError(f"srft_dequant runs on cpu or cuda, not "
+    if packed.device.type not in ("cuda", "meta"):
+        raise ValueError(f"srft_dequant runs on cpu, cuda or meta, not "
                          f"{packed.device}")
     return _launch_dequant(packed, scales, minv, group, bits)
 

@@ -18,12 +18,20 @@ cell the Adam state) by ``param_specs`` (``REPRO_SHARDING=sp_fsdp``
 selects the FSDP layout), the batch by ``batch_specs``, the cache by
 ``cache_specs``.  The record holds each argument's bytes per device (a
 leaf's bytes over the pieces its spec cuts it into) -- the counterpart of
-the reference's ``memory_analysis`` argument bytes -- and
-``model_flops_estimate``, the mesh and the status.
+the reference's ``memory_analysis`` argument bytes -- the mesh and the
+status, and, from the cost census of the cell's step run once at full
+depth on ``meta`` (``launch/cost.py``; the int4 cache's kernels through
+their wrappers' ``meta`` branch): ``cost_analysis`` (``flops``, ``bytes
+accessed``, ``transcendentals``), ``collectives``
+(``roofline.collective_bytes``), ``roofline`` and ``model_flops`` with
+its ``useful_ratio``.  An ssm train or prefill cell steps its recurrent
+blocks a chunk at a time through the whole length, millions of eager ops
+(hours on ``meta``): it is counted at 2, 3 and 4 chunks and
+extrapolated (``step_cost``; ``cost_method`` says which).  The step is
+not partitioned: these count the whole step on one device, where the
+reference's count one device's shard.
 
-The reference also lowers and compiles each cell with XLA and records
-``cost_analysis``, the collectives parsed from the optimized HLO, the
-roofline terms built on them, the HLO's size and the lower / compile
+The reference also records the HLO's size and the lower / compile
 seconds.  The port compiles no whole-program module, so those fields are
 left out, and the record's ``not_recorded`` says so.
 """
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, LONG_CONTEXT_ARCHS, SHAPES, get_config
+from repro_torch.launch import cost as ca
 from repro_torch.launch import partitioning as pt
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
@@ -53,15 +62,18 @@ from repro_torch.launch.steps import (
 from repro_torch.models import build_model
 from repro_torch.optim.adam import adam_init
 
-__all__ = ["cell_is_applicable", "build_cell", "run_cell",
-           "per_device_bytes", "main", "NOT_RECORDED"]
+__all__ = ["cell_is_applicable", "build_cell", "run_cell", "step_cost",
+           "per_token_loop", "fit", "per_device_bytes", "main",
+           "NOT_RECORDED"]
 
 NOT_RECORDED = {
-    "fields": ["cost_analysis", "collectives", "roofline", "hlo_bytes",
-               "t_lower_s", "t_compile_s"],
+    "fields": ["hlo_bytes", "t_lower_s", "t_compile_s"],
     "reason": "the reference reads them from XLA's compiled module; the "
-              "port compiles no whole-program module (measured kernel and "
-              "step times come from chip_smoke.py's profiler attribution)",
+              "port compiles no whole-program module",
+    "note": "the port's step is not partitioned: cost_analysis, "
+            "collectives and roofline count the whole step on one device, "
+            "not one device's shard, and useful_ratio divides the model "
+            "FLOPs by the step's",
 }
 
 
@@ -98,11 +110,12 @@ def _placed(tree, spec_fn, mesh):
     return shapes, spec_fn(shapes, mesh)
 
 
-def build_cell(arch: str, shape_name: str, mesh, cfg=None) -> Cell:
+def build_cell(arch: str, shape_name: str, mesh, cfg=None,
+               shape=None) -> Cell:
     """The cell's step and ``meta`` arguments with their specs on
-    ``mesh``; ``cfg`` overrides the registry config."""
+    ``mesh``; ``cfg`` and ``shape`` override the registry's."""
     cfg = cfg or get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     model = build_model(cfg, device="meta")
     params = model.init(torch.Generator())
     layout = _layout()
@@ -131,6 +144,56 @@ def build_cell(arch: str, shape_name: str, mesh, cfg=None) -> Cell:
     specs["batch"] = _placed({"t": token}, pt.batch_specs, mesh)
     return Cell(make_decode_step(model), (params, token, cache), specs, cfg,
                 shape, params)
+
+
+def per_token_loop(cfg, shape) -> bool:
+    """An ssm train or prefill cell: its mLSTM / sLSTM blocks step through
+    the whole length a chunk at a time, millions of eager ops at the
+    cell's length."""
+    return cfg.family == "ssm" and shape.kind != "decode"
+
+
+def fit(points, xs, x):
+    """The polynomial through ``(xs[i], points[i])`` at ``x`` (a line
+    through two points, the reference's ``linfit``; a parabola through
+    three), leaf by leaf of records with the same keys, at least 0."""
+    if isinstance(points[0], dict):
+        return {k: fit([p[k] for p in points], xs, x) for k in points[0]}
+    total = 0.0
+    for i, (xi, yi) in enumerate(zip(xs, points)):
+        w = 1.0
+        for j, xj in enumerate(xs):
+            if j != i:
+                w *= (x - xj) / (xi - xj)
+        total += w * yi
+    return max(0.0, total)
+
+
+def _census(cell: Cell) -> dict:
+    cost, records = ca.cost_analysis(cell.fn, *cell.args)
+    return {"cost_analysis": cost,
+            "collectives": rl.collective_bytes(records)}
+
+
+def step_cost(cell: Cell, arch: str, shape_name: str, mesh) -> dict:
+    """``{"cost_analysis", "collectives"}`` of the cell's step: its cost
+    census on ``meta``.  A per-token-loop cell (:func:`per_token_loop`) is
+    counted at 2, 3 and 4 chunks of its length and the parabola through
+    them taken at the cell's: every chunk runs the same ops, so a
+    prefill's counts are linear in the chunks, and a train step's are
+    quadratic, since the backward of each chunk's slice of its input
+    (``select_backward`` / ``slice_backward``) writes a gradient of the
+    whole length and the chunks' gradients are summed (a test holds the
+    fit to a direct count)."""
+    if not per_token_loop(cell.cfg, cell.shape):
+        return _census(cell)
+    c = cell.cfg.xlstm.chunk
+    ns = (2, 3, 4)
+    points = [_census(build_cell(arch, shape_name, mesh, cfg=cell.cfg,
+                                 shape=dataclasses.replace(cell.shape,
+                                                           seq_len=n * c)))
+              for n in ns]
+    return fit(points, ns, cell.shape.seq_len / c)
 
 
 def _pieces(spec, mesh) -> int:
@@ -182,14 +245,27 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str):
                for name, (shapes, specs) in cell.specs.items()}
         per["total"] = sum(per.values())
         record["argument_bytes_per_device"] = per
-        record["model_flops"] = rl.model_flops_estimate(cell.cfg, cell.shape,
-                                                        cell.params)
+        record["t_build_s"] = round(time.time() - t0, 2)
+        record.update(step_cost(cell, arch, shape_name, mesh))
+        record["cost_method"] = (
+            "census at 2, 3 and 4 chunks of the length, extrapolated"
+            if per_token_loop(cell.cfg, cell.shape) else "census")
+        cost = record["cost_analysis"]
+        flops = cost["flops"]
+        record["roofline"] = rl.roofline_terms(
+            flops, cost["bytes accessed"], record["collectives"]["total"])
+        mf = rl.model_flops_estimate(cell.cfg, cell.shape, cell.params)
+        mf["useful_ratio"] = mf["model_flops"] / flops if flops else None
+        record["model_flops"] = mf
         record["not_recorded"] = NOT_RECORDED
         record["status"] = "ok"
-        record["t_build_s"] = round(time.time() - t0, 2)
+        record["t_census_s"] = round(time.time() - t0 - record["t_build_s"],
+                                     2)
         print(f"[ok] {arch} x {shape_name} x {mesh_kind}: argument bytes "
-              f"per device {per['total']:.3e}, model flops "
-              f"{record['model_flops']['model_flops']:.3e}")
+              f"per device {per['total']:.3e}, flops {flops:.3e} bytes "
+              f"{cost['bytes accessed']:.3e} (census "
+              f"{record['t_census_s']}s), model flops "
+              f"{mf['model_flops']:.3e}")
     except Exception as e:
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"

@@ -1,21 +1,21 @@
-"""Analytic roofline terms and the model-FLOPs yardstick (port of
-``repro/launch/roofline.py``: ``roofline_terms``, ``count_params``,
+"""Analytic roofline terms, the collective bytes, the bound of an eager
+step and the model-FLOPs yardstick (port of ``repro/launch/roofline.py``:
+``parse_collective_bytes``, ``roofline_terms``, ``count_params``,
 ``model_flops_estimate``) on the H100's data-sheet rates
 (``launch/mesh.HW``).
 
-Three terms, in seconds, per device:
+Three terms, in seconds:
 
-    compute    = FLOPs_per_device / DATASHEET_BF16_FLOP_PER_S
-    memory     = bytes_per_device / DATASHEET_HBM_BYTES_PER_S
-    collective = collective_bytes_per_device / DATASHEET_NVLINK_BYTES_PER_S
+    compute    = FLOPs / DATASHEET_BF16_FLOP_PER_S
+    memory     = bytes / DATASHEET_HBM_BYTES_PER_S
+    collective = collective_bytes / DATASHEET_NVLINK_BYTES_PER_S
 
 The reference reads the FLOPs and bytes from XLA's compiled module
-(``cost_analysis``) and the collective bytes from its optimized HLO text
-(``parse_collective_bytes``).  The port compiles no whole-program module,
-so those inputs have no counterpart here: the caller supplies the counts
-(``launch/dryrun.py`` records the per-device argument bytes and
-``model_flops_estimate``; measured times come from ``chip_smoke.py``'s
-profiler attribution).  These are data-sheet bounds, not measurements.
+(``cost_analysis``) and the collective bytes from its optimized HLO text.
+The port reads them from the cost census of the step (``launch/cost.py``):
+``collective_bytes`` sums its cross-device copies, and ``step_bound`` is
+the least time the census's ops take one by one.  These are data-sheet
+bounds, not measurements.
 """
 from __future__ import annotations
 
@@ -24,7 +24,50 @@ import numpy as np
 from repro_torch.launch import partitioning as pt
 from repro_torch.launch.mesh import HW
 
-__all__ = ["roofline_terms", "count_params", "model_flops_estimate"]
+__all__ = ["collective_bytes", "step_bound", "op_bound_s", "roofline_terms",
+           "count_params", "model_flops_estimate", "COLLECTIVES"]
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def collective_bytes(records) -> dict:
+    """The reference's ``parse_collective_bytes`` dict (bytes and counts
+    per kind, and ``total``) over a cost census.
+
+    The port's mesh is single-controller: a sharded step moves data by
+    copies between devices (``_to_copy`` / ``copy_`` whose source and
+    destination differ), not by named collectives.  So the five XLA kinds
+    stay 0, and those copies' output bytes are summed under one more kind,
+    ``device-copy``, which ``total`` includes."""
+    kinds = COLLECTIVES + ("device-copy",)
+    out = dict.fromkeys(kinds, 0)
+    counts = dict.fromkeys(kinds, 0)
+    for r in records:
+        if r.copy is not None and r.copy[0] != r.copy[1]:
+            out["device-copy"] += r.bytes_written
+            counts["device-copy"] += 1
+    out["total"] = sum(out[k] for k in kinds)
+    out["counts"] = counts
+    return out
+
+
+def op_bound_s(rec) -> float:
+    """The least time one census record takes: the larger of its bytes
+    over HBM and its FLOPs over the peak for its dtype (the tensor cores'
+    for bf16 / fp16; the CUDA cores' for the rest, since the port runs
+    with TF32 off)."""
+    peak = (HW.DATASHEET_BF16_FLOP_PER_S
+            if rec.dtype in ("bfloat16", "float16")
+            else HW.DATASHEET_FP32_FLOP_PER_S)
+    return max(rec.nbytes / HW.DATASHEET_HBM_BYTES_PER_S, rec.flops / peak)
+
+
+def step_bound(records) -> float:
+    """Seconds: the bound of an eager step, op by op -- the sum of
+    :func:`op_bound_s` over its census, every op's bytes through HBM once
+    as eager execution moves them (no fusion)."""
+    return sum(op_bound_s(r) for r in records)
 
 
 def roofline_terms(flops_per_dev: float, bytes_per_dev: float,

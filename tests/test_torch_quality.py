@@ -152,9 +152,17 @@ def test_property_kernel_roundtrip_error_bounded(seed, d, group):
 def test_b4_wrapper_refuses_other_devices_and_bad_codes():
     pk = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
     sc = torch.zeros((4, 2), device="meta")
-    with pytest.raises(ValueError):
-        sq_ops.srft_dequant(pk, sc, torch.zeros((64, 64), device="meta"))
+    minv = torch.zeros((64, 64), device="meta")
+    with pytest.raises(ValueError):  # the matrix on another device
+        sq_ops.srft_dequant(pk, sc, torch.zeros((64, 64)))
+    with pytest.raises(ValueError):  # int8 codes where int4 are packed
+        sq_ops.srft_dequant(pk.to(torch.int8), sc, minv)
     before = sq_ops.dequant_launches
+    # meta (the cost census's device) checks and allocates, launches nothing
+    out = sq_ops.srft_dequant(pk, sc, minv)
+    assert (out.shape, out.dtype, out.device.type) == ((4, 64), torch.float32,
+                                                       "meta")
+    assert sq_ops.dequant_launches == before
     sq_ops.srft_dequant(torch.zeros((4, 32), dtype=torch.uint8),
                         torch.ones((4, 2)), torch.eye(64))
     assert sq_ops.dequant_launches == before  # plain versions do not count

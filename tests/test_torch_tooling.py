@@ -254,7 +254,9 @@ def test_dryrun_cli_writes_its_record_without_allocating(tmp_path):
     per = rec["argument_bytes_per_device"]
     assert per["total"] == per["params"] + per["cache"] + per["batch"] > 0
     assert rec["model_flops"]["model_flops"] > 0
-    assert "cost_analysis" in rec["not_recorded"]["fields"]
+    assert rec["not_recorded"]["fields"] == ["hlo_bytes", "t_lower_s",
+                                             "t_compile_s"]
+    assert rec["cost_analysis"]["flops"] > rec["model_flops"]["model_flops"]
     skipped = json.loads((tmp_path / "internlm2-1.8b__long_500k__single.json")
                          .read_text())
     assert skipped["status"] == "skipped"
