@@ -104,15 +104,33 @@ Thread safety and tracing (the serving front-end, ``launch/server``):
 take ``lock``, so every device touch of the engine, the decode graph's
 capture included, happens under it; ``step_listeners`` get each
 non-empty (events, completions) pair under the lock, host data only.
-``trace`` is a ``TraceRecorder`` (disabled by default).  Spans are host
-clock: ``decode.chunk`` (and ``engine.step``) end after the chunk's
-readback, a device sync, as the reference's do; ``engine.prefill``,
-``prefill.packed`` and ``prefill.chunk`` end when their launches return
-and sync nothing (the reference's paged ``engine.prefill`` alone ends
-after a sync, its device pool's readback, which the port's host pool
-does not need).  The ``first_token`` mark follows the first token's
-readback in ``_post_insert`` in both packages, so time to first token
-means the same in each.  Tracing adds no device sync.
+``trace`` is a ``TraceRecorder`` (disabled by default).  Spans of the
+reference's are host clock: ``decode.chunk`` (and ``engine.step``) end
+after the chunk's readback, a device sync, as the reference's do;
+``engine.prefill``, ``prefill.packed`` and ``prefill.chunk`` end when
+their launches return and add no sync, so they time the host's side of
+the work, which may include a wait in a synchronous upload (the
+reference's paged ``engine.prefill`` alone ends after a sync, its device
+pool's readback, which the port's host pool does not need).  The
+``first_token`` mark follows the first token's readback in
+``_post_insert`` in both packages, so time to first token means the same
+in each.  The port adds two categories.  ``host`` spans split the turn
+between chunks: ``step.admit`` (the admission pass, empty or not) and
+``step.scatter`` (tokens to streams, retirements and resets after the
+readback) inside ``engine.step``; ``decode.upload`` (the masks' copies),
+``decode.enqueue`` (the replays' launches) and ``decode.readback``
+inside ``decode.chunk``.  ``device`` spans are device clock (CUDA
+events; ``tracing.DeviceClock``): ``decode.device`` from just before a
+chunk's mask copies to its last device write (``steps``, ``dev_ms``,
+and ``gap_ms``, the device time since the previous chunk's end, which
+holds whatever ran between the chunks, an admission's prefill too), and
+``prefill.device`` for each monolithic, packed (``rids``, ``rows``) and
+chunked prefill (``rid``, ``tokens``, ``dev_ms``), whose ``dev_ms`` is
+also each request's ``prefill_s`` (a packed group charges every row the
+whole prefill).  Their events are recorded only while the recorder is
+enabled and resolved after readbacks the engine makes anyway: the
+chunk's, for every span queued before it, and the first token's in
+``_post_insert``.  Tracing adds no device sync.
 
 Sampling is greedy, or by temperature from the explicit ``generator``.
 
@@ -352,6 +370,7 @@ class BatchEngine:
             from repro_torch.launch.server.tracing import TraceRecorder
             trace = TraceRecorder(capacity=1, enabled=False)
         self.trace = trace
+        self._clock = None  # the device clock, made once tracing is on
         self._slice_axes: Optional[tuple] = None
 
         self.cache = self._shard_cache_tree(model.init_cache(
@@ -426,6 +445,21 @@ class BatchEngine:
         self._trace = rec
         if self.prefix_store is not None:
             self.prefix_store.trace = rec
+
+    def _marks(self):
+        """The engine's ``DeviceClock`` while the recorder is on (made at
+        first use), else None."""
+        if not self._trace.enabled:
+            return None
+        if self._clock is None:
+            from repro_torch.launch.server.tracing import DeviceClock
+            self._clock = DeviceClock(self.device)
+        return self._clock
+
+    def _resolve(self) -> None:
+        """Called after a readback: record the device spans that ended."""
+        if self._clock is not None and self._clock.pending:
+            self._clock.resolve(self._trace)
 
     def _check_spec(self, spec_k: int) -> None:
         """The reference's validation (``batch_engine.py:214-230``)."""
@@ -850,11 +884,12 @@ class BatchEngine:
                ) -> Optional[Completion]:
         """Prefill alone, copy into ``slot``, draw the first token.
         ``plan`` is the paged (shared_pages, n_new) admission plan."""
-        tr = self._trace
+        tr, clock = self._trace, self._marks()
         tr.req_mark(req.rid, "submit")  # direct-admission callers
         tr.req_mark(req.rid, "admit")
         plen = int(np.asarray(req.prompt).shape[-1])
         t0p = time.perf_counter()
+        start = clock.mark() if clock is not None else None
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
         row = self._shard_cache_tree(self.model.init_cache(
@@ -862,9 +897,11 @@ class BatchEngine:
         logits, row = self.model.prefill(self.params, prompt, row)
         tok0 = self._draw_tok0(req, logits)
         self._insert_row(req, slot, row, tok0, plen, plan)
+        if clock is not None:
+            clock.push("prefill.device", start, clock.mark(),
+                       charge=(req.rid,), rid=req.rid, tokens=plen)
         tr.span_at("engine.prefill", t0p, cat="prefill", rid=req.rid,
                    tokens=plen)
-        tr.req_add(req.rid, "prefill_s", time.perf_counter() - t0p)
         return self._post_insert(req, slot, tok0)
 
     def _draw_tok0(self, req: Request, logits) -> torch.Tensor:
@@ -918,6 +955,7 @@ class BatchEngine:
         """The bookkeeping monolithic and chunked admission share, once
         the row is in its slot and ``tok0`` is drawn."""
         t0 = int(tok0[0, 0])
+        self._resolve()
         self._slot_req[slot] = req
         self._trace.req_mark(req.rid, "first_token")
         if self.spec_k is not None:
@@ -1024,7 +1062,7 @@ class BatchEngine:
 
     def _admit_packed_locked(self, reqs: list[Request],
                              slots: list[int]) -> None:
-        k, tr = len(reqs), self._trace
+        k, tr, clock = len(reqs), self._trace, self._marks()
         for req in reqs:
             tr.req_mark(req.rid, "submit")  # direct callers (no submit())
             tr.req_mark(req.rid, "admit")
@@ -1033,15 +1071,17 @@ class BatchEngine:
             device=self.device)
         L = int(prompts.shape[-1])
         t0p = time.perf_counter()
+        start = clock.mark() if clock is not None else None
         staged = self._shard_cache_tree(self.model.init_cache(
             k, self.s_max, policy=self.policy, rots=self._rots, ragged=True))
         logits, staged = self.model.prefill(self.params, prompts, staged)
-        tr.span_at("prefill.packed", t0p, cat="prefill", rows=k, tokens=L,
-                   rids=[r.rid for r in reqs])
-        dt = time.perf_counter() - t0p
-        for req in reqs:
+        rids = [r.rid for r in reqs]
+        if clock is not None:
             # the group shares one prefill: each request waited on all of it
-            tr.req_add(req.rid, "prefill_s", dt)
+            clock.push("prefill.device", start, clock.mark(), charge=rids,
+                       rids=rids, rows=k, tokens=L)
+        tr.span_at("prefill.packed", t0p, cat="prefill", rows=k, tokens=L,
+                   rids=rids)
         events: list[tuple[int, list[int]]] = []
         completions: list[Completion] = []
         round_start = self._admit_seq if self.paged else 0
@@ -1250,7 +1290,7 @@ class BatchEngine:
         when none is; a finished one is inserted and, budget left, the
         next one begins in the same quantum.  Reused tokens cost no
         budget.  One admission is in flight at a time (FIFO)."""
-        spent = 0
+        spent, clock = 0, self._marks()
         while True:
             if self._pending is None:
                 free = [s for s in range(self.capacity)
@@ -1264,6 +1304,7 @@ class BatchEngine:
                     spent == 0 or spent < self.prefill_budget):
                 C = min(self.prefill_chunk, pend.n_total - pend.n_done)
                 t0c = time.perf_counter()
+                start = clock.mark() if clock is not None else None
                 toks = torch.as_tensor(
                     prompt[None, pend.n_done:pend.n_done + C],
                     device=self.device)
@@ -1273,11 +1314,13 @@ class BatchEngine:
                 pend.n_done += C
                 spent += C
                 self.n_prefill_chunks += 1
+                if clock is not None:
+                    clock.push("prefill.device", start, clock.mark(),
+                               charge=(pend.req.rid,), rid=pend.req.rid,
+                               tokens=C, done=pend.n_done)
                 self._trace.span_at("prefill.chunk", t0c, cat="prefill",
                                     rid=pend.req.rid, tokens=C,
                                     done=pend.n_done, total=pend.n_total)
-                self._trace.req_add(pend.req.rid, "prefill_s",
-                                    time.perf_counter() - t0c)
             if pend.n_done < pend.n_total:
                 return  # budget spent: decode now
             if not self._finalize_pending(round_start, events, completions):
@@ -1430,29 +1473,44 @@ class BatchEngine:
         readback ends the chunk.  Returns host (tokens (cap, n), valid
         (cap, n), budget (cap,), still-active (cap,)), n = n_steps, or
         n_steps x spec_k with the pass counters added to ``n_drafted`` /
-        ``n_accepted``."""
-        self._active.copy_(torch.from_numpy(self.active))
-        self._budget.copy_(torch.from_numpy(self.budget))
+        ``n_accepted``.  Traced: the ``decode.device`` span runs from just
+        before the masks' copies to the last device write, before the
+        readback."""
+        tr, clock = self._trace, self._marks()
+        with tr.span("decode.upload", cat="host"):
+            active = torch.from_numpy(self.active)
+            budget = torch.from_numpy(self.budget)
+            # the start event right before the first copy, so that little
+            # host time lies between it and the chunk's first device work
+            start = clock.mark() if clock is not None else None
+            self._active.copy_(active)
+            self._budget.copy_(budget)
         step = self._stepper()
         k = self.spec_k
-        if k is None:
-            for i in range(n_steps):
-                self._valid[:, i].copy_(self._active)
-                step()
-                self._toks[:, i].copy_(self.tok[:, 0])
-            n, extra = n_steps, []
-        else:
-            self._spec_counts.zero_()
-            for i in range(n_steps):
-                g, valid = step()
-                self._toks[:, i * k:(i + 1) * k].copy_(g)
-                self._valid[:, i * k:(i + 1) * k].copy_(valid)
-            n = n_steps * k
-            extra = [self._spec_counts[None, :].expand(self.capacity, 2)]
-        host = torch.cat([self._toks[:, :n], self._valid[:, :n].long(),
-                          self._budget[:, None].long(),
-                          self._active[:, None].long(), *extra],
-                         1).cpu().numpy()
+        with tr.span("decode.enqueue", cat="host"):
+            if k is None:
+                for i in range(n_steps):
+                    self._valid[:, i].copy_(self._active)
+                    step()
+                    self._toks[:, i].copy_(self.tok[:, 0])
+                n, extra = n_steps, []
+            else:
+                self._spec_counts.zero_()
+                for i in range(n_steps):
+                    g, valid = step()
+                    self._toks[:, i * k:(i + 1) * k].copy_(g)
+                    self._valid[:, i * k:(i + 1) * k].copy_(valid)
+                n = n_steps * k
+                extra = [self._spec_counts[None, :].expand(self.capacity, 2)]
+        with tr.span("decode.readback", cat="host"):
+            host = torch.cat([self._toks[:, :n], self._valid[:, :n].long(),
+                              self._budget[:, None].long(),
+                              self._active[:, None].long(), *extra], 1)
+            if clock is not None:
+                clock.push("decode.device", start, clock.mark(), gap=True,
+                           steps=n_steps)
+            host = host.cpu().numpy()
+        self._resolve()
         if k is not None:
             self.n_drafted += int(host[0, 2 * n + 2])
             self.n_accepted += int(host[0, 2 * n + 3])
@@ -1477,10 +1535,12 @@ class BatchEngine:
         events: list[tuple[int, list[int]]] = []
         completions: list[Completion] = []
         round_start = self._admit_seq if self.paged else 0
-        if self.prefill_chunk is not None:
-            self._admit_chunked(round_start, events, completions)
-        else:
-            self._admit_monolithic(round_start, events, completions)
+        tr = self._trace
+        with tr.span("step.admit", cat="host"):
+            if self.prefill_chunk is not None:
+                self._admit_chunked(round_start, events, completions)
+            else:
+                self._admit_monolithic(round_start, events, completions)
         if not self.active.any():  # admission retires were reset in-loop
             return events, completions
 
@@ -1491,28 +1551,29 @@ class BatchEngine:
         drafted, accepted = (self.n_drafted, self.n_accepted) \
             if self.spec_k is not None else (0, 0)
         toks, valid, budget, still_active = self._decode_chunk(n_steps)
-        self._trace.span_at("decode.chunk", t0d, cat="decode", steps=n_steps,
-                            rows=n_live, spec=self.spec_k is not None)
+        tr.span_at("decode.chunk", t0d, cat="decode", steps=n_steps,
+                   rows=n_live, spec=self.spec_k is not None)
         if self.spec_k is not None:
             nd, na = self.n_drafted - drafted, self.n_accepted - accepted
-            self._trace.instant("spec.verify", cat="spec", drafted=nd,
-                                accepted=na, rejected=nd - na)
-        self.budget = budget.copy()
-        newly_retired = np.zeros((self.capacity,), bool)
-        for slot in range(self.capacity):
-            req = self._slot_req[slot]
-            if req is None or not self.active[slot]:
-                continue
-            new = [int(t) for t, ok in zip(toks[slot], valid[slot]) if ok]
-            self._slot_toks[slot].extend(new)
-            events.append((req.rid, new))
-            if not still_active[slot]:
-                completions.append(self._retire(slot))
-                newly_retired[slot] = True
-        self.active = still_active.copy()
-        if newly_retired.any():  # lengths back to zero, pages released
-            self._release_slots(np.nonzero(newly_retired)[0])
-            self._reset(newly_retired)
+            tr.instant("spec.verify", cat="spec", drafted=nd, accepted=na,
+                       rejected=nd - na)
+        with tr.span("step.scatter", cat="host"):
+            self.budget = budget.copy()
+            newly_retired = np.zeros((self.capacity,), bool)
+            for slot in range(self.capacity):
+                req = self._slot_req[slot]
+                if req is None or not self.active[slot]:
+                    continue
+                new = [int(t) for t, ok in zip(toks[slot], valid[slot]) if ok]
+                self._slot_toks[slot].extend(new)
+                events.append((req.rid, new))
+                if not still_active[slot]:
+                    completions.append(self._retire(slot))
+                    newly_retired[slot] = True
+            self.active = still_active.copy()
+            if newly_retired.any():  # lengths back to zero, pages released
+                self._release_slots(np.nonzero(newly_retired)[0])
+                self._reset(newly_retired)
         return events, completions
 
     def run(self, requests: Optional[list[Request]] = None

@@ -1,6 +1,7 @@
 """Request-scoped tracing and the engine flight recorder (port of
-``repro/launch/server/tracing.py``; stdlib only, so the port keeps its
-own copy of the reference's code).
+``repro/launch/server/tracing.py``; stdlib only at import, so the port
+keeps its own copy of the reference's code, and the device clock below
+imports torch only for a CUDA device).
 
 A ``TraceRecorder`` is a bounded ring buffer of timing events that is
 cheap enough to leave enabled in production: the hot path is one
@@ -39,6 +40,35 @@ object (loads directly in https://ui.perfetto.dev or
 recent window — that is the SIGUSR1 "flight recorder" dump: when a
 production stall is noticed after the fact, the last N seconds are
 still in the ring.
+
+Device clock (the port's own; the reference has no counterpart).
+Host spans time what the host does, and a span that ends when its
+launches return times the enqueue, not the work.  :class:`DeviceClock`
+gives an enabled recorder spans of category ``device`` on the device's
+own clock: a *mark* records a CUDA timing event on the current stream
+(taken from a small preallocated pool and reused), a span of two marks
+waits in a queue, and :meth:`DeviceClock.resolve` turns every queued
+span whose end event has completed into a complete event with its
+``dev_ms``.  The caller resolves only after a readback it makes anyway,
+and ``Event.query`` / ``elapsed_time`` on completed events block on
+nothing, so tracing adds no device sync.  Device spans sit on their own
+track (``tid`` :data:`DEVICE_TID`, named ``device``): ``dur`` is device
+time, and ``ts`` is the host time at which the start event was
+recorded, moved past the end of the track's previous span (the stream
+runs them in order), a lower bound on when the device began.  On a CPU
+device the marks read :func:`time.perf_counter` and ``dev_ms`` is the
+host time between them.
+
+Profiler clock.  ``torch.profiler`` stamps its events in Unix-epoch
+nanoseconds, while every span here is on the ``perf_counter`` clock
+(CLOCK_MONOTONIC).  :meth:`TraceRecorder.profiler_offset_ns` is the
+difference of the two clocks now, read from the tightest of a few paired
+reads (microseconds); ``round(t * 1e9) + offset`` places a span's
+``perf_counter`` time ``t`` on a profiler trace's timeline, so an idle
+gap of the device trace can be set against the engine's spans open
+across it.  Nothing is added to a profiled run: mirroring the spans as
+``record_function`` ranges would add device-side annotation events
+that a reader of the trace could take for device work.
 """
 from __future__ import annotations
 
@@ -48,9 +78,10 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-__all__ = ["TraceRecorder"]
+__all__ = ["TraceRecorder", "DeviceClock", "DEVICE_TID"]
 
 _PID = 1  # single process; the pid field is just a constant track group
+DEVICE_TID = 0  # the device clock's track (no thread has ident 0)
 
 
 class _NullSpan:
@@ -119,9 +150,9 @@ class TraceRecorder:
     # ---------------------------------------------------------- hot path
 
     def _append(self, ts: float, dur: float, ph: str, name: str, cat: str,
-                args: Optional[dict]) -> None:
-        self._buf.append((ts, dur, threading.get_ident(), ph, name, cat,
-                          args))
+                args: Optional[dict], tid: Optional[int] = None) -> None:
+        self._buf.append((ts, dur, threading.get_ident() if tid is None
+                          else tid, ph, name, cat, args))
         self._recorded += 1
 
     def span(self, name: str, cat: str = "server", **args):
@@ -142,6 +173,28 @@ class TraceRecorder:
         if not self.enabled:
             return
         self._append(time.perf_counter(), 0.0, "i", name, cat, args or None)
+
+    def device_span(self, name: str, t0: float, dur: float, **args) -> None:
+        """Record a complete event of category ``device`` on the device
+        track: ``dur`` seconds of device time placed at ``t0``
+        (perf_counter; see :class:`DeviceClock`)."""
+        if not self.enabled:
+            return
+        self._append(t0, dur, "X", name, "device", args or None,
+                     tid=DEVICE_TID)
+
+    @staticmethod
+    def profiler_offset_ns() -> int:
+        """Unix-epoch ns (``torch.profiler``'s clock) less perf_counter ns,
+        now, from the tightest of five paired reads."""
+        best = None
+        for _ in range(5):
+            a = time.perf_counter_ns()
+            wall = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, wall - (a + b) // 2)
+        return best[1]
 
     # ------------------------------------------------ request lifecycle
 
@@ -233,8 +286,10 @@ class TraceRecorder:
             self._recorded = 0
 
     def _thread_names(self) -> Dict[int, str]:
-        return {t.ident: t.name for t in threading.enumerate()
-                if t.ident is not None}
+        names = {t.ident: t.name for t in threading.enumerate()
+                 if t.ident is not None}
+        names[DEVICE_TID] = "device"
+        return names
 
     def export(self, *, last_s: Optional[float] = None) -> dict:
         """Snapshot the ring as a Chrome trace-event JSON object.
@@ -295,3 +350,84 @@ class TraceRecorder:
         with open(path, "w") as f:
             json.dump(obj, f)
         return len(obj["traceEvents"])
+
+
+class DeviceClock:
+    """Spans on the device's clock for one engine (see the module
+    docstring): ``mark()`` a point on the stream, ``push`` a span of two
+    marks, ``resolve(rec)`` after a readback.
+
+    A span pushed with ``gap=True`` also gets ``gap_ms``, the device time
+    from the end of the previous such span to its own start (absent on
+    the first).  ``charge`` names request ids whose ``prefill_s`` the
+    span's device time is added to (``TraceRecorder.req_add``).  The pool
+    holds 16 events to begin with; an empty pool makes another, which
+    then stays in it."""
+
+    def __init__(self, device):
+        self.device = device
+        self._events = None
+        self._free: list = []
+        if device.type == "cuda":
+            import torch
+
+            self._events = torch.cuda
+            self._free = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(16)]
+        self._queue: deque = deque()
+        self._last_gap = None  # the end mark of the last gap=True span
+        self._cursor = 0.0  # where the device track's last span ends
+
+    def mark(self) -> tuple:
+        """(host perf_counter time, the event recorded, or None on a CPU
+        device)."""
+        t = time.perf_counter()
+        if self._events is None:
+            return t, None
+        ev = self._free.pop() if self._free else \
+            self._events.Event(enable_timing=True)
+        ev.record(self._events.current_stream(self.device))
+        return t, ev
+
+    def push(self, name: str, start: tuple, end: tuple, *,
+             gap: bool = False, charge=(), **args) -> None:
+        self._queue.append((name, start, end, gap, charge, args))
+
+    @staticmethod
+    def _ms(a: tuple, b: tuple) -> float:
+        if a[1] is None:
+            return (b[0] - a[0]) * 1e3
+        return a[1].elapsed_time(b[1])
+
+    def _release(self, m: tuple) -> None:
+        if m[1] is not None:
+            self._free.append(m[1])
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def resolve(self, rec: TraceRecorder) -> None:
+        """Record, in order, every queued span whose end event has
+        completed (``Event.query``, which does not block); the rest wait
+        for the next readback."""
+        while self._queue:
+            name, start, end, gap, charge, args = self._queue[0]
+            if end[1] is not None and not end[1].query():
+                return
+            self._queue.popleft()
+            dev_ms = self._ms(start, end)
+            args = dict(args, dev_ms=dev_ms)
+            if gap:
+                if self._last_gap is not None:
+                    args["gap_ms"] = self._ms(self._last_gap, start)
+                    self._release(self._last_gap)
+                self._last_gap = end
+            else:
+                self._release(end)
+            self._release(start)
+            t0 = max(start[0], self._cursor)
+            self._cursor = t0 + dev_ms / 1e3
+            rec.device_span(name, t0, dev_ms / 1e3, **args)
+            for rid in charge:
+                rec.req_add(rid, "prefill_s", dev_ms / 1e3)

@@ -1073,3 +1073,75 @@ def test_split_k_spec_graph_equals_eager_and_plain_on_card(dev, policy,
         pol.update(seq, kk, vv)
         assert torch.equal(got[:, :, i:i + 1], pol.attend(
             q[:, :, i:i + 1], seq, backend="gather")), i
+
+
+@pytest.mark.parametrize("prefill_chunk", [None, 16])
+def test_tracing_adds_no_sync_and_reads_the_device_clock(smol_card,
+                                                         prefill_chunk):
+    """Paged int4 KERNEL ``BatchEngine`` on its decode graph, monolithic
+    and chunked admission, the same requests traced and untraced: the
+    streams are equal, the synchronising calls counted under
+    ``set_sync_debug_mode("warn")`` are as many (the device spans resolve
+    after the engine's own readbacks), every device span has a positive
+    ``dev_ms`` (a decode chunk's inside its host span, ``gap_ms`` after
+    the first), each request's ``prefill_s`` is the device time of its
+    prefills, and the event pool did not grow."""
+    import warnings
+
+    from repro_torch.launch.batch_engine import BatchEngine
+    from repro_torch.launch.server import TraceRecorder, make_requests
+
+    model, params = smol_card
+    reqs = make_requests(5, prompt_len=64, new_tokens=12, align=16,
+                         run_len=2)
+
+    def run(rec):
+        eng = BatchEngine(model, params, capacity=3, s_max=96,
+                          policy="int4-srft", backend="kernel", chunk=4,
+                          paged=True, page_size=16,
+                          prefill_chunk=prefill_chunk, trace=rec)
+        streams = {r.rid: [] for r in reqs}
+        eng.submit(reqs[0])
+        while eng._step_graph is None:  # the capture, outside the count
+            for rid, toks in eng.step()[0]:
+                streams[rid] += toks
+        for r in reqs[1:]:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                while eng.has_work:
+                    for rid, toks in eng.step()[0]:
+                        streams[rid] += toks
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        return streams, syncs, eng
+
+    run(TraceRecorder(enabled=False))  # first uses of shapes sync once
+    rec = TraceRecorder()
+    on, syncs_on, eng = run(rec)
+    off, syncs_off, _ = run(TraceRecorder(enabled=False))
+    assert on == off
+    assert syncs_on == syncs_off > 0
+    spans = [e for e in rec.export()["traceEvents"] if e["ph"] == "X"]
+    chunks = [e for e in spans if e["name"] == "decode.chunk"]
+    dev = [e for e in spans if e["name"] == "decode.device"]
+    assert len(dev) == len(chunks) > 2
+    for d, c in zip(dev, chunks):
+        assert 0 < d["args"]["dev_ms"] < c["dur"] / 1e3
+    assert all(d["args"]["gap_ms"] > 0 for d in dev[1:])
+    hosts = [e for e in spans if e["name"] in ("engine.prefill",
+                                               "prefill.chunk")]
+    pre = [e for e in spans if e["name"] == "prefill.device"]
+    assert len(pre) == len(hosts) >= len(reqs)
+    charged = {r.rid: 0.0 for r in reqs}
+    for p in pre:
+        assert p["args"]["dev_ms"] > 0
+        charged[p["args"]["rid"]] += p["args"]["dev_ms"] / 1e3
+    for r in reqs:
+        assert rec.req_timing(r.rid)["prefill_s"] == pytest.approx(
+            charged[r.rid], abs=2e-6)
+    assert eng._clock.pending == 0 and len(eng._clock._free) == 15

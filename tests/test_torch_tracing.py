@@ -40,6 +40,10 @@ from repro_torch.launch.server import (  # noqa: E402
     TraceRecorder,
     make_requests,
 )
+from repro_torch.launch.server.tracing import (  # noqa: E402
+    DEVICE_TID,
+    DeviceClock,
+)
 from repro_torch.launch.server.pipeline import drain_stream  # noqa: E402
 from repro_torch.launch.server.stats import (  # noqa: E402
     ServerMetrics,
@@ -198,10 +202,36 @@ def test_req_timing_first_mark_wins_and_registry_bound():
 # --------------------------------------------------------------------------
 # the engine's span and instant sites against the reference engine's
 # --------------------------------------------------------------------------
+PORT_ONLY = ("host", "device")  # the port's own span categories
+
+
 def _engine_events(rec) -> list:
-    """The engine-side events in order: names, phases and arguments."""
+    """The engine-side events in order: names, phases and arguments, less
+    the port's own ``host`` and ``device`` spans, which the reference does
+    not record."""
     return [(e["name"], e["ph"], e.get("cat"), e.get("args"))
-            for e in _masked(rec.export())]
+            for e in _masked(rec.export()) if e.get("cat") not in PORT_ONLY]
+
+
+REF_KW = dict(capacity=2, s_max=S_MAX, policy="bf16", paged=True,
+              page_size=PS, prefill_chunk=16, offload_bytes=1 << 20)
+
+
+def _reference_workload(eng, cls, rec):
+    """The workload both engines run for the comparison: three waves of
+    requests over a host tier, then ``cancel_all``.  Returns ``rec``."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 256, 33).astype(np.int32)
+    b = rng.integers(0, 256, 20).astype(np.int32)
+    waves = [[(0, a, 3)], [(1, a, 5), (2, a, 3)], [(3, b, 9), (4, a, 9)]]
+    eng.trace = rec
+    for i, wave in enumerate(waves):
+        for rid, p, n in wave:
+            eng.submit(cls(rid=rid, prompt=p, max_new_tokens=n))
+        while eng.has_work and (i < 2 or eng.n_active < 2):
+            eng.step()
+    eng.cancel_all()
+    return rec
 
 
 def test_engine_records_the_reference_events(lm):
@@ -212,29 +242,14 @@ def test_engine_records_the_reference_events(lm):
     submit and request marks, prefix miss / restore / adopt, prefill
     chunks, the spill, decode chunks, steps, retirements."""
     jm, jp, model, params = lm
-    kw = dict(capacity=2, s_max=S_MAX, policy="bf16", paged=True,
-              page_size=PS, prefill_chunk=16, offload_bytes=1 << 20)
-    rng = np.random.default_rng(4)
-    a = rng.integers(0, 256, 33).astype(np.int32)
-    b = rng.integers(0, 256, 20).astype(np.int32)
-    waves = [[(0, a, 3)], [(1, a, 5), (2, a, 3)], [(3, b, 9), (4, a, 9)]]
-
-    def run(eng, cls, rec):
-        eng.trace = rec
-        for i, wave in enumerate(waves):
-            for rid, p, n in wave:
-                eng.submit(cls(rid=rid, prompt=p, max_new_tokens=n))
-            while eng.has_work and (i < 2 or eng.n_active < 2):
-                eng.step()
-        eng.cancel_all()
-        return _engine_events(rec)
-
-    want = run(JBatchEngine(jm, jp, backend="gather", chunk=CHUNK,
-                            key=jax.random.PRNGKey(7), **kw), JRequest,
-               JTraceRecorder(capacity=4096))
-    got = run(BatchEngine(model, params, backend="gather", chunk=CHUNK,
-                          device="cpu", **kw), Request,
-              TraceRecorder(capacity=4096))
+    want = _engine_events(_reference_workload(
+        JBatchEngine(jm, jp, backend="gather", chunk=CHUNK,
+                     key=jax.random.PRNGKey(7), **REF_KW), JRequest,
+        JTraceRecorder(capacity=4096)))
+    got = _engine_events(_reference_workload(
+        BatchEngine(model, params, backend="gather", chunk=CHUNK,
+                    device="cpu", **REF_KW), Request,
+        TraceRecorder(capacity=4096)))
     assert got == want
     names = {n for n, *_ in got}
     for need in ("prefix.miss", "prefix.restore", "prefix.adopt",
@@ -275,6 +290,286 @@ def test_engine_records_packed_preempt_and_spec_sites(lm):
             if e["name"] == "spec.verify"]
     assert sum(s["drafted"] for s in spec) == eng.n_drafted > 0
     assert sum(s["rejected"] for s in spec) == eng.n_rejected
+
+
+# --------------------------------------------------------------------------
+# the port's own spans: the host's turn between chunks and the device clock
+# --------------------------------------------------------------------------
+CHUNK_PARTS = ("decode.upload", "decode.enqueue", "decode.readback")
+STEP_PARTS = ("step.admit", "step.scatter")
+
+
+def _spans(rec) -> list:
+    return [e for e in rec.export()["traceEvents"] if e["ph"] == "X"]
+
+
+def _inside(inner, outer) -> bool:
+    return (outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"]
+            <= outer["ts"] + outer["dur"])
+
+
+def _check_host_spans(rec) -> None:
+    """Every engine.step holds one step.admit, and, when it decoded, one
+    decode.chunk and one step.scatter; every decode.chunk holds one of
+    each of its parts; no host span lies outside an engine.step."""
+    spans = _spans(rec)
+    by = {n: [e for e in spans if e["name"] == n]
+          for n in ("engine.step", "decode.chunk", *CHUNK_PARTS,
+                    *STEP_PARTS)}
+    assert by["engine.step"] and by["decode.chunk"]
+    for st in by["engine.step"]:
+        inner = {n: [e for e in by[n] if _inside(e, st)] for n in by
+                 if n != "engine.step"}
+        assert len(inner["step.admit"]) == 1
+        n_chunks = len(inner["decode.chunk"])
+        assert n_chunks <= 1 and len(inner["step.scatter"]) == n_chunks
+        assert all(len(inner[n]) == n_chunks for n in CHUNK_PARTS)
+    for ch in by["decode.chunk"]:
+        parts = [[e for e in by[n] if _inside(e, ch)] for n in CHUNK_PARTS]
+        assert [len(p) for p in parts] == [1, 1, 1]
+        # upload, enqueue and readback follow each other in that order
+        assert parts[0][0]["ts"] <= parts[1][0]["ts"] <= parts[2][0]["ts"]
+    for n in (*CHUNK_PARTS, *STEP_PARTS):
+        assert len(by[n]) == sum(1 for e in by[n] if any(
+            _inside(e, st) for st in by["engine.step"]))
+        assert all(e["cat"] == "host" for e in by[n])
+    assert len(by["decode.upload"]) == len(by["decode.chunk"])
+    assert len(by["step.admit"]) == len(by["engine.step"])
+    # inside a step, prefills are admission's and retirements admission's
+    # or the scatter's
+    evs = rec.export()["traceEvents"]
+    for e in evs:
+        if e["name"] not in ("req.retire", "engine.prefill",
+                             "prefill.chunk"):
+            continue
+        e = dict(e, dur=e.get("dur", 0))
+        if any(_inside(e, st) for st in by["engine.step"]):
+            assert any(_inside(e, h) for h in by["step.admit"]
+                       + by["step.scatter"] * (e["name"] == "req.retire")
+                       ), e["name"]
+    assert not check_trace(rec.export())
+
+
+def test_engine_records_the_port_only_events(lm):
+    """The reference comparison's workload, port alone: the events the
+    comparison leaves out (categories ``host`` and ``device``) are there,
+    the host spans nest in the reference's spans once per chunk and step,
+    and each prefill chunk and decode chunk has its device span."""
+    _, _, model, params = lm
+    rec = _reference_workload(
+        BatchEngine(model, params, backend="gather", chunk=CHUNK,
+                    device="cpu", **REF_KW), Request,
+        TraceRecorder(capacity=4096))
+    _check_host_spans(rec)
+    spans = _spans(rec)
+    count = {n: sum(1 for e in spans if e["name"] == n)
+             for n in ("decode.chunk", "decode.device", "prefill.chunk",
+                       "prefill.device")}
+    assert count["decode.device"] == count["decode.chunk"] > 0
+    assert count["prefill.device"] == count["prefill.chunk"] > 0
+    ports = [e for e in spans if e["cat"] in PORT_ONLY]
+    assert {e["cat"] for e in ports} == set(PORT_ONLY)
+    dev = [e for e in spans if e["cat"] == "device"]
+    assert {e["tid"] for e in dev} == {DEVICE_TID}
+    assert {e["name"] for e in dev} == {"decode.device", "prefill.device"}
+
+
+def _by_mode(model, params, mode, rec):
+    """Three requests through one admission mode; returns the engine."""
+    kw = dict(prefill_chunk=16) if mode == "chunked" else {}
+    eng = _mk_engine(model, params, policy="int4-srft", paged=True,
+                     trace=rec, **kw)
+    reqs = _requests(model, 3, policy="int4-srft", new_tokens=6)
+    if mode == "packed":
+        eng.admit_packed(reqs[:2])
+        # resolved at the first token's readback, before any decode chunk
+        assert [e["args"]["rids"] for e in _spans(rec)
+                if e["name"] == "prefill.device"] == [[r.rid
+                                                       for r in reqs[:2]]]
+        reqs = reqs[2:]
+    list(eng.run(reqs))
+    return eng, [r.rid for r in _requests(model, 3, policy="int4-srft")]
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "packed", "chunked"])
+def test_device_spans_through_the_cpu_fallback(lm, mode):
+    """On the CPU a device span's ``dev_ms`` is the host time between its
+    marks, so it lies inside the host span it belongs to; every decode
+    chunk has a ``decode.device`` with ``gap_ms`` after the first, every
+    admission prefill (each chunk of a chunked one) a ``prefill.device``,
+    and a request's ``prefill_s`` is the device time of its prefills."""
+    _, _, model, params = lm
+    rec = TraceRecorder(capacity=1 << 14)
+    eng, rids = _by_mode(model, params, mode, rec)
+    _check_host_spans(rec)
+    spans = _spans(rec)
+    chunks = [e for e in spans if e["name"] == "decode.chunk"]
+    dev = [e for e in spans if e["name"] == "decode.device"]
+    assert len(dev) == len(chunks) > 1
+    assert [d["args"]["steps"] for d in dev] == [
+        c["args"]["steps"] for c in chunks]
+    assert "gap_ms" not in dev[0]["args"]
+    for d, c in zip(dev, chunks):
+        assert 0 <= d["args"]["dev_ms"] <= c["dur"] / 1e3
+        assert d["dur"] == pytest.approx(d["args"]["dev_ms"] * 1e3, abs=1e-2)
+    assert all(d["args"]["gap_ms"] >= 0 for d in dev[1:])
+    host = {"monolithic": "engine.prefill", "packed": "prefill.packed",
+            "chunked": "prefill.chunk"}[mode]
+    hosts = [e for e in spans if e["name"] in ("engine.prefill",
+                                               "prefill.packed",
+                                               "prefill.chunk")]
+    pre = [e for e in spans if e["name"] == "prefill.device"]
+    assert host in {e["name"] for e in hosts}
+    assert len(pre) == len(hosts)
+    charged = {rid: 0.0 for rid in rids}
+    for p, h in zip(pre, sorted(hosts, key=lambda e: e["ts"])):
+        a = p["args"]
+        assert 0 <= a["dev_ms"] <= h["dur"] / 1e3 + 1e-9
+        assert a["tokens"] == h["args"]["tokens"]
+        for rid in a.get("rids", [a.get("rid")]):
+            charged[rid] += a["dev_ms"] / 1e3
+    if mode == "packed":
+        assert [p["args"].get("rids") for p in pre][0] == rids[:2]
+    for rid in rids:
+        assert rec.req_timing(rid, pop=False)["prefill_s"] == pytest.approx(
+            charged[rid], abs=2e-6)
+    # the device track is one stream: its spans follow each other
+    track = sorted((e for e in spans if e["cat"] == "device"),
+                   key=lambda e: e["ts"])
+    assert all(a["ts"] + a["dur"] <= b["ts"] + 1e-3
+               for a, b in zip(track, track[1:]))
+    assert eng._clock.pending == 0
+
+
+def test_spans_land_on_the_profiler_clock(lm):
+    """Under ``torch.profiler``, with the harness's ``engine.step`` range
+    around each step: the engine's spans, moved onto the profiler's clock
+    by ``profiler_offset_ns``, lie inside that range, and the engine opens
+    no ``record_function`` of its own, with or without a profiler (so a
+    device trace has no mirror of a program span to count as work)."""
+    _, _, model, params = lm
+    calls = []
+
+    class Counting(torch.profiler.record_function):
+        def __init__(self, name, *a, **k):
+            calls.append(name)
+            super().__init__(name, *a, **k)
+
+    rec = TraceRecorder(capacity=4096)
+    eng = _mk_engine(model, params, policy="int4-srft", paged=True,
+                     trace=rec)
+    for r in _requests(model, 2, policy="int4-srft", new_tokens=13):
+        eng.submit(r)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch.profiler, "record_function", Counting)
+    mp.setattr(torch.autograd.profiler, "record_function", Counting)
+    try:
+        eng.step()
+        assert calls == []
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                with Counting("engine.step"):
+                    eng.step()
+    finally:
+        mp.undo()
+    assert calls == ["engine.step"] * 2
+    off = TraceRecorder.profiler_offset_ns()
+    ranges = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.name() == "engine.step")
+    assert len(ranges) == 2
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    spans = [e for e in _spans(rec) if e["cat"] != "device"]
+    assert not names & {e["name"] for e in spans} - {"engine.step"}
+    steps = [e for e in spans if e["name"] == "engine.step"][1:]
+    assert len(steps) == 2
+    for (a, b), st in zip(ranges, steps):
+        inner = [e for e in spans if _inside(e, st)]
+        assert {"decode.chunk", *CHUNK_PARTS, *STEP_PARTS} <= {
+            e["name"] for e in inner}
+        for e in inner:
+            t0 = round((rec.t0 + e["ts"] / 1e6) * 1e9) + off
+            t1 = t0 + round(e["dur"] * 1e3)
+            assert a <= t0 <= t1 <= b, (e["name"], a - t0, b - t1)
+
+
+class _FakeEvent:
+    """A CUDA event's calls on a fake clock: ``record`` stamps the
+    stream's time, ``query`` says whether the stream has reached it."""
+
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        _FakeEvent.made += 1
+        self.at = None
+
+    def record(self, stream):
+        self.at = stream.now
+        stream.records += 1
+
+    def query(self):
+        return self.at <= _FakeCuda.stream.done
+
+    def elapsed_time(self, other):
+        assert self.query() and other.query()
+        return other.at - self.at
+
+
+class _FakeCuda:
+    class stream:
+        now = done = 0.0
+        records = 0
+
+    Event = _FakeEvent
+
+    @staticmethod
+    def current_stream(device):
+        return _FakeCuda.stream
+
+
+def test_device_clock_pools_events_and_waits_for_completion():
+    """The CUDA branch of ``DeviceClock`` on fake events: a span resolves
+    only once its end event has completed, in order; ``gap_ms`` runs
+    from the previous gap span's end; events come back to the pool, so a
+    steady loop makes none; ``charge`` adds to ``prefill_s``."""
+    clock = DeviceClock(torch.device("cpu"))
+    clock._events = _FakeCuda
+    clock._free = [_FakeEvent(enable_timing=True) for _ in range(6)]
+    made = _FakeEvent.made
+    s = _FakeCuda.stream
+    rec = TraceRecorder(capacity=64)
+    rec.req_mark(7, "submit")
+    for i in range(5):
+        s.now = 10.0 * i
+        start = clock.mark()
+        s.now += 3.0
+        clock.push("decode.device", start, clock.mark(), gap=True, steps=8)
+        if i == 1:
+            s.now += 1.0
+            a = clock.mark()
+            s.now += 2.0
+            clock.push("prefill.device", a, clock.mark(), charge=(7,),
+                       rid=7, tokens=4)
+            s.done = s.now - 1.0  # the prefill has not ended yet
+            clock.resolve(rec)
+            assert clock.pending == 1
+        s.done = s.now
+        clock.resolve(rec)
+        assert clock.pending == 0
+    # the last chunk's end event stays out for the next gap
+    assert _FakeEvent.made == made and len(clock._free) == 5
+    dev = [e["args"] for e in _spans(rec) if e["name"] == "decode.device"]
+    assert [d["dev_ms"] for d in dev] == [3.0] * 5
+    assert [d.get("gap_ms") for d in dev] == [None, 7.0, 7.0, 7.0, 7.0]
+    pre = [e for e in _spans(rec) if e["name"] == "prefill.device"]
+    assert len(pre) == 1 and pre[0]["args"]["dev_ms"] == 2.0
+    assert rec.req_timing(7)["prefill_s"] == pytest.approx(0.002)
+    for _ in range(6):  # one mark more than the pool holds: one more event
+        clock.mark()
+    assert _FakeEvent.made == made + 1
 
 
 # --------------------------------------------------------------------------
