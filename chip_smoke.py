@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
      L2 flushed before each call (B3 at the prefill writes of 32,640 and
      4,096 rows, bf16, and without a matrix at the W-flush's 128 rows and
      the batch ring's 512, fp32, each beside its bound, with cuBLAS's fp32
-     x @ M^T alone at 32,640 rows as context; B2 at page sizes 16 and 48;
+     x @ M^T alone at 32,640 rows as context; B2 at page sizes 16 and 48,
+     and at one layer of the benchmark's long-context cells (512 rows at
+     G 2, 256 at G 5, their length distribution) beside the bound of
+     ``perfbench.costs.b2_step_work``;
      B4 at the shapes of B3's prefill write: 32,640 rows x d 128 int4,
      and at d 64 / 128 / 256, int4 and int8, and at its serving shapes:
      the raw view of a reused 1,024-token prefix, 8,192 rows x d 128
@@ -759,6 +762,9 @@ def kernel_phase(flush):
     b2["page_48"] = {k: b2_48[k] for k in ("max_abs_err", "ms", "graph_ms",
                                            "b1_same_bytes_ms")}
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_48["max_abs_err"])
+    b2["cells"] = check_b2_cells(flush)
+    b2["max_abs_err"] = max([b2["max_abs_err"]]
+                            + [c["max_abs_err"] for c in b2["cells"]])
     out.append(b2)
     b4, b3_rounds = check_b4(flush, g, n, group, b3_call)
     b3["first_ms"], b3["ms"] = b3["ms"], sorted(b3_rounds)[B4_ROUNDS // 2]
@@ -1122,6 +1128,81 @@ def check_b2(flush, g, H, G, d, group, W, ps=PAGE_SIZE, label="B2",
                 bound_by=b_by, library_ms=None, wall_ms=ms_wall,
                 graph_ms=ms_graph, b1_same_bytes_ms=b1_ms, H=H, G=G, d=d,
                 page_size=ps)
+
+
+def check_b2_cells(flush, seed=SEED) -> list[dict]:
+    """B2 at one layer of each long-context cell of the benchmark
+    (``decode_read_parts.cell_inputs``: 64 sessions at G 2 and 32 at G 5,
+    8 KV heads, d 128, group 32, pages of 16, lengths from ``seed``):
+    against its plain version (B1_ATOL), counted as a tensor-core pass 1,
+    and timed by events and as a graph replay beside the bound of
+    ``perfbench.costs.b2_step_work`` at the same lengths."""
+    from perfbench import costs
+    from repro_torch.benchmarks import decode_read_parts as parts
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_attention import ops as qa_ops
+    from repro_torch.kernels.quant_attention import ref as qa_ref
+
+    out = []
+    for cell, arch in (("internlm2-longctx-decode", "internlm2-1.8b"),
+                       ("qwen3-14b-longctx-decode", "qwen3-14b")):
+        args, kw, lengths = parts.cell_inputs(cell, seed)
+        call = lambda: qa_ops.quant_decode_attention_paged(  # noqa: E731
+            *args, **kw)
+        tc = qa_ops.tc_launches
+        got = call()
+        assert qa_ops.tc_launches == tc + 1, f"{cell}: not on the tensor cores"
+        want = qa_ref.quant_decode_attention_paged_ref(
+            *args, group=kw["group"], n_kv_heads=kw["n_kv_heads"])
+        err = (got - want).abs().max().item()
+        assert torch.isfinite(got).all() and err <= B1_ATOL, \
+            f"B2 {cell} err {err}"
+        del want
+        ms = device_ms(call, flush, label=f"B2 {cell}")
+        ms_graph = graph_ms(call, flush)
+        flops, nbytes = costs.b2_step_work(get_config(arch), lengths)
+        b_ms = max(nbytes / costs.PEAK_HBM_BYTES_S,
+                   flops / costs.PEAK_FP32_FLOPS) * 1e3
+        BH, G, _ = args[0].shape
+        log(f"[{CARD}] B2 at a layer of {cell}: {BH} rows, G={G}, lengths "
+            f"{min(lengths)}..{max(lengths)} (mean "
+            f"{sum(lengths) / len(lengths):.0f}): max abs err {err:.3e}; "
+            f"{ms:.4f} ms (graph replay {ms_graph:.4f} ms), bound "
+            f"{b_ms:.4f} ms: {100 * b_ms / ms:.1f}% of it")
+        out.append(dict(cell=cell, rows=BH, G=G, max_abs_err=err, ms=ms,
+                        graph_ms=ms_graph, bound_ms=b_ms,
+                        bound_share=b_ms / ms))
+    return out
+
+
+def pass1_registers(log_text: str) -> list[dict]:
+    """Registers, spill bytes and stack of each tensor-core pass-1
+    instantiation, from ``nvcc``'s ``ptxas -v`` output."""
+    import re
+
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            args = re.search(r"qda_split_kernel_tcINS_\d+(Paged|Dense)"
+                             r"RowsELi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            if args:
+                cur = dict(rows=args.group(1), NW=int(args.group(2)),
+                           NB=int(args.group(3)), PN=args.group(4) == "1")
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 # ------------------------------------------------------------------ model
@@ -6236,6 +6317,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for r in pass1_registers(_build.BUILD_LOG.get("quant_attention", "")):
+        log(f"[{card}] qda_split_kernel_tc<{r['rows']}Rows, NW {r['NW']}, "
+            f"NB {r['NB']}, PN {r['PN']}>: {r.get('registers')} registers, "
+            f"spill {r.get('spill_stores')}/{r.get('spill_loads')} bytes, "
+            f"stack {r.get('stack')}")
 
     t0 = time.perf_counter()
     flush = L2Flush()

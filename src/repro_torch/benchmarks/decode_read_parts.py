@@ -8,7 +8,9 @@ package's ``nvcc`` flags, binds it in place of the package's library, and
 runs the two reads at ``chip_smoke.py``'s shapes -- B1 at batch 1 (8 kv
 heads, G 2, d 128, group 32, 4144 packed tokens of 4608) and B2 over rows
 of 517 / 1031 / 2055 / 4093 / 0 tokens x 8 heads, page size 16, pages
-shuffled -- on random codes from a seed.  Per source and read: device ms
+shuffled -- and B2 at one layer of the benchmark's long-context cells
+(:func:`cell_inputs`: 64 rows at G 2 and 32 at G 5, 8 kv heads each) on
+random codes from a seed.  Per source and read: device ms
 per call by CUDA events (L2 flushed and a spin kernel ahead of each
 call), and each kernel's mean device us per call from ``torch.profiler``
 (pass 1 ``qda_split_kernel``, pass 2 ``qda_combine_kernel``; a mean stays
@@ -19,9 +21,11 @@ One JSON line per source and round.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import hashlib
 import json
+import math
 import subprocess
 
 import torch
@@ -32,6 +36,11 @@ from repro_torch.kernels.srft_quant import ops as sq_ops
 
 SPIN_CYCLES = 2_000_000  # ~1 ms at 1980 MHz: the host queues the call ahead
 ROUNDS = 2
+# one layer of the benchmark's long-context cells: (sessions, query heads
+# per kv head); 8 kv heads, d 128, group 32, pages of 16, s_max 16384
+CELLS = {"internlm2-longctx-decode": (64, 2),
+         "qwen3-14b-longctx-decode": (32, 5)}
+CELL_DECODED = 1024  # tokens each session has decoded past its prompt
 
 
 def build(source: str) -> str:
@@ -86,9 +95,55 @@ def inputs(seed: int = 0) -> dict:
     b2 = (f(BH, G, d) * 0.1, codes(N, ps, d // 2), scales(N, ps, ng),
           codes(N, ps, d // 2), scales(N, ps, ng), f(BH, W, d), f(BH, W, d),
           (L - L % W).int(), L, table.cuda())
-    return {"B1": lambda: ops.quant_decode_attention(*b1, group=group),
-            "B2": lambda: ops.quant_decode_attention_paged(
-                *b2, group=group, page_size=ps, n_kv_heads=H)}
+    calls = {"B1": lambda: ops.quant_decode_attention(*b1, group=group),
+             "B2": lambda: ops.quant_decode_attention_paged(
+                 *b2, group=group, page_size=ps, n_kv_heads=H)}
+    for cell in CELLS:
+        args, kw, _ = cell_inputs(cell, seed)
+        calls[f"B2 {cell}"] = (lambda a=args, k=kw:
+                               ops.quant_decode_attention_paged(*a, **k))
+    return calls
+
+
+def cell_lengths(sessions: int, seed: int) -> list[int]:
+    """The cells' session lengths: their prompts (the quantile midpoints
+    of log-uniform 2048..8192 by 16, in an order drawn from ``seed``) with
+    :data:`CELL_DECODED` tokens decoded."""
+    u = (torch.arange(sessions, dtype=torch.float64) + 0.5) / sessions
+    prompts = (torch.exp(math.log(2048) + u * math.log(4)) / 16).round() * 16
+    order = torch.randperm(sessions, generator=torch.Generator()
+                           .manual_seed(seed))
+    return [int(n) + CELL_DECODED for n in prompts[order]]
+
+
+def cell_inputs(cell: str, seed: int = 0, device: str = "cuda"):
+    """(args, kw, lengths) of one B2 call at a layer of ``cell``
+    (:data:`CELLS`): random pools behind a shuffled page table, every row
+    mapped to s_max, per-row windows; call as
+    ``ops.quant_decode_attention_paged(*args, **kw)``."""
+    sessions, G = CELLS[cell]
+    H, d, group, W, ps, s_max = 8, 128, 32, 16, 16, 16384
+    lengths = cell_lengths(sessions, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    MP = s_max // ps
+    need = [-(-n // ps) for n in lengths]
+    perm = (torch.randperm(sum(need), generator=torch.Generator()
+                           .manual_seed(seed)) + 1).tolist()
+    table = torch.zeros((sessions, MP), dtype=torch.int32)
+    for b, n in enumerate(need):
+        table[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+    N, BH = (sum(need) + 1) * H, sessions * H
+    codes = lambda *sh: torch.randint(0, 256, sh, generator=g,  # noqa
+                                      device=device, dtype=torch.uint8)
+    scales = lambda *sh: torch.rand(sh, generator=g,  # noqa
+                                    device=device) * 0.3
+    f = lambda *sh: torch.randn(sh, generator=g, device=device)  # noqa
+    L = torch.tensor(lengths, dtype=torch.int32,
+                     device=device).repeat_interleave(H)
+    args = (f(BH, G, d) * 0.1, codes(N, ps, d // 2), scales(N, ps, d // group),
+            codes(N, ps, d // 2), scales(N, ps, d // group), f(BH, W, d),
+            f(BH, W, d), (L - L % W).int(), L, table.to(device))
+    return args, dict(group=group, page_size=ps, n_kv_heads=H), lengths
 
 
 def event_ms(fn, flush, iters: int = 30) -> float:
@@ -130,7 +185,8 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_read_parts: needs a CUDA card")
-    libs = [build(s) for s in args.sources]
+    with concurrent.futures.ThreadPoolExecutor() as pool:  # nvcc at once
+        libs = list(pool.map(build, args.sources))
     flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     flush = lambda: torch.bitwise_not(flush_buf, out=flush_buf)  # noqa
     calls, first = inputs(), {}

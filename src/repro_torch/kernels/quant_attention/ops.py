@@ -16,7 +16,9 @@ another token address, and the same combine pass) or raises.  On a
 kernel's shapes and dtypes, computing nothing.  On ``cuda`` and ``meta``
 each call adds its analytic cost to an active cost census
 (``launch/cost.py``).  ``launches`` and ``paged_launches`` count the
-wrapper calls that launched B1 and B2.  ``plan_rows`` sizes the split-K
+wrapper calls that launched B1 and B2, ``tc_launches`` those of either
+whose pass 1 ran on the tensor cores (:func:`tensor_core_pass`, by shape
+alone).  ``plan_rows`` sizes the split-K
 plan for another row count than the call's own: a read split by head
 over shards passes the unsplit read's ``B·Hkv``, so each row is reduced
 in the same order and the shards' outputs equal the unsplit read's bit
@@ -43,12 +45,14 @@ from repro_torch.launch import cost
 
 __all__ = ["quant_decode_attention", "quant_decode_attention_paged",
            "decode_attention_kernel", "decode_attention_kernel_paged",
-           "launches", "paged_launches", "TILE", "MAX_G", "ARGTYPES"]
+           "launches", "paged_launches", "tc_launches", "tensor_core_pass",
+           "TILE", "MAX_G", "ARGTYPES"]
 
 TILE = 64  # tokens per tile in csrc/quant_attention.cu (kTile)
 MAX_G = 16  # query heads per KV head (kMaxG; above 8, two head groups)
 launches = 0  # B1 launches since the caller last set this to 0
 paged_launches = 0  # B2 launches since the caller last set this to 0
+tc_launches = 0  # B1 or B2 launches whose pass 1 took the tensor cores
 _FNS: dict = {}
 _SMS: dict[int, int] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,6 +73,17 @@ def _fn(name: str):
         fn.restype = _I
         _FNS[name] = (lib, fn)
     return _FNS[name]
+
+
+def tensor_core_pass(G: int, d: int, group: int) -> bool:
+    """Whether B1/B2's pass 1 runs on the tensor cores
+    (``qda_split_kernel_tc``) for G query heads a KV head at head dim d and
+    scale group ``group``; the same rule as ``tensor_core_pass`` in
+    csrc/quant_attention.cu.  Its fragments take 32-channel blocks, each in
+    one scale group, and a row of at least two heads; one head (G = 1) or
+    a d or group off a multiple of 32 (zamba2-7b's 112 / 28) keeps the
+    first design's pass 1."""
+    return G >= 2 and d % 32 == 0 and group % 32 == 0
 
 
 def split_plan(rows: int, n_tiles: int, sms: int,
@@ -136,7 +151,7 @@ def _ptr(t):
 
 def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
             plan_rows=None, return_lse=False):
-    global launches
+    global launches, tc_launches
     BH, G, d = q_eff.shape
     S, W = kp.shape[1], kr.shape[1]
     dev = q_eff.device
@@ -170,6 +185,7 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
                     n_splits, tps, stream)
         _build.check(lib, "quant_attention", rc)
         launches += 1
+        tc_launches += tensor_core_pass(G, d, group)
     if cost.ACTIVE:  # per-row lengths are not read back: S tokens a row
         per_row = plen_rows is not None or tlen_rows is not None
         cost.record_kernel("quant_decode_attention", **cost.kernel_cost_b1(
@@ -180,7 +196,7 @@ def _launch(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len, group,
 
 def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
                   page_table, group, page_size, H, plan_rows=None):
-    global paged_launches
+    global paged_launches, tc_launches
     ps = page_size
     BH, G, d = q_eff.shape
     B, MP = page_table.shape
@@ -216,6 +232,7 @@ def _launch_paged(q_eff, kp, ks, vp, vs, kr, vr, packed_len, total_len,
                     BH, H, MP, ps, G, d, group, W, n_splits, tps, stream)
         _build.check(lib, "quant_attention", rc)
         paged_launches += 1
+        tc_launches += tensor_core_pass(G, d, group)
     if cost.ACTIVE:  # the lengths are not read back: every page a row maps
         cost.record_kernel("quant_decode_attention_paged",
                            **cost.kernel_cost_b2(BH, G, d, group, W,

@@ -322,6 +322,48 @@ def test_wrappers_meta_outputs_equal_the_plain_versions_shapes():
                                       87, group=32)
 
 
+# (BH, G, d, group, S) -> (n_splits, tiles_per_split) on an H100's 132
+# SMs: the split plan is the same whichever pass 1 the shape takes
+@pytest.mark.parametrize("shape,plan", [
+    ((512, 2, 128, 32, 16384), (2, 128)),   # internlm2-1.8b's long cell
+    ((256, 5, 128, 32, 16384), (3, 86)),    # qwen3-14b's long cell
+    ((8, 2, 128, 32, 4608), (36, 2)),       # internlm2-1.8b at batch 1
+    ((16, 1, 256, 32, 4096), (32, 2)),      # gemma-7b (first pass 1)
+    ((32, 16, 128, 32, 2048), (16, 2)),     # two head groups
+    ((4, 2, 112, 28, 2064), (33, 1)),       # zamba2-7b (first pass 1)
+])
+def test_meta_calls_plan_and_shape_as_before_on_either_pass_1(shape, plan):
+    BH, G, d, group, S = shape
+    W, ps, H = 16, 16, 4
+    q = torch.empty((BH, G, d), device="meta")
+    kr = torch.empty((BH, W, d), device="meta")
+    n_splits, tps = plan
+    scratch = qa_ops._plan(q, kr, -(-S // qa_ops.TILE), group)
+    assert scratch[3:] == plan
+    assert [tuple(t.shape) for t in scratch[:3]] == [
+        (BH, n_splits, G, 2), (BH, n_splits, G, d), (BH, G, d)]
+    codes = torch.empty((BH, S, d // 2), dtype=torch.uint8, device="meta")
+    scales = torch.empty((BH, S, d // group), device="meta")
+    lens = torch.full((BH,), S, dtype=torch.int32, device="meta")
+    pools = (codes.reshape(-1, ps, d // 2), scales.reshape(-1, ps,
+                                                          d // group))
+    table = torch.empty((BH // H, S // ps), dtype=torch.int32,
+                        device="meta")
+    before = (qa_ops.launches, qa_ops.paged_launches, qa_ops.tc_launches)
+    out, lse = qa_ops.quant_decode_attention(
+        q, codes, scales, codes, scales, kr, kr, lens, lens, group=group,
+        return_lse=True)
+    paged = qa_ops.quant_decode_attention_paged(
+        q, *pools, *pools, kr, kr, lens, lens, table, group=group,
+        page_size=ps, n_kv_heads=H)
+    assert [(tuple(t.shape), t.dtype, t.device.type)
+            for t in (out, lse, paged)] == [
+        ((BH, G, d), torch.float32, "meta"), ((BH, G), torch.float32, "meta"),
+        ((BH, G, d), torch.float32, "meta")]
+    assert before == (qa_ops.launches, qa_ops.paged_launches,
+                      qa_ops.tc_launches)
+
+
 def test_wrappers_record_their_analytic_cost():
     args = tuple(a.to("meta") for a in _b1_args("cpu"))
     x = torch.empty((40, 64), dtype=torch.bfloat16, device="meta")

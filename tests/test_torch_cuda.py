@@ -414,6 +414,10 @@ B2_CASES = [
     ((300, 1000, 17, 0), 8, 6, 128, 32, 16, 1024),
     ((300, 1000, 17), 8, 7, 128, 32, 48, 1056),
     ((512, 2048, 2055, 1024, 0), 4, 16, 128, 32, 16, 2064),
+    # pages that do not hold whole 16-token steps (the tensor-core pass 1
+    # looks each token's row up): 24 and 8 tokens
+    ((0, 23, 100, 300), 2, 2, 128, 32, 24, 312),
+    ((5, 130, 257), 2, 5, 128, 32, 8, 264),
 ]
 
 
@@ -424,8 +428,11 @@ def test_b2_kernel_matches_plain_and_equals_b1(dev, case):
                                        group, ps, s_max)
     kw = dict(group=group, page_size=ps, n_kv_heads=H)
     before = qa_ops.paged_launches
+    before_tc = qa_ops.tc_launches
     got = qa_ops.quant_decode_attention_paged(*args, plen, tlen, table, **kw)
     assert qa_ops.paged_launches == before + 1
+    tc = qa_ops.tensor_core_pass(G, d, group)
+    assert qa_ops.tc_launches == before_tc + tc
     want = qa_ref.quant_decode_attention_paged_ref(
         *args, plen, tlen, table, group=group, n_kv_heads=H)
     torch.cuda.synchronize()
@@ -438,6 +445,83 @@ def test_b2_kernel_matches_plain_and_equals_b1(dev, case):
     dense = qa_ops.quant_decode_attention(q, *rows, kr, vr, plen, tlen,
                                           group=group)
     assert torch.equal(got, dense)
+    assert qa_ops.tc_launches == before_tc + 2 * tc
+
+
+def _pass1_kernels(fn) -> set:
+    """The names of the pass-1 kernels ``fn`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if "qda_split_kernel" in e.key}
+
+
+# one layer of the benchmark's long-context cells (8 KV heads, d 128, group
+# 32, pages of 16) at G 2 (internlm2-1.8b) and G 5 (qwen3-14b): rows of
+# 2,048 to 10,000 tokens whose packed parts end mid-page and mid-tile, and
+# one row shorter than a tile
+@pytest.mark.parametrize("G", [2, 5])
+def test_b2_at_the_long_cells_shapes_takes_the_tensor_cores(dev, G):
+    lengths = (2048, 2061, 4133, 6001, 8190, 10000, 40)
+    H, d, group, ps = 8, 128, 32, 16
+    args, _, tlen, table = _b2_case(dev, 31 + G, lengths, H, G, d, group, ps,
+                                    10016)
+    plen = torch.tensor((2040, 2053, 4130, 5993, 8181, 9989, 37),
+                        dtype=torch.int32, device=dev).repeat_interleave(H)
+    kw = dict(group=group, page_size=ps, n_kv_heads=H)
+    before = (qa_ops.paged_launches, qa_ops.tc_launches)
+    call = lambda: qa_ops.quant_decode_attention_paged(  # noqa: E731
+        *args, plen, tlen, table, **kw)
+    got = call()
+    assert (qa_ops.paged_launches, qa_ops.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = qa_ref.quant_decode_attention_paged_ref(
+        *args, plen, tlen, table, group=group, n_kv_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+    q, kp, ks, vp, vs, kr, vr = args
+    rows = [qa_ref.paged_rows(t, table, H).contiguous()
+            for t in (kp, ks, vp, vs)]
+    dense = qa_ops.quant_decode_attention(q, *rows, kr, vr, plen, tlen,
+                                          group=group)
+    assert torch.equal(got, dense)
+    assert qa_ops.tc_launches == before[1] + 2
+    names = _pass1_kernels(call)
+    assert names and all("qda_split_kernel_tc" in k for k in names), names
+
+
+# the shapes that keep the first pass 1: one head a KV head (gemma-7b's
+# 16 x 1 x 256) and d 112 with group 28 (zamba2-7b's shared block)
+@pytest.mark.parametrize("H,G,d,group", [(16, 1, 256, 32), (4, 2, 112, 28)])
+def test_b1_b2_keep_the_first_pass_1_off_the_tensor_cores(dev, H, G, d,
+                                                          group):
+    lengths = (2055, 517, 0)
+    args, plen, tlen, table = _b2_case(dev, d + G, lengths, H, G, d, group,
+                                       16, 2064)
+    kw = dict(group=group, page_size=16, n_kv_heads=H)
+    assert not qa_ops.tensor_core_pass(G, d, group)
+    before = qa_ops.tc_launches
+    call = lambda: qa_ops.quant_decode_attention_paged(  # noqa: E731
+        *args, plen, tlen, table, **kw)
+    got = call()
+    want = qa_ref.quant_decode_attention_paged_ref(
+        *args, plen, tlen, table, group=group, n_kv_heads=H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=B1_ATOL, rtol=0)
+    q, kp, ks, vp, vs, kr, vr = args
+    rows = [qa_ref.paged_rows(t, table, H).contiguous()
+            for t in (kp, ks, vp, vs)]
+    dense = qa_ops.quant_decode_attention(q, *rows, kr, vr, plen, tlen,
+                                          group=group)
+    assert torch.equal(got, dense)
+    assert qa_ops.tc_launches == before
+    names = _pass1_kernels(call)
+    assert names and not any("qda_split_kernel_tc" in k for k in names), \
+        names
 
 
 def test_b2_pages_of_16_ending_mid_page_match_plain_and_b1(dev):

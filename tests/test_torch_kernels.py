@@ -337,3 +337,43 @@ def test_ctypes_argtypes_match_the_c_signatures(source, ops):
                  for p in params]
         assert types == kinds, f"{name}: {len(types)} argtypes for " \
                                f"{len(params)} parameters"
+
+
+# (G, d, group) -> whether B1/B2's pass 1 runs on the tensor cores: the
+# served shapes (internlm2-1.8b, qwen3-14b, dbrx-132b, llava-next-34b,
+# qwen1.5-110b, qwen3-moe's 16 heads a KV head, smol-d64 and smol-d256)
+# do; one head a KV head (gemma-7b, whisper) and zamba2-7b's d 112 with
+# group 28 keep the first pass 1, as do groups that split a 32-channel block
+@pytest.mark.parametrize("G,d,group,tc", [
+    (2, 128, 32, True), (5, 128, 32, True), (6, 128, 32, True),
+    (7, 128, 32, True), (8, 128, 32, True), (16, 128, 32, True),
+    (2, 64, 32, True), (4, 256, 32, True), (2, 128, 64, True),
+    (1, 256, 32, False), (1, 64, 32, False), (1, 128, 32, False),
+    (2, 112, 28, False), (1, 112, 28, False), (2, 128, 16, False),
+    (4, 48, 16, False), (2, 96, 32, True),
+])
+def test_tensor_core_pass_is_chosen_by_shape(G, d, group, tc):
+    from repro_torch.kernels.quant_attention import ops as qa_ops_mod
+
+    assert qa_ops_mod.tensor_core_pass(G, d, group) is tc
+
+
+def test_tensor_core_pass_rule_equals_the_kernels():
+    """ops.tensor_core_pass and csrc's tensor_core_pass state one rule:
+    the C function's return expression, spelled in Python, is the
+    wrapper's."""
+    import inspect
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.quant_attention import ops as qa_ops_mod
+
+    src = (Path(qa_ops_mod.__file__).resolve().parents[1] / "csrc"
+           / "quant_attention.cu").read_text()
+    m = re.search(r"bool tensor_core_pass\(int G, int d, int group\) \{\s*"
+                  r"return ([^;]*);", src)
+    assert m
+    c_rule = " ".join(m.group(1).replace("&&", "and").split())
+    py = inspect.getsource(qa_ops_mod.tensor_core_pass)
+    py_rule = " ".join(py[py.rindex("return ") + 7:].split())
+    assert c_rule == py_rule, (c_rule, py_rule)
